@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``epipolarpose_tpu_torch/csrc`` (one
 ``nvcc`` call), holds each kernel against its plain PyTorch version on the
-card, then drives the port's two paths through their entry points:
+card, then drives the port's three paths through their entry points:
 
 1. environment and build: the card, torch/CUDA versions, build seconds;
 2. soft-argmax kernel vs its plain version on a flagship-shaped bf16
@@ -17,7 +17,14 @@ card, then drives the port's two paths through their entry points:
    ``validate`` over 3 seeded random batches; then, with the head re-drawn
    so that the joints decode apart, the step through the kernel against
    the same step through the plain decode on one batch;
-5. the tool path: ``tools.profile_step.bench_conv1x1()``.
+5. the H36M 3D train path (``experiments/h36m/train_fs_r50_256_integral.yaml``:
+   ResNet-50 at 256x256, 17 joints, DEPTH_DIM 64, batch 32, bf16, Adam)
+   via ``create_train_state`` -> ``make_train_step`` -> ``train``, three
+   timed calls of 40 steps each on one seeded batch; then the soft-argmax forward (with its saved
+   statistics) and backward kernels against their plain versions at the
+   flagship shape (32, 17*64, 64, 64), and one train step through the
+   kernels against the same step through the plain decode;
+6. the tool path: ``tools.profile_step.bench_conv1x1()``.
 
 Kernel launch counters are set to 0 just before each path and read just
 after it. Each phase checks its own time limit. Any failed phase makes the
@@ -28,8 +35,10 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
+import math
 import pathlib
 import subprocess
 import sys
@@ -47,11 +56,14 @@ F32_FLOPS = 67e12
 
 # seconds each phase may take; the whole run aims at under 300 s
 PHASE_LIMITS = {"build": 120.0, "softargmax": 30.0, "matmul_stats": 60.0,
-                "eval": 90.0, "tool": 30.0}
+                "eval": 90.0, "train": 150.0, "tool": 30.0}
 
 # H36M left/right joint pairs (the JAX package's data/h36m.py FLIP_PAIRS)
 H36M_FLIP_PAIRS = ((1, 4), (2, 5), (3, 6), (11, 14), (12, 15), (13, 16))
 EVAL_BATCH, EVAL_BATCHES = 64, 3
+# the train path: warm-up steps, then TRAIN_WINDOWS calls of train() of
+# TRAIN_STEPS steps each, each timed on its own (about 1.3 s a window)
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_WINDOWS, TRAIN_WARMUP = 32, 40, 3, 3
 
 
 def log(msg: str) -> None:
@@ -134,6 +146,14 @@ def bf16_ulps(a, b, floor):
                         torch.as_tensor(floor, device=a.device))
     mag = mag.clamp(min=torch.finfo(torch.float32).tiny)
     return (a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def bf16_spacing(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of bfloat16 (8 significant bits) at each entry of ``x``,
+    ``2**(floor(log2|x|) - 7)``, as float32; 0 where ``x`` is 0."""
+    _, e = torch.frexp(x.float())              # |x| = m * 2**e, m in [.5, 1)
+    one = torch.ones_like(x, dtype=torch.float32)
+    return torch.where(x == 0, 0.0, torch.ldexp(one, e - 8))
 
 
 def phase_matmul_stats(res: dict) -> None:
@@ -231,6 +251,31 @@ class SmokeH36M:
         return {"MPJPE": err}, err
 
 
+def spread_volume(n: int, j: int, d: int, h: int, w: int, seed: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Standard-normal logits times 4 plus a +20 peak at a random place in
+    each joint's volume: the softmax is neither uniform nor one-hot, and
+    the joints decode apart."""
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(seed)
+    vol = torch.randn((n, j * d, h, w), generator=g, device=dev) * 4.0
+    peak = torch.randint(0, d * h * w, (n, j, 1), generator=g, device=dev)
+    vol.view(n, j, -1).scatter_add_(
+        -1, peak, torch.full((n, j, 1), 20.0, device=dev))
+    return vol.to(dtype)
+
+
+def redraw_head(model: torch.nn.Module, seed: int) -> None:
+    """Deconv and final conv weights at std 0.05: the init's std 0.001
+    leaves the volumes near uniform, and every joint at the crop centre."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    with torch.no_grad():
+        for mod in (*model.deconv_layers, model.final_layer):
+            weight = getattr(mod, "weight", None)
+            if weight is not None and weight.ndim == 4:
+                weight.normal_(0.0, 0.05, generator=g)
+
+
 def phase_eval(res: dict) -> None:
     from epipolarpose_tpu_torch.config import load_config
     from epipolarpose_tpu_torch.core.function import validate
@@ -238,7 +283,7 @@ def phase_eval(res: dict) -> None:
                                                    make_eval_step)
     from epipolarpose_tpu_torch.kernels.matmul_stats import matmul_stats
     from epipolarpose_tpu_torch.kernels.softargmax import (
-        softmax_integral, softmax_integral_plain)
+        softmax_integral, softmax_integral_bwd, softmax_integral_plain)
     from epipolarpose_tpu_torch.models import get_model
 
     cfg = load_config(ROOT / "experiments/h36m/valid_r50_256_integral.yaml")
@@ -257,12 +302,15 @@ def phase_eval(res: dict) -> None:
     step(data.batches[0])          # warm-up: cuDNN picks its algorithms
     torch.cuda.synchronize()
 
-    softmax_integral.launches = matmul_stats.launches = 0
+    softmax_integral.launches = softmax_integral_bwd.launches = 0
+    matmul_stats.launches = 0
     t0 = time.perf_counter()
     name_values, _ = validate(cfg, data.batches, data, step)
     wall = time.perf_counter() - t0
     launches = softmax_integral.launches
     check(matmul_stats.launches == 0, "eval path launched matmul_stats")
+    check(softmax_integral_bwd.launches == 0,
+          "eval path launched the soft-argmax backward")
     check(launches == EVAL_BATCHES,
           f"soft-argmax kernel launched {launches} times, "
           f"expected {EVAL_BATCHES}")
@@ -281,11 +329,7 @@ def phase_eval(res: dict) -> None:
     # joint decodes to about the crop centre and any decode would agree.
     # Re-draw the head at std 0.05 so the joints land apart, and check that
     # they do, before holding the kernel against the plain decode.
-    g = torch.Generator("cuda").manual_seed(5)
-    with torch.no_grad():
-        for mod in (*model.deconv_layers, model.final_layer):
-            if getattr(mod, "weight", None) is not None and mod.weight.ndim == 4:
-                mod.weight.normal_(0.0, 0.05, generator=g)
+    redraw_head(model, seed=5)
     plain_step = make_eval_step(cfg, model, H36M_FLIP_PAIRS, device="cuda",
                                 decode=softmax_integral_plain)
     a = step(data.batches[0])["preds"]
@@ -307,17 +351,211 @@ def phase_eval(res: dict) -> None:
     check(dxy <= 0.05 and dz <= 0.5, "kernel and plain decode disagree")
 
 
+def train_kernels_vs_plain(res: dict, n: int, j: int, d: int, h: int,
+                           w: int) -> None:
+    """The soft-argmax forward (with statistics) and backward kernels
+    against their plain versions at the train path's shape."""
+    from epipolarpose_tpu_torch.kernels import softargmax as ksa
+    from epipolarpose_tpu_torch.tools.profile_step import time_ms
+    dev = torch.device("cuda")
+    grad = torch.randn((n, j, 3), generator=torch.Generator(dev)
+                       .manual_seed(9), device=dev)
+    gmax = grad.abs().max().item()
+    vol = spread_volume(n, j, d, h, w, seed=8, dtype=torch.bfloat16)
+    coords, stats = ksa.softmax_integral_fwd(vol, j, d)
+    ref_stats = ksa.softmax_integral_stats_plain(vol, j, d)
+    ref = ksa.softmax_integral_plain(vol, j, d)
+    spread = (ref.amax(1) - ref.amin(1)).mean().item()
+    check(spread >= 0.1, f"test volume decodes to joints {spread:.3g} apart")
+    fwd_err = (coords - ref).abs().max().item()
+    # statistics: lse in absolute terms; Ex, Ey, Ez in normalized units
+    lse_err = (stats[..., 0] - ref_stats[..., 0]).abs().max().item()
+    size = torch.tensor([w, h, d], device=dev, dtype=torch.float32)
+    e_err = ((stats[..., 1:] - ref_stats[..., 1:]).abs() / size).max().item()
+    log(f"[train] forward kernel with statistics vs plain at "
+        f"{(n, j * d, h, w)} bf16: coords {fwd_err:.3g} (limit 1e-4), lse "
+        f"{lse_err:.3g} (limit 1e-3), Ex/Ey/Ez {e_err:.3g} of the axis "
+        f"(limit 1e-4)")
+    check(fwd_err <= 1e-4 and lse_err <= 1e-3 and e_err <= 1e-4,
+          "forward kernel statistics disagree with the plain version")
+
+    # float32: within 1e-5 x max|g| everywhere. bfloat16: each entry
+    # within one bf16 spacing of the plain entry (both round the same
+    # float32 value, which may land on either side of a rounding point)
+    # plus 1e-6 x max|g| (the float32 cancellation in a*w + b*h + c*d + r,
+    # times p <= 1), so a fault in the small entries cannot hide under the
+    # largest one's rounding.
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = vol.to(dtype)
+        got = ksa.softmax_integral_bwd(x, stats, grad)
+        want = ksa.softmax_integral_bwd_plain(x, stats, grad)
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        big = want.abs().max().item()
+        if dtype == torch.float32:
+            ratio = err / (1e-5 * gmax)
+            rule = "1e-5 x max|g|"
+        else:
+            ratio = (diff / (bf16_spacing(want) + 1e-6 * gmax)).max().item()
+            rule = "one bf16 spacing of the entry + 1e-6 x max|g|"
+        log(f"[train] backward kernel vs plain, {str(dtype)[6:]}: max "
+            f"|d dlogits| {err:.3g} = {err / gmax:.3g} x max|g|; worst "
+            f"entry at {ratio:.3g} of its limit ({rule}); max |dlogits| "
+            f"{big:.3g}, max |g| {gmax:.3g}")
+        check(big >= 1e-2 * gmax, "backward test gradients are all tiny")
+        check(ratio <= 1.0, f"backward kernel disagrees ({dtype})")
+        errs[dtype] = (err, ratio)
+        del x, got, want, diff
+
+    elems = vol.numel()
+    rows = n * j
+    fwd_ms = time_ms(lambda: ksa.softmax_integral_fwd(vol, j, d), dev)
+    fwd_plain_ms = time_ms(
+        lambda: ksa.softmax_integral_stats_plain(vol, j, d), dev)
+    # per element: one subtract-and-scale, one exp, three accumulations
+    fb_ms, fb_by = bound(elems * 2 + rows * 7 * 4, 5.0 * elems, F32_FLOPS)
+    res["softargmax_fwd_stats"] = dict(
+        max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain_ms,
+        bound_ms=fb_ms, bound_by=fb_by, library_ms=None)
+    bwd_ms = time_ms(lambda: ksa.softmax_integral_bwd(vol, stats, grad),
+                     dev)
+    bwd_plain_ms = time_ms(
+        lambda: ksa.softmax_integral_bwd_plain(vol, stats, grad), dev)
+    # per element: one exp, two multiply-adds for the coefficient, one
+    # multiply; reads the logits, writes dlogits
+    bb_ms, bb_by = bound(elems * 2 * 2 + rows * 7 * 4, 6.0 * elems,
+                         F32_FLOPS)
+    res["softargmax_bwd"] = dict(
+        max_abs_err=errs[torch.bfloat16][0],
+        max_abs_err_f32=errs[torch.float32][0],
+        worst_share_of_limit_bf16=errs[torch.bfloat16][1],
+        ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bb_ms, bound_by=bb_by,
+        library_ms=None)
+    log(f"[train] soft-argmax at {(n, j * d, h, w)} bf16: forward with "
+        f"statistics {fwd_ms:.4f} ms (plain {fwd_plain_ms:.4f} ms, bound "
+        f"{fb_ms:.4f} ms, {fb_by}); backward {bwd_ms:.4f} ms (plain "
+        f"{bwd_plain_ms:.4f} ms, bound {bb_ms:.4f} ms, {bb_by})")
+
+
+def phase_train(res: dict) -> None:
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.core import (create_train_state,
+                                             make_train_step, train)
+    from epipolarpose_tpu_torch.core.steps import configure_backends
+    from epipolarpose_tpu_torch.kernels import softargmax as ksa
+    from epipolarpose_tpu_torch.kernels.matmul_stats import matmul_stats
+    from epipolarpose_tpu_torch.models import get_model
+    from epipolarpose_tpu_torch.tools.profile_step import seeded_train_batch
+
+    cfg = load_config(ROOT / "experiments/h36m/train_fs_r50_256_integral.yaml")
+    check(cfg.TRAIN.BATCH_SIZE == TRAIN_BATCH
+          and cfg.MODEL.EXTRA.DEPTH_DIM == 64
+          and cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+          and cfg.TRAIN.OPTIMIZER == "adam", "unexpected flagship config")
+    joints, depth = int(cfg.MODEL.NUM_JOINTS), int(cfg.MODEL.EXTRA.DEPTH_DIM)
+    size = int(cfg.MODEL.IMAGE_SIZE[0])
+    hm = int(cfg.MODEL.EXTRA.HEATMAP_SIZE[0])
+    bound_mm = float(cfg.MODEL.EXTRA.DEPTH_BOUND)
+    configure_backends(cfg)
+    model = get_model(cfg, True, torch.Generator().manual_seed(6))
+    # steps_per_epoch puts the schedule's first boundary (LR_STEP[0] x it)
+    # far beyond this run: the rate stays LR
+    state = create_train_state(cfg, model, steps_per_epoch=1000,
+                               device="cuda")
+    step = make_train_step(cfg, model, device="cuda")
+    g = torch.Generator("cuda").manual_seed(7)
+    batch = seeded_train_batch(TRAIN_BATCH, size, joints, bound_mm, g,
+                               "cuda")
+    losses = []
+
+    def recording(st, b):
+        st, metrics = step(st, b)
+        losses.append(metrics["loss"])
+        return st, metrics
+
+    for _ in range(TRAIN_WARMUP):  # cuDNN picks its algorithms
+        recording(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ksa.softmax_integral.launches = ksa.softmax_integral_bwd.launches = 0
+    matmul_stats.launches = 0
+    rates = []
+    for epoch in range(TRAIN_WINDOWS):
+        t0 = time.perf_counter()
+        state, _ = train(cfg, [batch] * TRAIN_STEPS, state, recording, epoch)
+        torch.cuda.synchronize()
+        rates.append(TRAIN_BATCH * TRAIN_STEPS / (time.perf_counter() - t0))
+    fwd, bwd = ksa.softmax_integral.launches, ksa.softmax_integral_bwd.launches
+    steps = TRAIN_STEPS * TRAIN_WINDOWS
+    check(matmul_stats.launches == 0, "train path launched matmul_stats")
+    check(fwd == steps and bwd == steps,
+          f"soft-argmax kernels launched {fwd} (forward) and {bwd} "
+          f"(backward) times in {steps} steps")
+    curve = torch.stack(losses).tolist()
+    check(all(math.isfinite(v) for v in curve), f"losses {curve}")
+    check(curve[-1] < curve[0],
+          f"loss did not fall on a repeated batch: {curve}")
+    check(state.step == steps + TRAIN_WARMUP
+          and state.optimizer.param_groups[0]["lr"] == float(cfg.TRAIN.LR),
+          "step count or rate off")
+    res["train_launches"] = (fwd, bwd)
+    res["train_samples_per_s"] = sorted(rates)[len(rates) // 2]
+    res["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[train] ResNet-50@256 J=17 D=64 bf16 Adam, batch {TRAIN_BATCH}: "
+        f"{TRAIN_WINDOWS} x {TRAIN_STEPS} steps via train, samples/s per "
+        f"window " + ", ".join(f"{r:.1f}" for r in rates)
+        + f" (median {res['train_samples_per_s']:.1f}, spread "
+        f"{(max(rates) - min(rates)) / res['train_samples_per_s']:.2%}); "
+        f"peak memory {res['train_peak_gb']:.2f} GB; launches forward "
+        f"{fwd}, backward {bwd}; losses ({TRAIN_WARMUP} warm-up steps "
+        f"first) " + ", ".join(f"{v:.4f}" for v in curve[:6]) + " ... "
+        + ", ".join(f"{v:.4f}" for v in curve[-3:]))
+
+    train_kernels_vs_plain(res, TRAIN_BATCH, joints, depth, hm, hm)
+
+    # one step through the kernels against the same step through the plain
+    # decode, from identical state (head re-drawn so the joints spread)
+    redraw_head(model, seed=10)
+    twin = copy.deepcopy(model)
+    b2 = seeded_train_batch(TRAIN_BATCH, size, joints, bound_mm, g, "cuda")
+    out = {}
+    for name, m, decode in (("kernel", model, ksa.softmax_integral),
+                            ("plain", twin, ksa.softmax_integral_plain)):
+        st = create_train_state(cfg, m, steps_per_epoch=1000, device="cuda")
+        _, metrics = make_train_step(cfg, m, "cuda", decode)(st, b2)
+        out[name] = (metrics["loss"].item(),
+                     m.final_layer.weight.grad.detach().clone())
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    dgrad = (gk - gp).abs().max().item()
+    gmax = gp.abs().max().item()
+    # the decodes agree to 1e-4 per coordinate; the loss sums 3*J of them
+    # per sample; dlogits round to bf16 on both routes
+    loss_limit = 3 * joints * 1e-4
+    log(f"[train] one step, kernels vs plain decode: loss {lk:.6f} vs "
+        f"{lp:.6f} (|d| {abs(lk - lp):.3g}, limit {loss_limit:.3g}); "
+        f"final_layer.weight grad max |d| {dgrad:.3g} = "
+        f"{dgrad / max(gmax, 1e-30):.3g} x max|grad| (limit 2^-7)")
+    check(math.isfinite(lk) and abs(lk - lp) <= loss_limit,
+          "train step loss: kernels and plain decode disagree")
+    check(gmax > 0 and dgrad <= 2 ** -7 * gmax,
+          "final_layer gradient: kernels and plain decode disagree")
+
+
 def phase_tool(res: dict) -> None:
     from epipolarpose_tpu_torch.kernels.matmul_stats import matmul_stats
-    from epipolarpose_tpu_torch.kernels.softargmax import softmax_integral
+    from epipolarpose_tpu_torch.kernels.softargmax import (
+        softmax_integral, softmax_integral_bwd)
     from epipolarpose_tpu_torch.tools.profile_step import (CONV1X1_SHAPES,
                                                            bench_conv1x1)
-    softmax_integral.launches = matmul_stats.launches = 0
+    softmax_integral.launches = softmax_integral_bwd.launches = 0
+    matmul_stats.launches = 0
     rows = bench_conv1x1(iters=5)
     launches = matmul_stats.launches
     check(len(rows) == len(CONV1X1_SHAPES), "bench skipped shapes")
     check(launches > 0, "tool path never launched the matmul_stats kernel")
-    check(softmax_integral.launches == 0, "tool path launched softargmax")
+    check(softmax_integral.launches == softmax_integral_bwd.launches == 0,
+          "tool path launched softargmax")
     res["tool_launches"] = launches
     log(f"[tool] bench_conv1x1: {len(rows)} shapes, matmul_stats "
         f"launches {launches}")
@@ -335,14 +573,15 @@ def main() -> int:
     res: dict = {}
     phases = [("build", phase_env), ("softargmax", phase_softargmax),
               ("matmul_stats", phase_matmul_stats), ("eval", phase_eval),
-              ("tool", phase_tool)]
+              ("train", phase_train), ("tool", phase_tool)]
     failed = []
     for i, (name, fn) in enumerate(phases, 1):
         if failed and failed[0] == "build":
             failed.append(name)
-            log(f"[phase {i}/5 {name}] skipped: the build failed")
+            log(f"[phase {i}/{len(phases)} {name}] skipped: the build "
+                f"failed")
             continue
-        log(f"[phase {i}/5 {name}] start")
+        log(f"[phase {i}/{len(phases)} {name}] start")
         t0 = time.perf_counter()
         try:
             fn(res)
@@ -350,10 +589,10 @@ def main() -> int:
             dt = time.perf_counter() - t0
             check(dt <= PHASE_LIMITS[name],
                   f"took {dt:.1f} s > limit {PHASE_LIMITS[name]:.0f} s")
-            log(f"[phase {i}/5 {name}] ok in {dt:.1f} s")
+            log(f"[phase {i}/{len(phases)} {name}] ok in {dt:.1f} s")
         except Exception:
             failed.append(name)
-            log(f"[phase {i}/5 {name}] FAILED after "
+            log(f"[phase {i}/{len(phases)} {name}] FAILED after "
                 f"{time.perf_counter() - t0:.1f} s")
             traceback.print_exc(file=sys.stdout)
             sys.stdout.flush()
@@ -364,15 +603,25 @@ def main() -> int:
         return 1
 
     k1, k2 = res["softargmax"], res["matmul_stats"]
+    pallas = ("epipolarpose_tpu/ops/pallas/softargmax.py:{} "
+              "(fused_softmax_integral{}; git show f1b68e4)")
     kernels = [
         dict(name="softargmax_fwd", route="cuda",
              source="epipolarpose_tpu_torch/csrc/softargmax.cu",
-             replaces="epipolarpose_tpu/ops/pallas/softargmax.py:98 "
-                      "(fused_softmax_integral; git show f1b68e4)",
+             replaces=pallas.format(98, ""), path="eval",
              launches=res["eval_launches"], **k1),
+        dict(name="softargmax_fwd_stats", route="cuda",
+             source="epipolarpose_tpu_torch/csrc/softargmax.cu",
+             replaces=pallas.format(98, ""), path="train",
+             launches=res["train_launches"][0],
+             **res["softargmax_fwd_stats"]),
+        dict(name="softargmax_bwd", route="cuda",
+             source="epipolarpose_tpu_torch/csrc/softargmax.cu",
+             replaces=pallas.format(174, " backward, _bwd"), path="train",
+             launches=res["train_launches"][1], **res["softargmax_bwd"]),
         dict(name="matmul_stats", route="cuda",
              source="epipolarpose_tpu_torch/csrc/matmul_stats.cu",
-             replaces="tools/profile_step.py:152",
+             replaces="tools/profile_step.py:152", path="tool",
              launches=res["tool_launches"], **k2),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

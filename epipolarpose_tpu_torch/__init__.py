@@ -7,15 +7,19 @@ keeps as its own copy. Layout mirrors the reference package:
 
 - config:    the YAML schema and ``load_config`` / ``update_config``.
 - geometry:  crop affines, ``transform_preds``, flip-back of model outputs.
-- ops:       soft-argmax decode (``softmax_integral``), MPJPE metrics.
-- models:    ``PoseResNet`` as an ``nn.Module`` (NCHW), and the weight
-             bridge from the reference package's variables.
-- core:      the eval step (flip test, decode, ``transform_preds``) and
-             ``validate``.
+- ops:       soft-argmax decode (``softmax_integral``, differentiable),
+             integral targets, the integral L1 loss, MPJPE metrics.
+- models:    ``PoseResNet`` as an ``nn.Module`` (NCHW, flax's BatchNorm
+             convention), and the weight bridge from the reference
+             package's variables.
+- core:      the train step (forward, soft-argmax, L1, backward, Adam or
+             SGD) with its ``TrainState`` and ``train`` loop; the eval step
+             (flip test, decode, ``transform_preds``) and ``validate``.
 - kernels:   hand-written CUDA kernels (``csrc/*.cu``) built with ``nvcc``
              into one shared library bound through ``ctypes``; every kernel
              keeps its plain PyTorch version beside it.
-- tools:     ``profile_step --conv1x1``, the 1x1-conv matmul+stats bench.
+- tools:     ``profile_step --step`` (the train step and its parts) and
+             ``--conv1x1`` (the 1x1-conv matmul+stats bench).
 
 Entry points take a ``device`` argument that defaults to ``"cuda"``; the
 CPU runs only when the caller asks for it.

@@ -1,8 +1,10 @@
-"""Validation loop: the reference ``validate`` shape, driving the eval step.
+"""Epoch loops: the reference ``train`` and ``validate`` shapes.
 
 Counterpart of the JAX package's ``core/function.py`` (``AverageMeter``,
-``validate``) for one process: predictions are gathered on the host and
-handed to ``dataset.evaluate``.
+``train``, ``validate``) for one process and one batch per step
+(``TPU.FUSED_STEPS`` has no counterpart here). ``train`` waits for the
+card only when it logs; ``validate`` gathers predictions on the host and
+hands them to ``dataset.evaluate``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,36 @@ class AverageMeter:
 
 def _host(a) -> np.ndarray:
     return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def train(cfg, loader, state, train_step, epoch: int):
+    """One training epoch of ``train_step`` over ``loader`` (any iterable
+    of batches). Logs every ``PRINT_FREQ`` batches, the only points where
+    it waits for the card. Returns (state, average of the logged losses).
+    """
+    if cfg.DEBUG.DEBUG:
+        raise NotImplementedError("DEBUG.DEBUG image dumps need utils/vis, "
+                                  "which is not ported yet")
+    batch_time, data_time, losses = (AverageMeter(), AverageMeter(),
+                                     AverageMeter())
+    end = time.time()
+    metrics = None
+    for i, batch in enumerate(loader):
+        data_time.update(time.time() - end)
+        state, metrics = train_step(state, batch)
+        n = int(batch["input"].shape[0])
+        if i % int(cfg.PRINT_FREQ) == 0:
+            losses.update(float(metrics["loss"]), n)   # waits for the card
+            batch_time.update(time.time() - end)
+            speed = n / max(batch_time.val, 1e-9)
+            logger.info(f"Epoch: [{epoch}][{i}]\t"
+                        f"Time {batch_time.val:.3f}s ({speed:.1f} "
+                        f"samples/s)\tData {data_time.val:.3f}s\t"
+                        f"Loss {losses.val:.5f} ({losses.avg:.5f})")
+        end = time.time()
+    if metrics is not None and losses.count == 0:
+        losses.update(float(metrics["loss"]))
+    return state, losses.avg
 
 
 def validate(cfg, loader, dataset, eval_step, output_dir=None):

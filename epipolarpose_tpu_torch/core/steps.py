@@ -1,9 +1,11 @@
-"""The eval step: normalize, forward (+ flipped forward), decode, un-crop.
+"""The train and eval steps for ``TARGET_TYPE: integral``.
 
-Counterpart of the JAX package's ``core/steps.py::make_eval_step`` for
-``TARGET_TYPE: integral``. A batch is what the JAX loaders ship: ``input``
-uint8 crops (N, H, W, 3) NHWC, ``center`` and ``scale`` (N, 2); numpy
-arrays or tensors, moved to the step's device. The model runs NCHW.
+Counterparts of the JAX package's ``core/steps.py::make_train_step`` and
+``make_eval_step``. A batch is what the JAX loaders ship: ``input`` uint8
+crops (N, H, W, 3) NHWC; for training ``joints`` (N, J, 2+) crop pixels,
+``joints_vis`` (N, J) or (N, J, k) and, in 3D, ``joints_3d`` (N, J, 3)
+in mm; for eval ``center`` and ``scale`` (N, 2). Numpy arrays or tensors,
+moved to the step's device. The model runs NCHW.
 """
 
 from __future__ import annotations
@@ -16,8 +18,10 @@ import torch
 from epipolarpose_tpu_torch.geometry.affine import (flip_back_volume,
                                                     shift_right,
                                                     transform_preds)
-from epipolarpose_tpu_torch.ops.integral import (integral_to_camera_depth,
+from epipolarpose_tpu_torch.ops.integral import (generate_integral_target,
+                                                 integral_to_camera_depth,
                                                  softmax_integral)
+from epipolarpose_tpu_torch.ops.losses import integral_l1_loss
 
 # ImageNet mean/std (torchvision Normalize constants of the reference)
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -33,6 +37,12 @@ def normalize_images(x: torch.Tensor) -> torch.Tensor:
     return (x.to(torch.float32) - mean) / std
 
 
+def _root_relative_depth(joints_3d: torch.Tensor, root_idx: int
+                         ) -> torch.Tensor:
+    z = joints_3d[..., 2]
+    return z - z[..., root_idx:root_idx + 1]
+
+
 def configure_backends(cfg) -> None:
     """Set PyTorch's process-wide GPU math flags for a config.
 
@@ -40,13 +50,70 @@ def configure_backends(cfg) -> None:
     cuDNN convolutions and cuBLAS matmuls: float32 configs are the ones
     held against the JAX package, and TF32 keeps about three digits.
     bfloat16 configs do not reach TF32 either way. The entry point calls
-    this once, as the reference's scripts do; ``make_eval_step`` does not.
+    this once, as the reference's scripts do; the step builders do not.
     """
     torch.backends.cudnn.benchmark = bool(cfg.CUDNN.BENCHMARK)
     torch.backends.cudnn.deterministic = bool(cfg.CUDNN.DETERMINISTIC)
     torch.backends.cudnn.enabled = bool(cfg.CUDNN.ENABLED)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def make_train_step(cfg, model: torch.nn.Module,
+                    device: str | torch.device = "cuda",
+                    decode: Callable = softmax_integral):
+    """Build ``step(state, batch) -> (state, {"loss": tensor})``.
+
+    One optimizer step of ``state``, a ``TrainState`` whose ``model`` is
+    ``model`` itself (its optimizer holds that model's parameters; any
+    other model, a copy included, raises): the forward in train mode (BN
+    on batch statistics, which it updates), the soft-argmax (``decode``:
+    the CUDA kernels on the card, with their backward), the integral L1
+    loss, the backward, ``optimizer.step()`` and ``scheduler.step()``. The
+    loss stays on the device: nothing waits for the card. ``model`` is
+    moved to ``device``.
+    """
+    if cfg.MODEL.EXTRA.TARGET_TYPE != "integral":
+        raise NotImplementedError("gaussian training needs the 2D heatmap "
+                                  "ops, which are not ported yet")
+    device = torch.device(device)
+    image_size = tuple(float(v) for v in cfg.MODEL.IMAGE_SIZE)
+    depth_dim = int(cfg.MODEL.EXTRA.DEPTH_DIM)
+    depth_bound = float(cfg.MODEL.EXTRA.get("DEPTH_BOUND", 1000.0))
+    num_joints = int(cfg.MODEL.NUM_JOINTS)
+    use_tw = bool(cfg.LOSS.USE_TARGET_WEIGHT)
+    root_idx = 0
+    model = model.to(device)
+
+    def to_device(a) -> torch.Tensor:
+        return torch.as_tensor(a).to(device, non_blocking=True)
+
+    def step(state, batch):
+        if state.model is not model:
+            raise ValueError("the train state holds another model than the "
+                             "one this step was built for")
+        x = normalize_images(to_device(batch["input"]))
+        x = x.permute(0, 3, 1, 2).contiguous()
+        depth = None
+        if "joints_3d" in batch:
+            depth = _root_relative_depth(
+                to_device(batch["joints_3d"]).float(), root_idx)
+        target, tw = generate_integral_target(
+            to_device(batch["joints"]).float(), to_device(batch["joints_vis"]),
+            image_size, depth_bound=depth_bound, joints_depth=depth)
+        if not use_tw:
+            tw = None
+        model.train()
+        coords = decode(model(x), num_joints, depth_dim)
+        loss = integral_l1_loss(coords, target, tw)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        return state, {"loss": loss.detach()}
+
+    return step
 
 
 def make_eval_step(cfg, model: torch.nn.Module, flip_pairs=(),

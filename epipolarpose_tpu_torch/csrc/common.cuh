@@ -1,4 +1,5 @@
-// Shared helpers of the kernel library: 16-byte vector loads of bf16/f32.
+// Shared helpers of the kernel library: 16-byte vector loads and stores of
+// bf16/f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,4 +27,19 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* v) {
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
+}
+
+// Narrow Vec16<T>::N floats to T and store them at a 16-byte aligned address.
+__device__ __forceinline__ void store16(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
+  uint4 q;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  }
+  *reinterpret_cast<uint4*>(p) = q;
 }

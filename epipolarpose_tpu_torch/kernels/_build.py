@@ -37,7 +37,8 @@ _p = ctypes.c_void_p
 _i = ctypes.c_int
 # exported C functions: name -> argument types (all return cudaError_t)
 SIGNATURES = {
-    "epk_softargmax_fwd": (_p, _p, _i, _i, _i, _i, _i, _i, _p),
+    "epk_softargmax_fwd": (_p, _p, _p, _i, _i, _i, _i, _i, _i, _p),
+    "epk_softargmax_bwd": (_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p),
     "epk_matmul_stats": (_p, _p, _p, _p, _i, _i, _i, _i, _p),
 }
 

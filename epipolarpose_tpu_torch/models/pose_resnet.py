@@ -6,6 +6,11 @@ state-dict keys (``conv1``, ``layer{i}.{b}.conv{k}``, ``.downsample.{0,1}``,
 ``deconv_layers.{3m,3m+1}``, ``final_layer``), so the weight bridge in
 ``models/convert.py`` loads with ``strict=True``.
 
+BatchNorm follows flax's convention in train mode (:class:`BatchNorm2d`):
+it normalizes with the biased batch variance, as ``nn.BatchNorm2d`` does,
+and also keeps the biased variance in ``running_var``, where
+``nn.BatchNorm2d`` keeps the unbiased one; momentum 0.1 here is flax's 0.9.
+
 Compute dtype: parameters and BatchNorm statistics stay float32. With
 ``dtype=torch.bfloat16`` (``TPU.COMPUTE_DTYPE: bfloat16``, the flagship)
 the forward runs under ``torch.autocast``: convolutions and deconvolutions
@@ -56,8 +61,31 @@ def _trunc_normal_(t: torch.Tensor, std: float,
     return t.clamp_(-2 * std, 2 * std)
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=_BN_EPS, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode update keeps flax's biased
+    running variance.
+
+    torch adds ``m * var * n/(n-1)`` to ``(1-m) * running_var``; flax adds
+    ``m * var``. With the old buffer ``old`` and torch's result ``new``,
+    flax's value is ``new * (n-1)/n + (1-m) * old / n``, that is
+    ``lerp(new, (1-m) * old, 1/n)``: a per-channel fix of two small
+    kernels that reads no activation again. It replaces the buffer rather
+    than writing into it, since autograd saved the buffer for the backward.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        old = self.running_var * (1.0 - self.momentum)
+        y = super().forward(x)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_var = torch.lerp(self.running_var, old, 1.0 / n)
+        return y
+
+
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=_BN_EPS, momentum=0.1)
 
 
 class BasicBlock(nn.Module):

@@ -1,0 +1,42 @@
+"""Training losses (counterparts of the JAX package's ``ops/losses.py``).
+
+Only the integral L1 loss is ported; ``JointsMSELoss`` comes with the 2D
+heatmap ops.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def integral_l1_loss(pred_coords: torch.Tensor, target_coords: torch.Tensor,
+                     target_weight: torch.Tensor | None = None
+                     ) -> torch.Tensor:
+    """L1 loss on normalized (x, y, z): ``sum(|err| * w) / N``.
+
+    pred/target: (N, J, 3); target_weight: (N, J) or (N, J, 3). Divides by
+    the batch size, not the weighted count, as the JAX loss does. Masks
+    with ``where`` so that a nan target under zero weight stays out.
+    """
+    err = (pred_coords - target_coords).abs()
+    n = max(err.shape[0], 1)
+    if target_weight is not None:
+        if target_weight.ndim == err.ndim - 1:
+            target_weight = target_weight[..., None]
+        err = torch.where(target_weight > 0, err * target_weight,
+                          torch.zeros((), dtype=err.dtype, device=err.device))
+    return err.sum() / n
+
+
+def make_loss(cfg):
+    """``criterion(output, target, target_weight)`` for ``LOSS.TYPE``."""
+    use_tw = bool(cfg.LOSS.USE_TARGET_WEIGHT)
+    if cfg.LOSS.TYPE == "JointsMSELoss":
+        raise NotImplementedError("JointsMSELoss comes with the 2D heatmap "
+                                  "ops, which are not ported yet")
+    if cfg.LOSS.TYPE == "IntegralL1Loss":
+        def criterion(output, target, target_weight):
+            return integral_l1_loss(output, target,
+                                    target_weight if use_tw else None)
+        return criterion
+    raise ValueError(f"unknown LOSS.TYPE: {cfg.LOSS.TYPE}")

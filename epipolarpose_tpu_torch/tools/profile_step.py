@@ -1,24 +1,49 @@
-"""Matmul + BN-stats bench over the 15 ResNet-50 1x1-conv shapes.
+"""Train-step breakdown, and the matmul + BN-stats bench.
 
+    python -m epipolarpose_tpu_torch.tools.profile_step --step
     python -m epipolarpose_tpu_torch.tools.profile_step --conv1x1
 
-Counterpart of the JAX package's ``tools/profile_step.py --conv1x1``: the
-hand-written kernel that emits ``(y, sum y, sum y^2)`` in one pass
-(``kernels/matmul_stats.py``) against the unfused PyTorch counterpart of
-``xla_matmul_stats``, a matmul followed by separate stats reductions.
-Times are CUDA-event times per call on the card. ``--step`` (the
-train-step roofline) comes with the training slice.
+Counterparts of the JAX package's ``tools/profile_step.py``. Times are
+CUDA-event times per call on the card; both modes need one.
+
+``--step`` (:func:`bench_step`): the flagship train step
+(``experiments/h36m/train_fs_r50_256_integral.yaml``, batch 128) in ms
+and samples/s; the model forward with BN on running statistics against
+BN on batch statistics; and the soft-argmax + L1 loss, forward and
+forward + backward, through the CUDA kernels and through the plain
+versions. XLA's cost analysis, which the JAX tool prints beside the step,
+has no counterpart here: the tool prints the soft-argmax kernels' bytes
+bound instead.
+
+``--conv1x1`` (:func:`bench_conv1x1`): the hand-written kernel that emits
+``(y, sum y, sum y^2)`` in one pass (``kernels/matmul_stats.py``) against
+the unfused PyTorch counterpart of ``xla_matmul_stats``, a matmul followed
+by separate stats reductions, over the 15 ResNet-50 1x1-conv shapes.
 """
 
 from __future__ import annotations
 
 import argparse
+import pathlib
 import time
 from typing import Callable
 
 import torch
 
+from epipolarpose_tpu_torch.config import load_config
+from epipolarpose_tpu_torch.core import (create_train_state, make_train_step,
+                                         normalize_images)
+from epipolarpose_tpu_torch.core.steps import configure_backends
+from epipolarpose_tpu_torch.kernels import softargmax as ksa
 from epipolarpose_tpu_torch.kernels.matmul_stats import matmul_stats
+from epipolarpose_tpu_torch.models import get_model
+from epipolarpose_tpu_torch.ops import (generate_integral_target,
+                                        integral_l1_loss)
+
+TRAIN_CONFIG = (pathlib.Path(__file__).resolve().parents[2]
+                / "experiments/h36m/train_fs_r50_256_integral.yaml")
+# H100 SXM HBM3 rate (NVIDIA data sheet), for the soft-argmax bytes bound
+HBM_BYTES_PER_S = 3.35e12
 
 # ResNet-50 @ 256^2 bs128: all 15 distinct (M, K, N) 1x1-conv shapes.
 # M = batch * H * W per stage (64^2, 32^2, 16^2, 8^2 feature maps).
@@ -98,17 +123,104 @@ def bench_conv1x1(shapes=CONV1X1_SHAPES, device: str | torch.device = "cuda",
     return rows
 
 
+def seeded_train_batch(n: int, size: int, joints: int, depth_bound: float,
+                       generator: torch.Generator, device) -> dict:
+    """A random train batch on ``device``: uint8 crops (n, size, size, 3),
+    ``joints`` inside the crop, all visible, ``joints_3d`` within
+    +-``depth_bound`` of the root."""
+    g, dev = generator, torch.device(device)
+    return {
+        "input": torch.randint(0, 256, (n, size, size, 3), generator=g,
+                               device=dev, dtype=torch.uint8),
+        "joints": size * torch.rand((n, joints, 2), generator=g, device=dev),
+        "joints_vis": torch.ones((n, joints), device=dev),
+        "joints_3d": depth_bound * (2 * torch.rand(
+            (n, joints, 3), generator=g, device=dev) - 1),
+    }
+
+
+def bench_step(config=TRAIN_CONFIG, batch: int = 128,
+               device: str | torch.device = "cuda", iters: int = 10,
+               seed: int = 0) -> dict:
+    """Time the train step of ``config`` and its parts at ``batch``.
+
+    Random weights and a random batch, both from ``seed``. Prints a table
+    and returns the times (ms) with the soft-argmax bytes bounds.
+    """
+    device = torch.device(device)
+    cfg = load_config(config)
+    configure_backends(cfg)
+    joints = int(cfg.MODEL.NUM_JOINTS)
+    depth = int(cfg.MODEL.EXTRA.DEPTH_DIM)
+    size = int(cfg.MODEL.IMAGE_SIZE[0])
+    bound_mm = float(cfg.MODEL.EXTRA.DEPTH_BOUND)
+    model = get_model(cfg, True, torch.Generator().manual_seed(seed))
+    state = create_train_state(cfg, model, steps_per_epoch=10 ** 6,
+                               device=device)
+    step = make_train_step(cfg, model, device=device)
+    gen = torch.Generator(device).manual_seed(seed)
+    b = seeded_train_batch(batch, size, joints, bound_mm, gen, device)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    res = {"device": name, "batch": batch}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    res["step_ms"] = time_ms(lambda: step(state, b), device, iters)
+    res["samples_per_s"] = batch / res["step_ms"] * 1e3
+    if device.type == "cuda":
+        res["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+
+    x = normalize_images(b["input"]).permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        model.eval()
+        res["fwd_eval_bn_ms"] = time_ms(lambda: model(x), device, iters)
+        model.train()
+        res["fwd_train_bn_ms"] = time_ms(lambda: model(x), device, iters)
+        logits = model(x)
+    target, tw = generate_integral_target(
+        b["joints"], b["joints_vis"], cfg.MODEL.IMAGE_SIZE, bound_mm,
+        b["joints_3d"][..., 2] - b["joints_3d"][..., :1, 2])
+    logits.requires_grad_(True)
+
+    def loss_of(decode):
+        return integral_l1_loss(decode(logits, joints, depth), target, tw)
+
+    for label, decode in (("kernel", ksa.softmax_integral),
+                          ("plain", ksa.softmax_integral_plain)):
+        res[f"softargmax_l1_fwd_{label}_ms"] = time_ms(
+            lambda: loss_of(decode), device, iters)
+        res[f"softargmax_l1_fwd_bwd_{label}_ms"] = time_ms(
+            lambda: torch.autograd.grad(loss_of(decode), logits), device,
+            iters)
+    elems = logits.numel() * logits.element_size()
+    rows = batch * joints
+    res["softargmax_fwd_bound_ms"] = (elems + rows * 7 * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    res["softargmax_bwd_bound_ms"] = (2 * elems + rows * 7 * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    print(f"train step of {pathlib.Path(config).name} on {name}, batch "
+          f"{batch}, ms per call (CUDA events)", flush=True)
+    for k, v in res.items():
+        if k.endswith("_ms") or k in ("samples_per_s", "peak_gb"):
+            print(f"{k:>32} | {v:10.4f}", flush=True)
+    return res
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--conv1x1", action="store_true",
-                   help="time the matmul+stats kernel on the 1x1-conv shapes")
-    p.add_argument("--step", action="store_true",
-                   help="train-step roofline (comes with the training slice)")
+    mode = p.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--step", action="store_true",
+                      help="time the flagship train step and its parts")
+    mode.add_argument("--conv1x1", action="store_true",
+                      help="time the matmul+stats kernel on the 1x1-conv "
+                           "shapes")
     args = p.parse_args(argv)
-    if args.step or not args.conv1x1:
-        p.error("only --conv1x1 is ported; --step comes with the training "
-                "slice")
-    bench_conv1x1()
+    if not torch.cuda.is_available():
+        p.error("the benches time the CUDA card and there is none")
+    if args.step:
+        bench_step()
+    else:
+        bench_conv1x1()
 
 
 if __name__ == "__main__":

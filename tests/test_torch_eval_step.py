@@ -203,11 +203,16 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 def test_cpu_tensor_never_reaches_the_kernel_library():
-    """A CPU tensor takes the plain version: no build, no launch count."""
+    """A CPU tensor takes the plain twins, forward and backward: no build,
+    no launch count."""
     before = ksa.softmax_integral.launches
+    before_bwd = ksa.softmax_integral_bwd.launches
     x = torch.zeros((1, 2, 8, 8))
     ksa.softmax_integral(x, 2, 1)
+    ksa.softmax_integral(x.requires_grad_(True), 2, 1).sum().backward()
+    assert x.grad is not None
     assert ksa.softmax_integral.launches == before
+    assert ksa.softmax_integral_bwd.launches == before_bwd
     assert _build.library.cache_info().currsize == 0
 
 
@@ -264,6 +269,16 @@ def test_smoke_bf16_ulps(smoke):
     u = smoke.bf16_ulps(a, b, 0.0)
     assert u[0] == 0 and u[1] == 1.0 and u[2] > 1.0
     assert smoke.bf16_ulps(a, b, 1.0)[2] < 1.0          # counted at the floor
+
+
+def test_smoke_bf16_spacing(smoke):
+    x = torch.tensor([1.0, 1.5, -3.0, 2 ** -7, 0.0, 1.0 - 2 ** -8])
+    want = torch.tensor([2 ** -7, 2 ** -7, 2 ** -6, 2 ** -14, 0.0, 2 ** -8])
+    assert torch.equal(smoke.bf16_spacing(x), want)
+    bf = x.to(torch.bfloat16)                    # exact: 8 significant bits
+    up = (bf.float() + smoke.bf16_spacing(x)).to(torch.bfloat16)
+    assert torch.all((up.float() - bf.float())[:4] > 0)
+    assert torch.equal(smoke.bf16_spacing(x.to(torch.bfloat16)), want)
 
 
 def test_smoke_dataset_scores_root_relative_mpjpe(smoke):

@@ -7,10 +7,15 @@ JAX (``--noconftest`` skips the suite's JAX setup there):
         tests/test_torch_kernels.py
 
 Without a CUDA card every test here skips. Tolerances: soft-argmax 1e-5
-in normalized coordinates (float32 sums in other orders); matmul y within
-one bf16 spacing (both round an f32 sum of the same products; entries
-below 1/256 of y's rms are measured at that floor), stats 1e-3 of the
-largest stat (atomics add block partials in any order).
+in normalized coordinates (float32 sums in other orders); its saved
+statistics 1e-4 in lse and 1e-5 of the axis length in Ex, Ey, Ez; its
+backward 1e-5 of the largest incoming gradient in float32 (both round the
+same float32 product in other orders) and 2^-7 of it in bfloat16 (one
+bf16 spacing of the output, whose entries stay below the incoming
+gradient); matmul y within one bf16 spacing (both round an f32 sum of the
+same products; entries below 1/256 of y's rms are measured at that
+floor), stats 1e-3 of the largest stat (atomics add block partials in any
+order).
 """
 
 import numpy as np
@@ -18,6 +23,7 @@ import pytest
 import torch
 
 from epipolarpose_tpu_torch.config import load_config
+from epipolarpose_tpu_torch.core import create_train_state, make_train_step
 from epipolarpose_tpu_torch.core.steps import (configure_backends,
                                                make_eval_step)
 from epipolarpose_tpu_torch.kernels import matmul_stats as kms
@@ -64,12 +70,90 @@ def test_softargmax_kernel_matches_plain(cuda, dtype, shape):
         assert torch.all(got[..., 2] == 0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 3, 1, 16, 16), (2, 17, 8, 13, 24),
+                                   (2, 4, 64, 8, 16)])
+def test_softargmax_forward_saves_the_plain_statistics(cuda, dtype, shape):
+    n, j, d, h, w = shape
+    g = torch.Generator(cuda).manual_seed(1)
+    x = (3 * torch.randn((n, j * d, h, w), generator=g, device=cuda)).to(dtype)
+    before = ksa.softmax_integral.launches
+    coords, stats = ksa.softmax_integral_fwd(x, j, d)
+    assert ksa.softmax_integral.launches == before + 1
+    want = ksa.softmax_integral_stats_plain(x, j, d)
+    torch.testing.assert_close(stats[..., 0], want[..., 0], rtol=0,
+                               atol=1e-4)
+    for axis, size in ((1, w), (2, h), (3, d)):
+        torch.testing.assert_close(stats[..., axis], want[..., axis],
+                                   rtol=0, atol=1e-5 * size)
+    torch.testing.assert_close(coords, ksa.softmax_integral_plain(x, j, d),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 3, 1, 16, 16), (2, 17, 8, 13, 24),
+                                   (2, 4, 64, 8, 16)])
+def test_softargmax_backward_kernel_matches_plain(cuda, dtype, shape):
+    n, j, d, h, w = shape
+    g = torch.Generator(cuda).manual_seed(2)
+    x = (3 * torch.randn((n, j * d, h, w), generator=g, device=cuda)).to(dtype)
+    grad = torch.randn((n, j, 3), generator=g, device=cuda)
+    stats = ksa.softmax_integral_stats_plain(x, j, d)
+    before = ksa.softmax_integral_bwd.launches
+    got = ksa.softmax_integral_bwd(x, stats, grad)
+    assert ksa.softmax_integral_bwd.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = ksa.softmax_integral_bwd_plain(x, stats, grad)
+    gmax = grad.abs().max()
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert diff.max() <= 1e-5 * gmax
+    else:
+        # each entry within one bf16 spacing of the plain entry (both round
+        # one float32 value) plus 1e-6 x max|g| (float32 cancellation)
+        _, e = torch.frexp(want.float())
+        spacing = torch.where(want == 0, 0.0,
+                              torch.ldexp(torch.ones_like(diff), e - 8))
+        assert (diff <= spacing + 1e-6 * gmax).all()
+    assert want.abs().max() > 1e-3 * gmax
+
+
+def test_softargmax_gradient_on_card_matches_cpu(cuda):
+    """Through the autograd Function on the card (both kernels) against
+    ordinary autograd of the plain version on the CPU, float32; a
+    non-contiguous incoming gradient; no statistics without a gradient."""
+    n, j, d, h, w = 2, 5, 8, 12, 16
+    x = 3 * torch.randn((n, j * d, h, w), generator=torch.Generator()
+                        .manual_seed(3))
+    grad = torch.randn((n, 3, j), generator=torch.Generator().manual_seed(4))
+    grad = grad.transpose(1, 2)                    # (n, j, 3), strided
+    xc = x.clone().requires_grad_(True)
+    ksa.softmax_integral(xc, j, d).backward(grad)
+    xg = x.to(cuda).requires_grad_(True)
+    fwd, bwd = ksa.softmax_integral.launches, ksa.softmax_integral_bwd.launches
+    out = ksa.softmax_integral(xg, j, d)
+    assert out.grad_fn is not None
+    out.backward(grad.to(cuda))
+    assert ksa.softmax_integral.launches == fwd + 1
+    assert ksa.softmax_integral_bwd.launches == bwd + 1
+    torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=0,
+                               atol=1e-5 * xc.grad.abs().max().item())
+    with torch.inference_mode():
+        assert ksa.softmax_integral(xg, j, d).grad_fn is None
+
+
 def test_softargmax_kernel_rejects_what_it_does_not_take(cuda):
     x = torch.zeros((2, 6, 8, 16), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         ksa.softmax_integral(x.transpose(2, 3), 3, 2)
     with pytest.raises(TypeError):
         ksa.softmax_integral(x.half(), 3, 2)
+    stats = torch.zeros((2, 3, 4), device=cuda)
+    grad = torch.zeros((2, 3, 3), device=cuda)
+    with pytest.raises(ValueError, match="stats"):
+        ksa.softmax_integral_bwd(x, stats[..., :3].contiguous(), grad)
+    with pytest.raises(ValueError, match="grad"):
+        ksa.softmax_integral_bwd(x, stats, grad.double())
 
 
 @pytest.mark.parametrize("shape", [(256, 64, 64), (300, 72, 200),
@@ -113,3 +197,53 @@ def test_eval_step_on_card_matches_cpu(cuda):
     got, want = got["preds"].cpu(), want["preds"]
     torch.testing.assert_close(got[..., :2], want[..., :2], rtol=0, atol=1e-3)
     torch.testing.assert_close(got[..., 2], want[..., 2], rtol=0, atol=1e-2)
+
+
+def test_train_steps_on_card_match_cpu(cuda):
+    """Debug config in float32 (TF32 off), three Adam steps on one batch
+    each: the card (cuDNN, both soft-argmax kernels) against the CPU
+    (plain version), from the same weights. Loss of each step relative
+    1e-4; Adam's first moment after step 1 (0.1 x the gradient) to 1e-3
+    of each tensor's largest."""
+    cfg = load_config("experiments/debug/synth_smoke_3d.yaml")
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    configure_backends(cfg)
+    gen = torch.Generator().manual_seed(0)
+    base = get_pose_net(cfg, generator=gen)
+    with torch.no_grad():
+        for mod in (*base.deconv_layers, base.final_layer):
+            w = getattr(mod, "weight", None)
+            if w is not None and w.ndim == 4:
+                w.normal_(0.0, 0.05, generator=gen)
+    rng = np.random.default_rng(0)
+    batches = [{"input": rng.integers(0, 256, (4, 64, 64, 3), np.uint8),
+                "joints": rng.uniform(0, 64, (4, 17, 2)).astype(np.float32),
+                "joints_vis": np.ones((4, 17), np.float32),
+                "joints_3d": rng.uniform(-700, 700, (4, 17, 3)).astype(
+                    np.float32)} for _ in range(3)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = get_pose_net(cfg)
+        model.load_state_dict(base.state_dict())
+        state = create_train_state(cfg, model, steps_per_epoch=10,
+                                   device=dev)
+        step = make_train_step(cfg, model, device=dev)
+        fwd = ksa.softmax_integral.launches
+        bwd = ksa.softmax_integral_bwd.launches
+        losses, moments = [], None
+        for k, batch in enumerate(batches):
+            losses.append(step(state, batch)[1]["loss"].item())
+            if k == 0:
+                # a copy: Adam updates the moment in place in later steps
+                moments = {name: state.optimizer.state[p]["exp_avg"]
+                           .to("cpu", copy=True)
+                           for name, p in model.named_parameters()}
+        runs[str(dev)] = (losses, moments, ksa.softmax_integral.launches
+                          - fwd, ksa.softmax_integral_bwd.launches - bwd)
+    cpu, card = runs["cpu"], runs[str(cuda)]
+    assert cpu[2:] == (0, 0) and card[2:] == (3, 3)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4)
+    for name, want in cpu[1].items():
+        scale = want.abs().max().item()
+        torch.testing.assert_close(card[1][name], want, rtol=0,
+                                   atol=1e-3 * scale, msg=name)

@@ -122,9 +122,13 @@ def test_bench_conv1x1_runs_small_on_cpu(capsys):
     assert "on cpu" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [[], ["--step"], ["--conv1x1", "--step"]])
-def test_profile_step_cli_runs_only_the_ported_bench(argv, capsys):
+@pytest.mark.parametrize("argv,says", [
+    ([], "one of the arguments"), (["--step"], "CUDA card"),
+    (["--conv1x1", "--step"], "not allowed with")])
+def test_profile_step_cli_runs_only_the_ported_bench(argv, says, capsys):
+    """One mode at a time, and only on a card: without one (as here) the
+    CLI exits 2 before it times anything."""
     with pytest.raises(SystemExit) as exc:
         tps.main(argv)
     assert exc.value.code == 2
-    assert "training slice" in capsys.readouterr().err
+    assert says in capsys.readouterr().err
