@@ -11,7 +11,9 @@ card, then drives the port's three paths through their entry points:
 2. soft-argmax kernel vs its plain version on a flagship-shaped bf16
    volume (64, 17*64, 64, 64);
 3. matmul+stats kernel vs its plain version on the 15 ResNet-50 1x1-conv
-   shapes, beside ``torch.matmul`` as the library yardstick;
+   shapes, each of which must take the kernel's wgmma route (and give the
+   same stats bits twice), beside ``torch.matmul`` as the library
+   yardstick; then a ragged shape that must take the simt route;
 4. the H36M 3D eval path (``experiments/h36m/valid_r50_256_integral.yaml``:
    ResNet-50 at 256x256, 17 joints, DEPTH_DIM 64, flip test, batch 64) via
    ``validate`` over 3 seeded random batches; then, with the head re-drawn
@@ -20,11 +22,14 @@ card, then drives the port's three paths through their entry points:
 5. the H36M 3D train path (``experiments/h36m/train_fs_r50_256_integral.yaml``:
    ResNet-50 at 256x256, 17 joints, DEPTH_DIM 64, batch 32, bf16, Adam)
    via ``create_train_state`` -> ``make_train_step`` -> ``train``, three
-   timed calls of 40 steps each on one seeded batch; then the soft-argmax forward (with its saved
-   statistics) and backward kernels against their plain versions at the
-   flagship shape (32, 17*64, 64, 64), and one train step through the
+   timed calls of 40 steps each on one seeded batch; then train, eval,
+   train on that one model (the eval preds against a fresh eval-mode copy,
+   no buffer moved by the eval); then the soft-argmax forward (with its
+   saved statistics) and backward kernels against their plain versions at
+   the flagship shape (32, 17*64, 64, 64), and one train step through the
    kernels against the same step through the plain decode;
-6. the tool path: ``tools.profile_step.bench_conv1x1()``.
+6. the tool path: ``tools.profile_step.bench_conv1x1()``, every shape on
+   the wgmma route.
 
 Kernel launch counters are set to 0 just before each path and read just
 after it. Each phase checks its own time limit. Any failed phase makes the
@@ -156,20 +161,44 @@ def bf16_spacing(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x == 0, 0.0, torch.ldexp(one, e - 8))
 
 
+def matmul_routes():
+    from epipolarpose_tpu_torch.kernels.matmul_stats import matmul_stats
+    return (matmul_stats.launches, matmul_stats.launches_wgmma,
+            matmul_stats.launches_simt)
+
+
+def reset_matmul_routes() -> None:
+    from epipolarpose_tpu_torch.kernels.matmul_stats import matmul_stats
+    matmul_stats.launches = 0
+    matmul_stats.launches_wgmma = matmul_stats.launches_simt = 0
+
+
 def phase_matmul_stats(res: dict) -> None:
     from epipolarpose_tpu_torch.kernels.matmul_stats import (
         matmul_stats, matmul_stats_plain)
     from epipolarpose_tpu_torch.tools.profile_step import (CONV1X1_SHAPES,
+                                                           card_time_ms,
                                                            time_ms)
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(2)
     rows = []
-    for (m, k, n) in CONV1X1_SHAPES:
+    # the tool's shapes on the wgmma route, then a ragged one (K and N not
+    # multiples of 8) on the simt route
+    for (m, k, n), want in ([(s, "wgmma") for s in CONV1X1_SHAPES]
+                            + [((131, 13, 70), "simt")]):
         x = torch.randn((m, k), generator=g, device=dev, dtype=torch.bfloat16)
         w = torch.randn((k, n), generator=g, device=dev, dtype=torch.bfloat16)
+        before = matmul_routes()
         y, st = matmul_stats(x, w)
+        after = matmul_routes()
+        took = ("wgmma" if after[1] > before[1] else
+                "simt" if after[2] > before[2] else "none")
+        check(after[0] == before[0] + 1 and took == want,
+              f"{(m, k, n)}: took the {took} route, expected {want}")
         y_ref, st_ref = matmul_stats_plain(x, w)
+        _, st_again = matmul_stats(x, w)
         torch.cuda.synchronize()
+        same_bits = bool(torch.equal(st, st_again))
         yk, yr = y.float(), y_ref.float()
         diff = (yk - yr).abs()
         # An entry near zero by cancellation carries f32 rounding of its
@@ -184,21 +213,40 @@ def phase_matmul_stats(res: dict) -> None:
         check(bool(torch.isfinite(st).all()), f"{(m, k, n)}: stats not finite")
         check(ulps <= 1.0, f"{(m, k, n)}: y off by {ulps:.3g} bf16 ulp")
         check(rel <= 1e-3, f"{(m, k, n)}: stats rel err {rel:.3g} > 1e-3")
+        # the wgmma route sums its partials in a fixed order
+        check(same_bits or want == "simt",
+              f"{(m, k, n)}: two calls gave different stats")
         ms = time_ms(lambda: matmul_stats(x, w), dev)
         plain_ms = time_ms(lambda: matmul_stats_plain(x, w), dev)
         lib_ms = time_ms(lambda: torch.matmul(x, w), dev)
+        dev_ms = card_time_ms(lambda: matmul_stats(x, w))
+        lib_dev_ms = card_time_ms(lambda: torch.matmul(x, w))
         b_ms, b_by = bound((m * k + k * n + m * n) * 2 + 2 * n * 4,
                            2.0 * m * k * n, BF16_TENSOR_FLOPS)
-        rows.append(dict(shape=[m, k, n], y_max_abs_err=diff.max().item(),
-                         y_max_ulp=ulps, y_max_ulp_raw=raw_ulps,
-                         stats_rel_err=rel, ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=b_by))
-        log(f"[matmul_stats] {(m, k, n)}: y {ulps:.2f} ulp ({raw_ulps:.1f} "
-            f"without the floor), max |dy| {diff.max().item():.3g}, stats rel "
-            f"{rel:.2e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"torch.matmul {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        row = dict(shape=[m, k, n], route=took,
+                   y_max_abs_err=diff.max().item(), y_max_ulp=ulps,
+                   y_max_ulp_raw=raw_ulps, stats_rel_err=rel,
+                   stats_same_bits=same_bits, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, device_ms=dev_ms,
+                   library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"[matmul_stats] {(m, k, n)} {took}: y {ulps:.2f} ulp "
+            f"({raw_ulps:.1f} without the floor), max |dy| "
+            f"{diff.max().item():.3g}, stats rel {rel:.2e}, same bits twice "
+            f"{same_bits}, kernel {ms:.4f} ms (card alone {dev_ms:.4f}), "
+            f"plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms (card "
+            f"alone {lib_dev_ms:.4f}), bound {b_ms:.4f} ms ({b_by}), "
+            f"{b_ms / ms:.0%} of it")
+        if want == "wgmma":
+            rows.append(row)
+        else:
+            res["matmul_stats_ragged"] = row
         del x, w, y, y_ref, yk, yr, diff
+    log(f"[matmul_stats] sum over the {len(rows)} tool shapes: kernel "
+        f"{sum(r['ms'] for r in rows):.4f} ms (card alone "
+        f"{sum(r['device_ms'] for r in rows):.4f}), torch.matmul "
+        f"{sum(r['library_ms'] for r in rows):.4f} ms (card alone "
+        f"{sum(r['library_device_ms'] for r in rows):.4f}), bound "
+        f"{sum(r['bound_ms'] for r in rows):.4f} ms")
     by_kind = {"bytes": 0.0, "operations": 0.0}
     for r in rows:
         by_kind[r["bound_by"]] += r["bound_ms"]
@@ -211,6 +259,8 @@ def phase_matmul_stats(res: dict) -> None:
         bound_ms=sum(r["bound_ms"] for r in rows),
         bound_by=max(by_kind, key=by_kind.get),
         library_ms=sum(r["library_ms"] for r in rows),
+        device_ms=sum(r["device_ms"] for r in rows),
+        library_device_ms=sum(r["library_device_ms"] for r in rows),
         shapes=rows)
 
 
@@ -268,7 +318,7 @@ def spread_volume(n: int, j: int, d: int, h: int, w: int, seed: int,
 def redraw_head(model: torch.nn.Module, seed: int) -> None:
     """Deconv and final conv weights at std 0.05: the init's std 0.001
     leaves the volumes near uniform, and every joint at the crop centre."""
-    g = torch.Generator("cuda").manual_seed(seed)
+    g = torch.Generator(model.final_layer.weight.device).manual_seed(seed)
     with torch.no_grad():
         for mod in (*model.deconv_layers, model.final_layer):
             weight = getattr(mod, "weight", None)
@@ -303,7 +353,7 @@ def phase_eval(res: dict) -> None:
     torch.cuda.synchronize()
 
     softmax_integral.launches = softmax_integral_bwd.launches = 0
-    matmul_stats.launches = 0
+    reset_matmul_routes()
     t0 = time.perf_counter()
     name_values, _ = validate(cfg, data.batches, data, step)
     wall = time.perf_counter() - t0
@@ -438,6 +488,56 @@ def train_kernels_vs_plain(res: dict, n: int, j: int, d: int, h: int,
         f"{bwd_plain_ms:.4f} ms, bound {bb_ms:.4f} ms, {bb_by})")
 
 
+def train_eval_train(cfg, batch, device="cuda") -> dict:
+    """Train step, eval step, train step on one model of ``cfg`` (random
+    weights, head re-drawn so that the joints decode apart): the eval
+    preds match a fresh eval-mode copy of the weights, the eval moves no
+    buffer, and the next train step runs. Returns what it measured."""
+    from epipolarpose_tpu_torch.core import (create_train_state,
+                                             make_train_step)
+    from epipolarpose_tpu_torch.core.steps import make_eval_step
+    from epipolarpose_tpu_torch.models import get_model
+    model = get_model(cfg, True, torch.Generator().manual_seed(13))
+    model.to(device)
+    redraw_head(model, seed=11)
+    # both steps built first, as a train-then-validate loop builds them
+    state = create_train_state(cfg, model, steps_per_epoch=1000,
+                               device=device)
+    step = make_train_step(cfg, model, device=device)
+    eval_step = make_eval_step(cfg, model, H36M_FLIP_PAIRS, device)
+    step(state, batch)
+    joints, size = int(cfg.MODEL.NUM_JOINTS), int(cfg.MODEL.IMAGE_SIZE[0])
+    data = SmokeH36M(1, int(batch["input"].shape[0]), size, joints, seed=12,
+                     device=device)
+    fresh = copy.deepcopy(model).eval()
+    before = {n: b.clone() for n, b in model.named_buffers()}
+    got = eval_step(data.batches[0])["preds"]
+    want = make_eval_step(cfg, fresh, H36M_FLIP_PAIRS, device)(
+        data.batches[0])["preds"]
+    moved = [n for n, b in model.named_buffers()
+             if b.is_inference() or not torch.equal(b, before[n])]
+    spread = (want.amax(1) - want.amin(1)).mean(0).tolist()
+    dxy = (got[..., :2] - want[..., :2]).abs().max().item()
+    dz = (got[..., 2] - want[..., 2]).abs().max().item()
+    _, metrics = step(state, batch)
+    loss = metrics["loss"].item()
+    need_px = size / 64               # 4 px on a 256 crop
+    log(f"[train] train -> eval -> train on one model: eval preds vs a "
+        f"fresh eval-mode copy max |dxy| {dxy:.3g} px (limit 0.05), max "
+        f"|dz| {dz:.3g} mm (limit 0.5), joints spread {spread[0]:.1f} px, "
+        f"{spread[1]:.1f} px, {spread[2]:.1f} mm (need {need_px:g} px, "
+        f"{need_px:g} px, 10 mm); buffers moved by the eval: {len(moved)}; "
+        f"next train step loss {loss:.4f}")
+    check(min(spread[:2]) >= need_px and spread[2] >= 10,
+          "joints do not spread; the eval comparison would test nothing")
+    check(not moved, f"the eval step moved buffers: {moved[:3]}")
+    check(dxy <= 0.05 and dz <= 0.5, "eval after train differs from a "
+          "fresh eval-mode model")
+    check(math.isfinite(loss), "the train step after the eval failed")
+    return dict(dxy=dxy, dz=dz, spread=spread, moved=moved, loss=loss,
+                steps=state.step)
+
+
 def phase_train(res: dict) -> None:
     from epipolarpose_tpu_torch.config import load_config
     from epipolarpose_tpu_torch.core import (create_train_state,
@@ -479,7 +579,7 @@ def phase_train(res: dict) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ksa.softmax_integral.launches = ksa.softmax_integral_bwd.launches = 0
-    matmul_stats.launches = 0
+    reset_matmul_routes()
     rates = []
     for epoch in range(TRAIN_WINDOWS):
         t0 = time.perf_counter()
@@ -512,6 +612,7 @@ def phase_train(res: dict) -> None:
         f"first) " + ", ".join(f"{v:.4f}" for v in curve[:6]) + " ... "
         + ", ".join(f"{v:.4f}" for v in curve[-3:]))
 
+    train_eval_train(cfg, batch)
     train_kernels_vs_plain(res, TRAIN_BATCH, joints, depth, hm, hm)
 
     # one step through the kernels against the same step through the plain
@@ -543,22 +644,24 @@ def phase_train(res: dict) -> None:
 
 
 def phase_tool(res: dict) -> None:
-    from epipolarpose_tpu_torch.kernels.matmul_stats import matmul_stats
     from epipolarpose_tpu_torch.kernels.softargmax import (
         softmax_integral, softmax_integral_bwd)
     from epipolarpose_tpu_torch.tools.profile_step import (CONV1X1_SHAPES,
                                                            bench_conv1x1)
     softmax_integral.launches = softmax_integral_bwd.launches = 0
-    matmul_stats.launches = 0
+    reset_matmul_routes()
     rows = bench_conv1x1(iters=5)
-    launches = matmul_stats.launches
+    launches, wgmma, simt = matmul_routes()
     check(len(rows) == len(CONV1X1_SHAPES), "bench skipped shapes")
     check(launches > 0, "tool path never launched the matmul_stats kernel")
+    check(wgmma == launches and simt == 0,
+          f"tool path: {wgmma} wgmma and {simt} simt launches of {launches}")
+    check(all(r["route"] == "wgmma" for r in rows), "a shape left wgmma")
     check(softmax_integral.launches == softmax_integral_bwd.launches == 0,
           "tool path launched softargmax")
-    res["tool_launches"] = launches
+    res["tool_launches"] = (launches, wgmma, simt)
     log(f"[tool] bench_conv1x1: {len(rows)} shapes, matmul_stats "
-        f"launches {launches}")
+        f"launches {launches} (wgmma {wgmma}, simt {simt})")
 
 
 def main() -> int:
@@ -622,7 +725,10 @@ def main() -> int:
         dict(name="matmul_stats", route="cuda",
              source="epipolarpose_tpu_torch/csrc/matmul_stats.cu",
              replaces="tools/profile_step.py:152", path="tool",
-             launches=res["tool_launches"], **k2),
+             launches=res["tool_launches"][0],
+             launches_wgmma=res["tool_launches"][1],
+             launches_simt=res["tool_launches"][2], kernel_route="wgmma",
+             ragged_shape=res["matmul_stats_ragged"], **k2),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

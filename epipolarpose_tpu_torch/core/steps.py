@@ -122,9 +122,12 @@ def make_eval_step(cfg, model: torch.nn.Module, flip_pairs=(),
     """Build ``step(batch) -> {"preds": (N, J, 3) float32}``.
 
     preds hold (x, y) in source-image pixels and z in root-relative mm,
-    as the JAX step returns them. ``model`` is moved to ``device`` and put
-    in eval mode. ``decode`` is the soft-argmax; the default takes the CUDA
-    kernel on the card (a caller may pass the plain version to compare).
+    as the JAX step returns them. ``model`` is moved to ``device``. Each
+    call puts it in eval mode, as the JAX step passes ``train=False`` on
+    each call: BN runs on its running statistics and writes no buffer, so
+    a train step built on the same model may run before and after it.
+    ``decode`` is the soft-argmax; the default takes the CUDA kernel on
+    the card (a caller may pass the plain version to compare).
     """
     if cfg.MODEL.EXTRA.TARGET_TYPE != "integral":
         raise NotImplementedError("gaussian eval needs the 2D decode ops, "
@@ -136,11 +139,12 @@ def make_eval_step(cfg, model: torch.nn.Module, flip_pairs=(),
     num_joints = int(cfg.MODEL.NUM_JOINTS)
     flip_test = bool(cfg.TEST.FLIP_TEST)
     shift_heatmap = bool(cfg.TEST.SHIFT_HEATMAP)
-    model = model.to(device).eval()
+    model = model.to(device)
     size = torch.tensor(image_size, dtype=torch.float32, device=device)
 
     @torch.inference_mode()
     def step(batch) -> dict[str, torch.Tensor]:
+        model.eval()
         imgs = torch.as_tensor(batch["input"]).to(device, non_blocking=True)
         x = normalize_images(imgs).permute(0, 3, 1, 2).contiguous()
         out = model(x)

@@ -39,7 +39,8 @@ _i = ctypes.c_int
 SIGNATURES = {
     "epk_softargmax_fwd": (_p, _p, _p, _i, _i, _i, _i, _i, _i, _p),
     "epk_softargmax_bwd": (_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p),
-    "epk_matmul_stats": (_p, _p, _p, _p, _i, _i, _i, _i, _p),
+    "epk_matmul_stats": (_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p),
+    "epk_matmul_stats_simt": (_p, _p, _p, _p, _i, _i, _i, _i, _p),
 }
 
 

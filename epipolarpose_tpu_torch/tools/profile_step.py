@@ -16,9 +16,10 @@ has no counterpart here: the tool prints the soft-argmax kernels' bytes
 bound instead.
 
 ``--conv1x1`` (:func:`bench_conv1x1`): the hand-written kernel that emits
-``(y, sum y, sum y^2)`` in one pass (``kernels/matmul_stats.py``) against
-the unfused PyTorch counterpart of ``xla_matmul_stats``, a matmul followed
-by separate stats reductions, over the 15 ResNet-50 1x1-conv shapes.
+``(y, sum y, sum y^2)`` in one pass (``kernels/matmul_stats.py``; every
+shape here takes its ``wgmma`` route) against the unfused PyTorch
+counterpart of ``xla_matmul_stats``, a matmul followed by separate stats
+reductions, over the 15 ResNet-50 1x1-conv shapes.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from epipolarpose_tpu_torch.core import (create_train_state, make_train_step,
                                          normalize_images)
 from epipolarpose_tpu_torch.core.steps import configure_backends
 from epipolarpose_tpu_torch.kernels import softargmax as ksa
-from epipolarpose_tpu_torch.kernels.matmul_stats import matmul_stats
+from epipolarpose_tpu_torch.kernels.matmul_stats import matmul_stats, route
 from epipolarpose_tpu_torch.models import get_model
 from epipolarpose_tpu_torch.ops import (generate_integral_target,
                                         integral_l1_loss)
@@ -89,19 +90,41 @@ def time_ms(fn: Callable[[], object], device: torch.device, iters: int = 10,
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def card_time_ms(fn: Callable[[], object], iters: int = 10) -> float:
+    """Milliseconds per call of ``fn`` on the card alone: CUDA events
+    around ``iters`` calls queued behind a sleep kernel of 2e7 clock
+    cycles (about 10 ms), so the host has issued them all before the
+    first one starts. :func:`time_ms` includes the host's time per call
+    where that is the longer."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e7))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bench_conv1x1(shapes=CONV1X1_SHAPES, device: str | torch.device = "cuda",
                   iters: int = 10, seed: int = 0) -> list[dict]:
     """Time the fused kernel against the unfused version on each shape.
 
     Operands are bf16 standard normals from a seeded generator on
     ``device``. Prints a table and returns one dict per shape with
-    ``shape``, ``kernel_ms`` and ``plain_ms``.
+    ``shape``, ``route`` (the kernel route the wrapper takes on a card,
+    ``"plain"`` on the CPU), ``kernel_ms`` and ``plain_ms``.
     """
     device = torch.device(device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"conv1x1 matmul+stats on {name}, ms per call", flush=True)
-    print(f"{'(M, K, N)':>22} | {'unfused ms':>10} | {'kernel ms':>9}")
+    print(f"{'(M, K, N)':>22} | {'route':>6} | {'unfused ms':>10} | "
+          f"{'kernel ms':>9}")
     rows = []
     gen = torch.Generator(device).manual_seed(seed)
     for (m, k, n) in shapes:
@@ -109,12 +132,14 @@ def bench_conv1x1(shapes=CONV1X1_SHAPES, device: str | torch.device = "cuda",
                         dtype=torch.bfloat16)
         w = torch.randn((k, n), generator=gen, device=device,
                         dtype=torch.bfloat16)
+        way = (route(m, k, n, x.data_ptr(), w.data_ptr())
+               if device.type == "cuda" else "plain")
         t_plain = time_ms(lambda: plain_matmul_stats(x, w), device, iters)
         t_kernel = time_ms(lambda: matmul_stats(x, w), device, iters)
-        rows.append({"shape": (m, k, n), "kernel_ms": t_kernel,
+        rows.append({"shape": (m, k, n), "route": way, "kernel_ms": t_kernel,
                      "plain_ms": t_plain})
-        print(f"{str((m, k, n)):>22} | {t_plain:10.4f} | {t_kernel:9.4f}",
-              flush=True)
+        print(f"{str((m, k, n)):>22} | {way:>6} | {t_plain:10.4f} | "
+              f"{t_kernel:9.4f}", flush=True)
         del x, w
     total_k = sum(r["kernel_ms"] for r in rows)
     total_p = sum(r["plain_ms"] for r in rows)

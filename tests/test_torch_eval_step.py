@@ -287,3 +287,16 @@ def test_smoke_dataset_scores_root_relative_mpjpe(smoke):
     gt = ds.gt.numpy()
     name_values, perf = ds.evaluate(None, gt + 5.0)    # a shift is free
     assert perf < 1e-3 and name_values["MPJPE"] == perf
+
+
+def test_smoke_train_eval_train_on_cpu(smoke):
+    """The smoke's train -> eval -> train check, on the CPU at the debug
+    config's size (ResNet-18 at 64x64, float32, batch 2)."""
+    from epipolarpose_tpu_torch.tools.profile_step import seeded_train_batch
+    cfg = load_config(DEBUG_3D)
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    batch = seeded_train_batch(2, 64, 17, 1000.0,
+                               torch.Generator().manual_seed(0), "cpu")
+    out = smoke.train_eval_train(cfg, batch, device="cpu")
+    assert out["moved"] == [] and out["steps"] == 2
+    assert out["dxy"] <= 1e-5 and out["dz"] <= 1e-5

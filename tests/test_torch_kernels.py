@@ -14,8 +14,10 @@ same float32 product in other orders) and 2^-7 of it in bfloat16 (one
 bf16 spacing of the output, whose entries stay below the incoming
 gradient); matmul y within one bf16 spacing (both round an f32 sum of the
 same products; entries below 1/256 of y's rms are measured at that
-floor), stats 1e-3 of the largest stat (atomics add block partials in any
-order).
+floor), stats 1e-3 of the largest stat (both routes sum the rows in
+another order than the plain version; the simt route's atomics add block
+partials in any order, the wgmma route's partials are summed in a fixed
+order, so its stats are the same bits from call to call).
 """
 
 import numpy as np
@@ -156,20 +158,55 @@ def test_softargmax_kernel_rejects_what_it_does_not_take(cuda):
         ksa.softmax_integral_bwd(x, stats, grad.double())
 
 
-@pytest.mark.parametrize("shape", [(256, 64, 64), (300, 72, 200),
-                                   (131, 13, 70), (8192, 512, 256)])
-def test_matmul_stats_kernel_matches_plain(cuda, shape):
+# (M, K, N), elements x starts into its storage, the route it must take:
+# full tool shapes of each ResNet stage, M not a multiple of the 128-row
+# tile, column tiles cut by N, K not a multiple of the 64-deep stage, and
+# what TMA cannot describe (K, N not multiples of 8; a misaligned view)
+MATMUL_CASES = [
+    ((524288, 64, 256), 0, "wgmma"), ((131072, 256, 512), 0, "wgmma"),
+    ((32768, 512, 1024), 0, "wgmma"), ((8192, 1024, 2048), 0, "wgmma"),
+    ((8192, 512, 256), 0, "wgmma"), ((256, 64, 64), 0, "wgmma"),
+    ((1000, 128, 136), 0, "wgmma"), ((300, 72, 200), 0, "wgmma"),
+    ((131, 13, 70), 0, "simt"), ((256, 64, 64), 1, "simt"),
+]
+
+
+@pytest.mark.parametrize("shape,offset,route", MATMUL_CASES,
+                         ids=lambda v: str(v))
+def test_matmul_stats_kernel_matches_plain(cuda, shape, offset, route):
     m, k, n = shape
     g = torch.Generator(cuda).manual_seed(0)
-    x = torch.randn((m, k), generator=g, device=cuda, dtype=torch.bfloat16)
+    x = torch.randn(offset + m * k, generator=g, device=cuda,
+                    dtype=torch.bfloat16)[offset:].view(m, k)
     w = torch.randn((k, n), generator=g, device=cuda, dtype=torch.bfloat16)
-    before = kms.matmul_stats.launches
+    count = {"wgmma": "launches_wgmma", "simt": "launches_simt"}
+    before = {a: getattr(kms.matmul_stats, a)
+              for a in ("launches", *count.values())}
     y, s = kms.matmul_stats(x, w)
-    assert kms.matmul_stats.launches == before + 1
+    after = {a: getattr(kms.matmul_stats, a) for a in before}
+    assert after["launches"] == before["launches"] + 1
+    for way, attr in count.items():
+        assert after[attr] == before[attr] + (way == route), way
     y_ref, s_ref = kms.matmul_stats_plain(x, w)
     assert _max_bf16_ulps(y.float(), y_ref.float()) <= 1.0
     scale = s_ref.abs().amax(dim=1, keepdim=True)
     assert torch.all((s - s_ref).abs() <= 1e-3 * scale)
+
+
+@pytest.mark.parametrize("shape", [(524288, 64, 64), (8192, 1024, 2048),
+                                   (1000, 128, 136)], ids=str)
+def test_matmul_stats_wgmma_stats_are_deterministic(cuda, shape):
+    """The wgmma route sums its per-block partials in a fixed order: two
+    calls give the same bits, in y and in the stats."""
+    m, k, n = shape
+    g = torch.Generator(cuda).manual_seed(1)
+    x = torch.randn((m, k), generator=g, device=cuda, dtype=torch.bfloat16)
+    w = torch.randn((k, n), generator=g, device=cuda, dtype=torch.bfloat16)
+    before = kms.matmul_stats.launches_wgmma
+    y1, s1 = kms.matmul_stats(x, w)
+    y2, s2 = kms.matmul_stats(x, w)
+    assert kms.matmul_stats.launches_wgmma == before + 2
+    assert torch.equal(s1, s2) and torch.equal(y1, y2)
 
 
 def test_eval_step_on_card_matches_cpu(cuda):

@@ -7,6 +7,7 @@ products (y: 1e-5) and of 64 rows of those (stats: 1e-4). Against
 stats differ by the rounding of y: relative 1e-2 of the largest stat.
 """
 
+import ctypes
 import importlib.util
 import pathlib
 
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from epipolarpose_tpu_torch.kernels import _build
 from epipolarpose_tpu_torch.kernels import matmul_stats as kms
 from epipolarpose_tpu_torch.tools import profile_step as tps
 
@@ -132,3 +134,101 @@ def test_profile_step_cli_runs_only_the_ported_bench(argv, says, capsys):
         tps.main(argv)
     assert exc.value.code == 2
     assert says in capsys.readouterr().err
+
+
+# ------------------------------------------------ the wrapper's route rule
+@pytest.mark.parametrize("shape", tps.CONV1X1_SHAPES, ids=str)
+def test_every_tool_shape_takes_the_wgmma_route(shape):
+    assert kms.route(*shape, 0, 1024) == "wgmma"
+
+
+@pytest.mark.parametrize("shape,ptrs,want", [
+    ((131, 13, 70), (0, 0), "simt"),      # K and N not multiples of 8
+    ((64, 13, 64), (0, 0), "simt"),       # K
+    ((64, 64, 70), (0, 0), "simt"),       # N
+    ((64, 0, 64), (0, 0), "simt"),        # K = 0: no tensor map
+    ((64, 64, 64), (2, 0), "simt"),       # x's base not 16-byte aligned
+    ((64, 64, 64), (0, 8), "simt"),       # w's base
+    ((300, 72, 200), (0, 0), "wgmma"),    # ragged M and tiles, TMA rows
+    ((1, 8, 8), (16, 32), "wgmma"),
+])
+def test_route_rule(shape, ptrs, want):
+    assert kms.route(*shape, *ptrs) == want
+
+
+def test_a_misaligned_view_takes_the_simt_route():
+    """A contiguous view that starts one element into its storage."""
+    buf = torch.zeros(1 + 64 * 16, dtype=torch.bfloat16)
+    x = buf[1:].view(64, 16)
+    w = torch.zeros((16, 32), dtype=torch.bfloat16)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    kms.check_kernel_args(x, w)
+    assert kms.route(64, 16, 32, x.data_ptr(), w.data_ptr()) == "simt"
+    assert kms.route(64, 16, 32, buf[8:8 + 64 * 16].data_ptr(),
+                     w.data_ptr()) == "wgmma"
+
+
+# (M, K, N) -> (bn, grid) on 132 SMs: a column tile of 64 up to N = 128,
+# else 128, per block; the grid in whole rounds of the column tiles; no
+# more blocks than tiles
+PLANS_132 = {
+    (524288, 64, 64): (64, 132), (524288, 64, 256): (128, 132),
+    (524288, 256, 64): (64, 132), (131072, 256, 128): (64, 132),
+    (131072, 128, 512): (128, 132), (131072, 256, 512): (128, 132),
+    (131072, 512, 128): (64, 132), (32768, 512, 256): (128, 132),
+    (32768, 256, 1024): (128, 128), (32768, 512, 1024): (128, 128),
+    (32768, 1024, 256): (128, 132), (8192, 1024, 512): (128, 132),
+    (8192, 512, 2048): (128, 128), (8192, 1024, 2048): (128, 128),
+    (8192, 2048, 512): (128, 132), (300, 72, 200): (128, 6),
+    (131, 64, 70): (64, 4), (64, 64, 40000): (128, 313),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(PLANS_132), ids=str)
+def test_wgmma_plan(shape):
+    m, k, n = shape
+    bn, grid = kms.wgmma_plan(m, k, n, 132)
+    assert (bn, grid) == PLANS_132[shape]
+    n_tiles, m_tiles = -(-n // bn), -(-m // 128)
+    assert grid % n_tiles == 0
+    assert grid <= max(132, n_tiles) and grid <= m_tiles * n_tiles
+    # the scratch holds one (2, bn) float32 partial per block
+    assert kms.partials_numel(bn, grid) == grid * 2 * bn
+
+
+def test_partials_scratch_size():
+    assert kms.partials_numel(64, 132) == 16896
+    assert kms.partials_numel(128, 128) == 32768
+
+
+def test_kernel_library_signatures():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # x, w, y, stats, partials, M, K, N, bn, grid, device, stream
+    assert _build.SIGNATURES["epk_matmul_stats"] == (
+        p, p, p, p, p, i, i, i, i, i, i, p)
+    # x, w, y, stats, M, K, N, device, stream
+    assert _build.SIGNATURES["epk_matmul_stats_simt"] == (
+        p, p, p, p, i, i, i, i, p)
+
+
+def test_route_counters_start_at_zero_and_skip_the_cpu():
+    before = (kms.matmul_stats.launches, kms.matmul_stats.launches_wgmma,
+              kms.matmul_stats.launches_simt)
+    kms.matmul_stats(torch.zeros((8, 8), dtype=torch.bfloat16),
+                     torch.zeros((8, 8), dtype=torch.bfloat16))
+    assert (kms.matmul_stats.launches, kms.matmul_stats.launches_wgmma,
+            kms.matmul_stats.launches_simt) == before
+
+
+@pytest.mark.parametrize("num_sms", [1, 66, 114, 132])
+def test_wgmma_plan_on_any_sm_count(num_sms):
+    """On every tool shape: whole rounds of the column tiles, at most one
+    block per SM unless the column tiles outnumber the SMs, no more
+    blocks than tiles, and the width independent of the SM count."""
+    for (m, k, n) in tps.CONV1X1_SHAPES:
+        bn, grid = kms.wgmma_plan(m, k, n, num_sms)
+        n_tiles = -(-n // bn)
+        assert bn == (64 if n <= 128 else 128)
+        assert grid % n_tiles == 0
+        assert grid <= max(num_sms, n_tiles)
+        assert grid <= -(-m // 128) * n_tiles
