@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``epipolarpose_tpu_torch/csrc`` (one
 ``nvcc`` call), holds each kernel against its plain PyTorch version on the
-card, then drives the port's three paths through their entry points:
+card, then drives the port's paths through their entry points:
 
 1. environment and build: the card, torch/CUDA versions, build seconds;
 2. soft-argmax kernel vs its plain version on a flagship-shaped bf16
@@ -28,7 +28,24 @@ card, then drives the port's three paths through their entry points:
    saved statistics) and backward kernels against their plain versions at
    the flagship shape (32, 17*64, 64, 64), and one train step through the
    kernels against the same step through the plain decode;
-6. the tool path: ``tools.profile_step.bench_conv1x1()``, every shape on
+6. the self-supervised 3D train path
+   (``experiments/h36m/train_ss_r50_256_integral.yaml``: G = 32 groups of
+   V = 4 views, 128 crops a step, student ResNet-50 at 256x256, J = 17,
+   D = 64, bf16, Adam; ``fast`` confidence-weighted triangulation) on a
+   batch built on the card from the port's synthetic rig and skeleton
+   poses, with a seeded dual crop: the triangulation kernel against its
+   plain version and float64 ``svd``/``eigh`` oracles at 544 and about
+   10^6 points (with TF32 allowed and not), the soft-argmax kernels at
+   (128, 17*64, 64, 64), the perfect teacher (pseudo-GT within 1 mm,
+   3 warm-up steps and 2 timed windows of 20 steps through
+   ``make_ss_train_step``), a random bf16 ResNet-50 teacher for 3 steps
+   (its weights and buffers unchanged), and one step through the kernels
+   against the same step through the plain versions;
+7. the MPII 2D path (``experiments/mpii/train_r50_256x256_d256x3_adam_lr1e-3.yaml``:
+   16 joints, 64x64 heatmaps, batch 32): 3 gaussian train steps and one
+   flip-test eval batch, the teacher's own network, with no hand-written
+   kernel;
+8. the tool path: ``tools.profile_step.bench_conv1x1()``, every shape on
    the wgmma route.
 
 Kernel launch counters are set to 0 just before each path and read just
@@ -61,7 +78,8 @@ F32_FLOPS = 67e12
 
 # seconds each phase may take; the whole run aims at under 300 s
 PHASE_LIMITS = {"build": 120.0, "softargmax": 30.0, "matmul_stats": 60.0,
-                "eval": 90.0, "train": 150.0, "tool": 30.0}
+                "eval": 90.0, "train": 150.0, "ss": 150.0, "pose2d": 60.0,
+                "tool": 30.0}
 
 # H36M left/right joint pairs (the JAX package's data/h36m.py FLIP_PAIRS)
 H36M_FLIP_PAIRS = ((1, 4), (2, 5), (3, 6), (11, 14), (12, 15), (13, 16))
@@ -69,6 +87,11 @@ EVAL_BATCH, EVAL_BATCHES = 64, 3
 # the train path: warm-up steps, then TRAIN_WINDOWS calls of train() of
 # TRAIN_STEPS steps each, each timed on its own (about 1.3 s a window)
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_WINDOWS, TRAIN_WARMUP = 32, 40, 3, 3
+# the SS path: groups x views, warm-up steps, timed windows of steps
+SS_GROUPS, SS_VIEWS, SS_WARMUP, SS_WINDOWS, SS_STEPS = 32, 4, 3, 2, 20
+# the triangulation kernel's large check: frames x joints, 4 views
+TRI_FRAMES = 65536
+POSE2D_BATCH, POSE2D_STEPS = 32, 3
 
 
 def log(msg: str) -> None:
@@ -159,6 +182,30 @@ def bf16_spacing(x: torch.Tensor) -> torch.Tensor:
     _, e = torch.frexp(x.float())              # |x| = m * 2**e, m in [.5, 1)
     one = torch.ones_like(x, dtype=torch.float32)
     return torch.where(x == 0, 0.0, torch.ldexp(one, e - 8))
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch counter (and the teacher's decodes,
+    which launch no hand-written kernel)."""
+    from epipolarpose_tpu_torch.core.self_supervised import teacher_detect
+    from epipolarpose_tpu_torch.kernels import softargmax as ksa
+    from epipolarpose_tpu_torch.kernels.matmul_stats import matmul_stats
+    from epipolarpose_tpu_torch.kernels.triangulate import triangulate_fast
+    return {"softargmax_fwd": ksa.softmax_integral.launches,
+            "softargmax_bwd": ksa.softmax_integral_bwd.launches,
+            "matmul_stats": matmul_stats.launches,
+            "triangulate": triangulate_fast.launches,
+            "teacher_decode": teacher_detect.calls}
+
+
+def reset_counts() -> None:
+    """Set every launch counter to 0."""
+    from epipolarpose_tpu_torch.core.self_supervised import teacher_detect
+    from epipolarpose_tpu_torch.kernels import softargmax as ksa
+    from epipolarpose_tpu_torch.kernels.triangulate import triangulate_fast
+    ksa.softmax_integral.launches = ksa.softmax_integral_bwd.launches = 0
+    triangulate_fast.launches = teacher_detect.calls = 0
+    reset_matmul_routes()
 
 
 def matmul_routes():
@@ -352,11 +399,11 @@ def phase_eval(res: dict) -> None:
     step(data.batches[0])          # warm-up: cuDNN picks its algorithms
     torch.cuda.synchronize()
 
-    softmax_integral.launches = softmax_integral_bwd.launches = 0
-    reset_matmul_routes()
+    reset_counts()
     t0 = time.perf_counter()
     name_values, _ = validate(cfg, data.batches, data, step)
     wall = time.perf_counter() - t0
+    res["paths"]["eval"] = launch_counts()
     launches = softmax_integral.launches
     check(matmul_stats.launches == 0, "eval path launched matmul_stats")
     check(softmax_integral_bwd.launches == 0,
@@ -402,9 +449,11 @@ def phase_eval(res: dict) -> None:
 
 
 def train_kernels_vs_plain(res: dict, n: int, j: int, d: int, h: int,
-                           w: int) -> None:
+                           w: int, path: str = "train") -> None:
     """The soft-argmax forward (with statistics) and backward kernels
-    against their plain versions at the train path's shape."""
+    against their plain versions at a train path's shape; the records go
+    to ``res`` under names suffixed with the path (none for ``train``)."""
+    suffix = "" if path == "train" else f"_{path}"
     from epipolarpose_tpu_torch.kernels import softargmax as ksa
     from epipolarpose_tpu_torch.tools.profile_step import time_ms
     dev = torch.device("cuda")
@@ -422,7 +471,7 @@ def train_kernels_vs_plain(res: dict, n: int, j: int, d: int, h: int,
     lse_err = (stats[..., 0] - ref_stats[..., 0]).abs().max().item()
     size = torch.tensor([w, h, d], device=dev, dtype=torch.float32)
     e_err = ((stats[..., 1:] - ref_stats[..., 1:]).abs() / size).max().item()
-    log(f"[train] forward kernel with statistics vs plain at "
+    log(f"[{path}] forward kernel with statistics vs plain at "
         f"{(n, j * d, h, w)} bf16: coords {fwd_err:.3g} (limit 1e-4), lse "
         f"{lse_err:.3g} (limit 1e-3), Ex/Ey/Ez {e_err:.3g} of the axis "
         f"(limit 1e-4)")
@@ -449,7 +498,7 @@ def train_kernels_vs_plain(res: dict, n: int, j: int, d: int, h: int,
         else:
             ratio = (diff / (bf16_spacing(want) + 1e-6 * gmax)).max().item()
             rule = "one bf16 spacing of the entry + 1e-6 x max|g|"
-        log(f"[train] backward kernel vs plain, {str(dtype)[6:]}: max "
+        log(f"[{path}] backward kernel vs plain, {str(dtype)[6:]}: max "
             f"|d dlogits| {err:.3g} = {err / gmax:.3g} x max|g|; worst "
             f"entry at {ratio:.3g} of its limit ({rule}); max |dlogits| "
             f"{big:.3g}, max |g| {gmax:.3g}")
@@ -465,7 +514,7 @@ def train_kernels_vs_plain(res: dict, n: int, j: int, d: int, h: int,
         lambda: ksa.softmax_integral_stats_plain(vol, j, d), dev)
     # per element: one subtract-and-scale, one exp, three accumulations
     fb_ms, fb_by = bound(elems * 2 + rows * 7 * 4, 5.0 * elems, F32_FLOPS)
-    res["softargmax_fwd_stats"] = dict(
+    res["softargmax_fwd_stats" + suffix] = dict(
         max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain_ms,
         bound_ms=fb_ms, bound_by=fb_by, library_ms=None)
     bwd_ms = time_ms(lambda: ksa.softmax_integral_bwd(vol, stats, grad),
@@ -476,13 +525,13 @@ def train_kernels_vs_plain(res: dict, n: int, j: int, d: int, h: int,
     # multiply; reads the logits, writes dlogits
     bb_ms, bb_by = bound(elems * 2 * 2 + rows * 7 * 4, 6.0 * elems,
                          F32_FLOPS)
-    res["softargmax_bwd"] = dict(
+    res["softargmax_bwd" + suffix] = dict(
         max_abs_err=errs[torch.bfloat16][0],
         max_abs_err_f32=errs[torch.float32][0],
         worst_share_of_limit_bf16=errs[torch.bfloat16][1],
         ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bb_ms, bound_by=bb_by,
         library_ms=None)
-    log(f"[train] soft-argmax at {(n, j * d, h, w)} bf16: forward with "
+    log(f"[{path}] soft-argmax at {(n, j * d, h, w)} bf16: forward with "
         f"statistics {fwd_ms:.4f} ms (plain {fwd_plain_ms:.4f} ms, bound "
         f"{fb_ms:.4f} ms, {fb_by}); backward {bwd_ms:.4f} ms (plain "
         f"{bwd_plain_ms:.4f} ms, bound {bb_ms:.4f} ms, {bb_by})")
@@ -578,14 +627,14 @@ def phase_train(res: dict) -> None:
         recording(state, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ksa.softmax_integral.launches = ksa.softmax_integral_bwd.launches = 0
-    reset_matmul_routes()
+    reset_counts()
     rates = []
     for epoch in range(TRAIN_WINDOWS):
         t0 = time.perf_counter()
         state, _ = train(cfg, [batch] * TRAIN_STEPS, state, recording, epoch)
         torch.cuda.synchronize()
         rates.append(TRAIN_BATCH * TRAIN_STEPS / (time.perf_counter() - t0))
+    res["paths"]["train"] = launch_counts()
     fwd, bwd = ksa.softmax_integral.launches, ksa.softmax_integral_bwd.launches
     steps = TRAIN_STEPS * TRAIN_WINDOWS
     check(matmul_stats.launches == 0, "train path launched matmul_stats")
@@ -643,14 +692,446 @@ def phase_train(res: dict) -> None:
           "final_layer gradient: kernels and plain decode disagree")
 
 
+def ss_rig_batch(cfg, groups: int, views: int, seed: int, device="cuda"):
+    """A multi-view batch built on ``device`` from the port's synthetic
+    rig (H36M-like, 1000 px images, with distortion) and skeleton poses:
+    centres and scales from the projected joints, seeded uint8 crops, and
+    a dual crop from a seeded scale, rotation and flip. Returns (batch,
+    world poses (G, J, 3), projected joints (G, V, J, 2))."""
+    from epipolarpose_tpu_torch.data.synthetic import (make_rig,
+                                                      synth_skeleton_poses)
+    from epipolarpose_tpu_torch.geometry.affine import get_affine_transform
+    from epipolarpose_tpu_torch.geometry.camera import (Camera,
+                                                        project_point_radial)
+    import numpy as np
+    dev = torch.device(device)
+    size = int(cfg.MODEL.IMAGE_SIZE[0])
+    joints = int(cfg.MODEL.NUM_JOINTS)
+    rng = np.random.default_rng(seed)
+    poses = synth_skeleton_poses(rng, groups, joints) + rng.uniform(
+        [-150, -150, 600], [150, 150, 1000], (groups, 1, 3))
+    world = torch.tensor(poses, dtype=torch.float32, device=dev)
+    cams = Camera.stack(make_rig(views, seed=seed)).to(dev)
+    cams = cams.map(lambda t: t[None].expand((groups,) + t.shape)
+                    .contiguous())
+    px, _ = project_point_radial(world[:, None], cams)       # (G, V, J, 2)
+    center = px.mean(dim=2)
+    extent = (px - center[:, :, None]).abs().amax(dim=(2, 3)) * 2.4 + 40
+    scale = (extent / 200)[..., None].expand(groups, views, 2).contiguous()
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def crops():
+        return torch.randint(0, 256, (groups, views, size, size, 3),
+                             generator=g, device=dev, dtype=torch.uint8)
+
+    sf, rf = float(cfg.DATASET.SCALE_FACTOR), float(cfg.DATASET.ROT_FACTOR)
+    s_mult = 1 + sf * (2 * torch.rand((groups, views), generator=g,
+                                      device=dev) - 1)
+    rot = rf * (2 * torch.rand((groups, views), generator=g, device=dev) - 1)
+    flip = (torch.rand((groups, views), generator=g, device=dev)
+            < 0.5).float()
+    m = get_affine_transform(center, scale * s_mult[..., None], rot,
+                             (size, size))
+    # fold the crop-space flip x' = (W - 1) - x into the affine
+    m_flip = m.clone()
+    m_flip[..., 0, :] = -m[..., 0, :]
+    m_flip[..., 0, 2] += size - 1.0
+    aug_m = torch.where(flip[..., None, None] > 0.5, m_flip, m)
+    batch = {"input": crops(), "center": center, "scale": scale,
+             "camera": cams, "joints_vis": torch.ones((groups, views, joints),
+                                                      device=dev),
+             "input_aug": crops(), "aug_M": aug_m, "aug_flip": flip}
+    return batch, world, px
+
+
+def tri_flops(views: int) -> int:
+    """f32 operations of ``epk_triangulate`` per point: rows, norms and
+    weights 50V, AᵀA 64V, residual 16V; two adjugates of 16 3x3 minors
+    (14 each) 448; column norms, argmax, normalize, the Rayleigh step,
+    sign and dehomogenize about 140."""
+    return 130 * views + 590
+
+
+# matrices per torch.linalg.eigh call: on the card one call on 69,632
+# batched 4x4 float64 matrices fails (CUSOLVER_STATUS_INVALID_VALUE)
+EIGH_CHUNK = 16384
+
+
+def eigh_chunked(m: torch.Tensor):
+    """``torch.linalg.eigh`` of (..., 4, 4) matrices, in chunks."""
+    parts = [torch.linalg.eigh(c)
+             for c in m.reshape(-1, *m.shape[-2:]).split(EIGH_CHUNK)]
+    return (torch.cat([p[0] for p in parts]).reshape(m.shape[:-1]),
+            torch.cat([p[1] for p in parts]).reshape(m.shape))
+
+
+def triangulate_in_chunks(pts, P, w, method: str):
+    """X of ``triangulate(..., method)``, over frames in chunks of at most
+    ``EIGH_CHUNK`` points."""
+    from epipolarpose_tpu_torch.geometry import triangulation as ttri
+    step = max(EIGH_CHUNK // pts.shape[2], 1)
+    return torch.cat([ttri.triangulate(
+        pts[i:i + step], P if P.ndim == 3 else P[i:i + step],
+        None if w is None else w[i:i + step], method=method)[0]
+        for i in range(0, pts.shape[0], step)])
+
+
+def tri_check(res: dict, key: str, pts, P, w) -> None:
+    """``epk_triangulate`` against its plain version and float64 ``svd``
+    and ``eigh`` oracles, twice (TF32 allowed, then not: the same bits),
+    then timed beside the plain version and ``torch.linalg.eigh`` on the
+    same AᵀA (a yardstick: no one PyTorch call computes the function)."""
+    from epipolarpose_tpu_torch.geometry import triangulation as ttri
+    from epipolarpose_tpu_torch.kernels import triangulate as ktri
+    from epipolarpose_tpu_torch.tools.profile_step import (card_time_ms,
+                                                           time_ms)
+    dev = pts.device
+    n, v, j, _ = pts.shape
+    check(bool(torch.isfinite(pts).all()), "triangulation input not finite")
+    outs = []
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    try:
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            torch.backends.cudnn.allow_tf32 = flag
+            outs.append(ktri.triangulate_fast(pts, P, w))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    x, r = outs[1]
+    xp, rp = ktri.triangulate_fast_plain(pts, P, w)
+    w64 = None if w is None else w.double()
+    sub = slice(0, min(n, 4096))       # the float64 SVD on a slice
+    refs = {"fast64": (slice(None), ttri.triangulate(
+        pts.double(), P.double(), w64, method="fast")[0]),
+        "eigh64": (slice(None), triangulate_in_chunks(
+            pts.double(), P.double(), w64, "eigh")),
+        "svd64": (sub, ttri.triangulate(
+            pts[sub].double(), P.double() if P.ndim == 3 else
+            P[sub].double(), None if w is None else w64[sub],
+            method="svd")[0])}
+    gaps = {name: ((x[rows].double() - o).norm(dim=-1).max().item(),
+                   (xp[rows].double() - o).norm(dim=-1).max().item())
+            for name, (rows, o) in refs.items()}
+    # the spread of the distances to the float64 run: 99th percentile and
+    # share of points beyond 1 mm, kernel and plain
+    spread = {}
+    for name, t in (("kernel", x), ("plain", xp)):
+        d = (t.double() - refs["fast64"][1]).norm(dim=-1).flatten().float()
+        spread[name] = (d.quantile(0.99).item(),
+                        (d > 1.0).float().mean().item())
+    torch.cuda.synchronize()
+    dx = (x - xp).abs().max().item()
+    dr = (r - rp).abs().max().item()
+    # float32 rounds the same arithmetic in other places in the kernel
+    # (fused multiply-adds) and the plain version; AᵀA in mm spans many
+    # decades, so the adjugate amplifies that rounding where views
+    # disagree. The kernel must stay as close to the same solver in
+    # float64 as twice the plain version does, plus 0.05 mm.
+    allowance = 2 * gaps["fast64"][1] + 0.05
+    log(f"[ss] triangulation {key}: {n} x {j} points, V {v}, P "
+        f"{'per frame' if P.ndim == 4 else 'shared'}, weights "
+        f"{'yes' if w is not None else 'no'}: max |dX| kernel vs plain "
+        f"{dx:.3g} mm, |d residual| {dr:.3g} (limit 1e-4); max distance "
+        + ", ".join(f"to {name} {k:.3g} mm (plain {p:.3g})"
+                    for name, (k, p) in gaps.items())
+        + f"; limits: fast64 {allowance:.3g} mm, the oracles the plain's "
+        f"+ {allowance:.3g}; to fast64 99th percentile kernel "
+        f"{spread['kernel'][0]:.3g} mm, plain {spread['plain'][0]:.3g} mm "
+        f"(limit twice the plain's + 0.05), beyond 1 mm kernel "
+        f"{spread['kernel'][1]:.3g}, plain {spread['plain'][1]:.3g} of the "
+        f"points; same bits with TF32 allowed and not: {same}")
+    check(bool(torch.isfinite(x).all() and torch.isfinite(r).all()),
+          "triangulation not finite")
+    check(same, "the TF32 flags changed the triangulation")
+    check(dr <= 1e-4, "triangulation residual: kernel and plain disagree")
+    check(gaps["fast64"][0] <= allowance
+          and spread["kernel"][0] <= 2 * spread["plain"][0] + 0.05,
+          "triangulation kernel rounds further from float64 than the plain "
+          "version")
+    check(all(k <= p + allowance for name, (k, p) in gaps.items()
+              if name != "fast64"),
+          "triangulation kernel further from the float64 oracles than the "
+          "plain version")
+    ms = time_ms(lambda: ktri.triangulate_fast(pts, P, w), dev, iters=20)
+    dev_ms = card_time_ms(lambda: ktri.triangulate_fast(pts, P, w), iters=20)
+    plain_ms = time_ms(lambda: ktri.triangulate_fast_plain(pts, P, w), dev,
+                       iters=5)
+    ata = ttri.normal_matrix(ttri.build_dlt_system(
+        pts.transpose(1, 2), P[None, None] if P.ndim == 3 else P[:, None],
+        None if w is None else w.transpose(1, 2)))
+    eigh_ms = time_ms(lambda: eigh_chunked(ata), dev, iters=5)
+    points = n * j
+    p_bytes = P.numel() * 4
+    n_bytes = (pts.numel() + (w.numel() if w is not None else 0)) * 4 \
+        + p_bytes + points * 4 * 4
+    b_ms, b_by = bound(n_bytes, tri_flops(v) * points, F32_FLOPS)
+    res[key] = dict(points=points, views=v, max_abs_err=dx,
+                    residual_max_abs_err=dr, gap_mm=gaps,
+                    allowance_mm=allowance, p99_and_share_over_1mm=spread,
+                    tf32_same_bits=same, ms=ms, device_ms=dev_ms,
+                    plain_ms=plain_ms, eigh_ms=eigh_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None)
+    log(f"[ss] triangulation {key}: kernel {ms:.4g} ms (card alone "
+        f"{dev_ms:.4g}), plain {plain_ms:.4g} ms, torch.linalg.eigh on "
+        f"AᵀA {eigh_ms:.4g} ms (in chunks of {EIGH_CHUNK}), bound "
+        f"{b_ms:.4g} ms ({b_by})")
+
+
+def noisy_detections(px, seed: int, corrupt: bool = True):
+    """Detections 2 px off with weights in [0.5, 1]; with ``corrupt``, view
+    0 moved by 60 px and weighted 1e-3."""
+    g = torch.Generator(px.device).manual_seed(seed)
+    det = px + 2.0 * torch.randn(px.shape, generator=g, device=px.device)
+    conf = 0.5 + 0.5 * torch.rand(px.shape[:-1], generator=g,
+                                  device=px.device)
+    if corrupt:
+        det[:, 0] += 60.0
+        conf[:, 0] = 1e-3
+    return det, conf
+
+
+def phase_ss(res: dict) -> None:
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.core import create_train_state
+    from epipolarpose_tpu_torch.core import self_supervised as tss
+    from epipolarpose_tpu_torch.core.steps import configure_backends
+    from epipolarpose_tpu_torch.geometry.camera import (Camera,
+                                                        undistort_points)
+    from epipolarpose_tpu_torch.kernels import softargmax as ksa
+    from epipolarpose_tpu_torch.kernels import triangulate as ktri
+    from epipolarpose_tpu_torch.models import get_model
+    from epipolarpose_tpu_torch.data.synthetic import (make_rig,
+                                                      synth_skeleton_poses)
+    from epipolarpose_tpu_torch.geometry.camera import project_point_radial
+    import numpy as np
+
+    cfg = load_config(ROOT / "experiments/h36m/train_ss_r50_256_integral.yaml")
+    G, V = int(cfg.TRAIN.BATCH_SIZE), int(cfg.DATASET.NUM_VIEWS)
+    check((G, V) == (SS_GROUPS, SS_VIEWS)
+          and cfg.MODEL.EXTRA.DEPTH_DIM == 64
+          and cfg.MODEL.EXTRA.NUM_LAYERS == 50
+          and cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+          and cfg.TRAIN.OPTIMIZER == "adam"
+          and cfg.TPU.TRIANGULATION.METHOD == "fast"
+          and cfg.TPU.TRIANGULATION.CONF_WEIGHT, "unexpected SS config")
+    joints, depth = int(cfg.MODEL.NUM_JOINTS), int(cfg.MODEL.EXTRA.DEPTH_DIM)
+    hm = int(cfg.MODEL.EXTRA.HEATMAP_SIZE[0])
+    configure_backends(cfg)
+    dev = torch.device("cuda")
+    batch, world, px = ss_rig_batch(cfg, G, V, seed=21)
+    cam = batch["camera"]
+
+    # 1. the kernel at the SS step's 544 points (per-frame P, noisy and
+    # one corrupted view) and at about 10^6 points (one rig)
+    det, conf = noisy_detections(px, seed=22)
+    und = undistort_points(det, cam).contiguous()
+    tri_check(res, "triangulate", und, cam.P.contiguous(), conf)
+    rng = np.random.default_rng(23)
+    big = synth_skeleton_poses(rng, TRI_FRAMES, joints) + 800.0
+    rig = Camera.stack([Camera.stack(make_rig(V, seed=23))]).to(dev)
+    bpx, _ = project_point_radial(
+        torch.tensor(big, dtype=torch.float32, device=dev)[:, None], rig)
+    bdet, bconf = noisy_detections(bpx, seed=24)
+    bund = undistort_points(bdet, rig).contiguous()
+    tri_check(res, "triangulate_1m", bund, rig.P[0].contiguous(), bconf)
+    del big, bpx, bdet, bconf, bund
+
+    # 2. the soft-argmax kernels at the student's shape, N = G*V = 128
+    train_kernels_vs_plain(res, G * V, joints, depth, hm, hm, path="ss")
+
+    # 3. the perfect teacher: detections are the projected joints
+    x_w, tri_res = tss.generate_pseudo_gt(cfg, px, torch.ones(
+        px.shape[:-1], device=dev), cam)
+    pgt_err = (x_w - world).norm(dim=-1).max().item()
+    log(f"[ss] perfect-teacher pseudo-GT: max |X - world| {pgt_err:.3g} mm "
+        f"(limit 1), max residual {tri_res.max().item():.3g}")
+    check(pgt_err < 1.0, "perfect-teacher pseudo-GT off by 1 mm or more")
+    model = get_model(cfg, True, torch.Generator().manual_seed(25))
+    state = create_train_state(cfg, model, steps_per_epoch=1000, device=dev)
+    step = tss.make_ss_train_step(
+        cfg, model, None, device=dev,
+        detect_fn=tss.make_gt_teacher(px.reshape(G * V, joints, 2)),
+        flip_pairs=H36M_FLIP_PAIRS)
+    losses, resid = [], []
+
+    def run(n):
+        nonlocal state
+        for _ in range(n):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+            resid.append(m["tri_residual"])
+
+    run(SS_WARMUP)                 # cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rates, step_ms = [], []
+    for _ in range(SS_WINDOWS):
+        t0 = time.perf_counter()
+        run(SS_STEPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates.append(G * V * SS_STEPS / dt)
+        step_ms.append(dt * 1e3 / SS_STEPS)
+    counts = launch_counts()
+    res["paths"]["ss"] = counts
+    steps = SS_WINDOWS * SS_STEPS
+    curve = torch.stack(losses).tolist()
+    max_res = torch.stack(resid).max().item()
+    res["ss_samples_per_s"] = rates
+    res["ss_step_ms"] = step_ms
+    res["ss_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[ss] perfect teacher, G {G} x V {V} = {G * V} crops, ResNet-50@256 "
+        f"J=17 D=64 bf16 Adam: {SS_WINDOWS} windows of {SS_STEPS} steps: "
+        + ", ".join(f"{r:.1f} samples/s ({t:.2f} ms a step)"
+                    for r, t in zip(rates, step_ms))
+        + f"; peak memory {res['ss_peak_gb']:.2f} GB; launches {counts}; "
+        f"max tri_residual {max_res:.3g} (limit 1e-3); losses "
+        f"({SS_WARMUP} warm-up first) " + ", ".join(
+            f"{v:.4f}" for v in curve[:4]) + " ... " + ", ".join(
+            f"{v:.4f}" for v in curve[-3:]))
+    check(all(math.isfinite(v) for v in curve), f"losses {curve}")
+    check(curve[-1] < curve[0], "SS loss did not fall on a repeated batch")
+    check(max_res < 1e-3, "perfect-teacher residual 1e-3 or more")
+    check(counts["triangulate"] == counts["softargmax_fwd"]
+          == counts["softargmax_bwd"] == steps,
+          f"kernels launched {counts} times in {steps} steps, expected one "
+          f"launch of each a step")
+    check(counts["matmul_stats"] == 0 and counts["teacher_decode"] == 0,
+          f"SS path with the perfect teacher launched {counts}")
+
+    # 4. the random bf16 ResNet-50 teacher, from a generator
+    teacher = tss.load_teacher(cfg, dev, torch.Generator().manual_seed(26))
+    before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    tstep = tss.make_ss_train_step(cfg, model, teacher, device=dev,
+                                   flip_pairs=H36M_FLIP_PAIRS)
+    reset_counts()
+    confs = [tstep(state, batch)[1]["teacher_conf"]]    # cuDNN warms up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    confs += [tstep(state, batch)[1]["teacher_conf"] for _ in range(2)]
+    torch.cuda.synchronize()
+    res["ss_teacher_step_ms"] = (time.perf_counter() - t0) * 1e3 / 2
+    counts = launch_counts()
+    confs = torch.stack(confs).tolist()
+    moved = [k for k, v in teacher.state_dict().items()
+             if not torch.equal(v, before[k])]
+    log(f"[ss] random bf16 ResNet-50 teacher, 3 steps: teacher_conf "
+        + ", ".join(f"{c:.4g}" for c in confs) + f"; steps 2-3 "
+        f"{res['ss_teacher_step_ms']:.2f} ms a step ("
+        f"{G * V * 1e3 / res['ss_teacher_step_ms']:.1f} samples/s); teacher "
+        f"tensors changed: {len(moved)}; launches {counts}")
+    check(all(math.isfinite(c) for c in confs), "teacher_conf not finite")
+    check(not moved, f"the teacher changed: {moved[:3]}")
+    check(counts["teacher_decode"] == 3 and counts["triangulate"] == 3
+          and counts["softargmax_fwd"] == counts["softargmax_bwd"] == 3,
+          f"teacher route: {counts} in 3 steps")
+
+    # 5. one step through the kernels against the same step through the
+    # plain versions, from one state (head re-drawn so the joints spread)
+    redraw_head(model, seed=27)
+    twin = copy.deepcopy(model)
+    det, conf = noisy_detections(px, seed=28, corrupt=False)
+    det_fn = tss.make_gt_teacher(det.reshape(G * V, joints, 2),
+                                 conf.reshape(G * V, joints))
+    out = {}
+    for name, m, decode, solve in (
+            ("kernel", model, ksa.softmax_integral, None),
+            ("plain", twin, ksa.softmax_integral_plain,
+             ktri.triangulate_fast_plain)):
+        st = create_train_state(cfg, m, steps_per_epoch=1000, device=dev)
+        _, metrics = tss.make_ss_train_step(
+            cfg, m, None, device=dev, detect_fn=det_fn,
+            flip_pairs=H36M_FLIP_PAIRS, decode=decode, solve=solve)(st, batch)
+        out[name] = (metrics["loss"].item(), metrics["tri_residual"].item(),
+                     m.final_layer.weight.grad.detach().clone())
+    (lk, rk, gk), (lp, rp, gp) = out["kernel"], out["plain"]
+    dgrad = (gk - gp).abs().max().item()
+    gmax = gp.abs().max().item()
+    loss_limit = 3 * joints * 1e-4
+    log(f"[ss] one step, kernels vs plain (triangulation, decode): loss "
+        f"{lk:.6f} vs {lp:.6f} (|d| {abs(lk - lp):.3g}, limit "
+        f"{loss_limit:.3g}); tri_residual {rk:.4g} vs {rp:.4g}; "
+        f"final_layer.weight grad max |d| {dgrad:.3g} = "
+        f"{dgrad / max(gmax, 1e-30):.3g} x max|grad| (limit 2^-7)")
+    check(math.isfinite(lk) and lk > 0 and abs(lk - lp) <= loss_limit,
+          "SS step loss: kernels and plain versions disagree")
+    check(abs(rk - rp) <= 1e-4, "SS step residual: kernel and plain differ")
+    check(gmax > 0 and dgrad <= 2 ** -7 * gmax,
+          "SS step final_layer gradient: kernels and plain disagree")
+
+
+def phase_pose2d(res: dict) -> None:
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.core import (create_train_state,
+                                             make_train_step)
+    from epipolarpose_tpu_torch.core.steps import (configure_backends,
+                                                   make_eval_step)
+    from epipolarpose_tpu_torch.models import get_model
+    cfg = load_config(ROOT / "experiments/mpii/"
+                      "train_r50_256x256_d256x3_adam_lr1e-3.yaml")
+    check(cfg.MODEL.EXTRA.TARGET_TYPE == "gaussian"
+          and cfg.MODEL.NUM_JOINTS == 16
+          and cfg.TRAIN.BATCH_SIZE == POSE2D_BATCH
+          and cfg.TEST.FLIP_TEST, "unexpected MPII config")
+    configure_backends(cfg)
+    dev = torch.device("cuda")
+    size = int(cfg.MODEL.IMAGE_SIZE[0])
+    joints = int(cfg.MODEL.NUM_JOINTS)
+    model = get_model(cfg, True, torch.Generator().manual_seed(31))
+    state = create_train_state(cfg, model, steps_per_epoch=1000, device=dev)
+    step = make_train_step(cfg, model, device=dev)
+    g = torch.Generator(dev).manual_seed(32)
+    batch = {"input": torch.randint(0, 256, (POSE2D_BATCH, size, size, 3),
+                                    generator=g, device=dev,
+                                    dtype=torch.uint8),
+             "joints": size * torch.rand((POSE2D_BATCH, joints, 2),
+                                         generator=g, device=dev),
+             "joints_vis": torch.ones((POSE2D_BATCH, joints), device=dev),
+             "center": 200 + 600 * torch.rand((POSE2D_BATCH, 2), generator=g,
+                                              device=dev),
+             "scale": 0.8 + 0.4 * torch.rand((POSE2D_BATCH, 2), generator=g,
+                                             device=dev)}
+    mpii_pairs = ((0, 5), (1, 4), (2, 3), (10, 15), (11, 14), (12, 13))
+    eval_step = make_eval_step(cfg, model, mpii_pairs, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = [step(state, batch)[1] for _ in range(POSE2D_STEPS)]
+    out = eval_step(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    res["paths"]["pose2d"] = counts
+    losses = [m["loss"].item() for m in metrics]
+    accs = [m["acc"].item() for m in metrics]
+    preds, maxvals = out["preds"], out["maxvals"]
+    log(f"[pose2d] MPII ResNet-50@256, 16 joints, 64x64 heatmaps, batch "
+        f"{POSE2D_BATCH}: {POSE2D_STEPS} gaussian train steps, losses "
+        + ", ".join(f"{v:.6f}" for v in losses) + ", acc "
+        + ", ".join(f"{a:.3f}" for a in accs) + f"; flip-test eval preds "
+        f"{tuple(preds.shape)}, maxvals {tuple(maxvals.shape)}; "
+        f"{wall:.2f} s with the first calls; launches {counts}")
+    check(all(math.isfinite(v) for v in losses), "pose2d loss not finite")
+    check(all(0.0 <= a <= 1.0 for a in accs), "pose2d acc outside [0, 1]")
+    check(tuple(preds.shape) == (POSE2D_BATCH, joints, 2)
+          and tuple(maxvals.shape) == (POSE2D_BATCH, joints)
+          and bool(torch.isfinite(preds).all())
+          and bool(torch.isfinite(maxvals).all()), "pose2d eval output")
+    check(state.step == POSE2D_STEPS, "pose2d step count")
+    check(not any(counts.values()), f"pose2d path launched {counts}")
+
+
 def phase_tool(res: dict) -> None:
     from epipolarpose_tpu_torch.kernels.softargmax import (
         softmax_integral, softmax_integral_bwd)
     from epipolarpose_tpu_torch.tools.profile_step import (CONV1X1_SHAPES,
                                                            bench_conv1x1)
-    softmax_integral.launches = softmax_integral_bwd.launches = 0
-    reset_matmul_routes()
+    reset_counts()
     rows = bench_conv1x1(iters=5)
+    res["paths"]["tool"] = launch_counts()
     launches, wgmma, simt = matmul_routes()
     check(len(rows) == len(CONV1X1_SHAPES), "bench skipped shapes")
     check(launches > 0, "tool path never launched the matmul_stats kernel")
@@ -673,10 +1154,11 @@ def main() -> int:
     torch.cuda.set_device(0)
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                         format="%(message)s")
-    res: dict = {}
+    res: dict = {"paths": {}}
     phases = [("build", phase_env), ("softargmax", phase_softargmax),
               ("matmul_stats", phase_matmul_stats), ("eval", phase_eval),
-              ("train", phase_train), ("tool", phase_tool)]
+              ("train", phase_train), ("ss", phase_ss),
+              ("pose2d", phase_pose2d), ("tool", phase_tool)]
     failed = []
     for i, (name, fn) in enumerate(phases, 1):
         if failed and failed[0] == "build":
@@ -708,28 +1190,60 @@ def main() -> int:
     k1, k2 = res["softargmax"], res["matmul_stats"]
     pallas = ("epipolarpose_tpu/ops/pallas/softargmax.py:{} "
               "(fused_softmax_integral{}; git show f1b68e4)")
+    paths = res["paths"]
+
+    def by_path(counter):
+        return {path: counts[counter] for path, counts in paths.items()}
+
+    sa = "epipolarpose_tpu_torch/csrc/softargmax.cu"
     kernels = [
-        dict(name="softargmax_fwd", route="cuda",
-             source="epipolarpose_tpu_torch/csrc/softargmax.cu",
+        dict(name="softargmax_fwd", route="cuda", source=sa,
              replaces=pallas.format(98, ""), path="eval",
-             launches=res["eval_launches"], **k1),
-        dict(name="softargmax_fwd_stats", route="cuda",
-             source="epipolarpose_tpu_torch/csrc/softargmax.cu",
+             launches=res["eval_launches"],
+             launches_by_path=by_path("softargmax_fwd"), **k1),
+        dict(name="softargmax_fwd_stats", route="cuda", source=sa,
              replaces=pallas.format(98, ""), path="train",
              launches=res["train_launches"][0],
+             launches_by_path=by_path("softargmax_fwd"),
              **res["softargmax_fwd_stats"]),
-        dict(name="softargmax_bwd", route="cuda",
-             source="epipolarpose_tpu_torch/csrc/softargmax.cu",
+        dict(name="softargmax_bwd", route="cuda", source=sa,
              replaces=pallas.format(174, " backward, _bwd"), path="train",
-             launches=res["train_launches"][1], **res["softargmax_bwd"]),
+             launches=res["train_launches"][1],
+             launches_by_path=by_path("softargmax_bwd"),
+             **res["softargmax_bwd"]),
+        dict(name="softargmax_fwd_stats_ss", route="cuda", source=sa,
+             replaces=pallas.format(98, ""), path="ss",
+             launches=paths["ss"]["softargmax_fwd"],
+             launches_by_path=by_path("softargmax_fwd"),
+             **res["softargmax_fwd_stats_ss"]),
+        dict(name="softargmax_bwd_ss", route="cuda", source=sa,
+             replaces=pallas.format(174, " backward, _bwd"), path="ss",
+             launches=paths["ss"]["softargmax_bwd"],
+             launches_by_path=by_path("softargmax_bwd"),
+             **res["softargmax_bwd_ss"]),
         dict(name="matmul_stats", route="cuda",
              source="epipolarpose_tpu_torch/csrc/matmul_stats.cu",
              replaces="tools/profile_step.py:152", path="tool",
              launches=res["tool_launches"][0],
              launches_wgmma=res["tool_launches"][1],
              launches_simt=res["tool_launches"][2], kernel_route="wgmma",
+             launches_by_path=by_path("matmul_stats"),
              ragged_shape=res["matmul_stats_ragged"], **k2),
+        # not a pl.pallas_call: the port's kernel for an op XLA fuses
+        dict(name="triangulate", route="cuda",
+             source="epipolarpose_tpu_torch/csrc/triangulate.cu",
+             replaces="epipolarpose_tpu/geometry/triangulation.py:125 "
+                      "(triangulate, method fast; XLA-fused, no "
+                      "pl.pallas_call)", path="ss",
+             launches=paths["ss"]["triangulate"],
+             launches_by_path=by_path("triangulate"),
+             at_1m_points=res["triangulate_1m"], **res["triangulate"]),
     ]
+    log(f"ss path: {SS_GROUPS * SS_VIEWS} crops a step; perfect teacher: "
+        f"samples/s per window " + ", ".join(
+            f"{r:.1f}" for r in res["ss_samples_per_s"]) + ", ms a step "
+        + ", ".join(f"{t:.2f}" for t in res["ss_step_ms"])
+        + f"; random teacher: {res['ss_teacher_step_ms']:.2f} ms a step")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

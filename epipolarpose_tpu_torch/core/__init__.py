@@ -1,9 +1,18 @@
-"""Train and eval steps, training state, and the epoch loops of the port."""
+"""Train and eval steps (the self-supervised step among them), training
+state, and the epoch loops of the port."""
 
 from epipolarpose_tpu_torch.core.function import (  # noqa: F401
     AverageMeter,
     train,
     validate,
+)
+from epipolarpose_tpu_torch.core.self_supervised import (  # noqa: F401
+    Teacher,
+    generate_pseudo_gt,
+    load_teacher,
+    make_gt_teacher,
+    make_ss_train_step,
+    teacher_detect,
 )
 from epipolarpose_tpu_torch.core.steps import (  # noqa: F401
     make_eval_step,

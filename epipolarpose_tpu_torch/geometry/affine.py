@@ -23,6 +23,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 
@@ -89,6 +90,58 @@ def get_affine_transform(center, scale, rot, output_size: Sequence[float],
     return _solve_affine(src, dst)
 
 
+def get_affine_transform_np(center, scale, rot, output_size,
+                            shift=(0.0, 0.0), inv: bool = False) -> np.ndarray:
+    """Numpy twin of :func:`get_affine_transform` for host-side batch
+    building: the same math on float32 arrays, (..., 2, 3)."""
+    center = np.asarray(center, np.float32)
+    scale = np.asarray(scale, np.float32)
+    if scale.ndim == center.ndim - 1 or scale.ndim == 0:
+        scale = scale[..., None] * np.ones_like(center)
+    shift = np.asarray(shift, np.float32)
+    rot = np.asarray(rot, np.float32)
+
+    scale_tmp = scale * 200.0
+    src_w = scale_tmp[..., 0]
+    dst_w = np.float32(output_size[0])
+    dst_h = np.float32(output_size[1])
+
+    rot_rad = np.pi * rot / 180.0
+    sn, cs = np.sin(rot_rad), np.cos(rot_rad)
+    # (0, -0.5 * src_w) rotated by rot_rad
+    src_dir = np.stack([(src_w * 0.5) * sn, (src_w * -0.5) * cs], axis=-1)
+    dst_dir = np.stack([np.zeros_like(src_w),
+                        (dst_w * -0.5) * np.ones_like(src_w)], axis=-1)
+
+    def third(a, b):
+        d = a - b
+        return b + np.stack([-d[..., 1], d[..., 0]], axis=-1)
+
+    src0 = center + scale_tmp * shift
+    src1 = center + src_dir + scale_tmp * shift
+    dst0 = np.stack([dst_w * 0.5 * np.ones_like(src_w),
+                     dst_h * 0.5 * np.ones_like(src_w)], axis=-1)
+    dst1 = dst0 + dst_dir
+    src = np.stack([src0, src1, third(src0, src1)], axis=-2)
+    dst = np.stack([dst0, dst1, third(dst0, dst1)], axis=-2)
+    if inv:
+        src, dst = dst, src
+    a = np.concatenate([src, np.ones(src.shape[:-1] + (1,), np.float32)],
+                       axis=-1)
+    return np.swapaxes(np.linalg.solve(a, dst), -1, -2).astype(np.float32)
+
+
+def invert_affine(m: torch.Tensor) -> torch.Tensor:
+    """Invert (..., 2, 3) affines (closed-form 2x2 inverse)."""
+    a, b, tx = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    c, d, ty = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    det = a * d - b * c
+    ia, ib, ic, id_ = d / det, -b / det, -c / det, a / det
+    return torch.stack([
+        torch.stack([ia, ib, -(ia * tx + ib * ty)], dim=-1),
+        torch.stack([ic, id_, -(ic * tx + id_ * ty)], dim=-1)], dim=-2)
+
+
 def affine_transform(pt: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """Apply (..., 2, 3) affines to points (..., 2)."""
     x, y = pt[..., 0], pt[..., 1]
@@ -112,6 +165,20 @@ def _pair_permutation(num_joints: int, matched_parts) -> list[int]:
     for a, b in matched_parts:
         perm[a], perm[b] = perm[b], perm[a]
     return perm
+
+
+def fliplr_joints(joints: torch.Tensor, joints_vis: torch.Tensor,
+                  width: float, matched_parts
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mirror joints (..., J, C>=2) in an image ``width`` px wide and swap
+    left/right pairs; joints_vis (..., J, k). Invisible joints come back
+    zeroed, as the reference returns ``joints * joints_vis``."""
+    joints = torch.as_tensor(joints, dtype=torch.float32).clone()
+    joints_vis = torch.as_tensor(joints_vis)
+    joints[..., 0] = width - 1.0 - joints[..., 0]
+    perm = _pair_permutation(joints.shape[-2], matched_parts)
+    joints, joints_vis = joints[..., perm, :], joints_vis[..., perm, :]
+    return joints * joints_vis[..., :1].to(joints.dtype), joints_vis
 
 
 def flip_back(heatmaps: torch.Tensor, matched_parts) -> torch.Tensor:

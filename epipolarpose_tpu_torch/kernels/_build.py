@@ -41,6 +41,7 @@ SIGNATURES = {
     "epk_softargmax_bwd": (_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p),
     "epk_matmul_stats": (_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p),
     "epk_matmul_stats_simt": (_p, _p, _p, _p, _i, _i, _i, _i, _p),
+    "epk_triangulate": (_p, _p, _i, _p, _p, _p, _i, _i, _i, _i, _p),
 }
 
 

@@ -1,5 +1,12 @@
-"""Tensor ops: soft-argmax decode, integral targets, losses, MPJPE."""
+"""Tensor ops: soft-argmax decode, integral targets, gaussian heatmap
+targets and decode, losses, accuracy and MPJPE."""
 
+from epipolarpose_tpu_torch.ops.heatmap import (  # noqa: F401
+    generate_target,
+    get_final_preds,
+    get_max_preds,
+    post_process_preds,
+)
 from epipolarpose_tpu_torch.ops.integral import (  # noqa: F401
     generate_integral_target,
     integral_to_camera_depth,
@@ -7,6 +14,11 @@ from epipolarpose_tpu_torch.ops.integral import (  # noqa: F401
 )
 from epipolarpose_tpu_torch.ops.losses import (  # noqa: F401
     integral_l1_loss,
+    joints_mse_loss,
     make_loss,
 )
-from epipolarpose_tpu_torch.ops.metrics import mpjpe, nmpjpe  # noqa: F401
+from epipolarpose_tpu_torch.ops.metrics import (  # noqa: F401
+    heatmap_accuracy,
+    mpjpe,
+    nmpjpe,
+)

@@ -1,12 +1,27 @@
-"""Training losses (counterparts of the JAX package's ``ops/losses.py``).
-
-Only the integral L1 loss is ported; ``JointsMSELoss`` comes with the 2D
-heatmap ops.
-"""
+"""Training losses (counterparts of the JAX package's ``ops/losses.py``):
+the heatmap MSE (``JointsMSELoss``) and the integral L1 loss."""
 
 from __future__ import annotations
 
 import torch
+
+
+def joints_mse_loss(output: torch.Tensor, target: torch.Tensor,
+                    target_weight: torch.Tensor | None = None,
+                    use_target_weight: bool = True) -> torch.Tensor:
+    """Heatmap MSE. output/target (N, J, H, W); target_weight (N, J).
+
+    Per joint ``0.5 * mean((w*pred - w*gt)^2)`` over the batch and the map,
+    then the mean over joints, in float32.
+    """
+    n, j = output.shape[:2]
+    pred = output.float().reshape(n, j, -1)
+    gt = target.float().reshape(n, j, -1)
+    if use_target_weight and target_weight is not None:
+        tw = target_weight.float()[..., None]
+        pred = pred * tw
+        gt = gt * tw
+    return (0.5 * (pred - gt).pow(2).mean(dim=(0, 2))).mean()
 
 
 def integral_l1_loss(pred_coords: torch.Tensor, target_coords: torch.Tensor,
@@ -32,8 +47,9 @@ def make_loss(cfg):
     """``criterion(output, target, target_weight)`` for ``LOSS.TYPE``."""
     use_tw = bool(cfg.LOSS.USE_TARGET_WEIGHT)
     if cfg.LOSS.TYPE == "JointsMSELoss":
-        raise NotImplementedError("JointsMSELoss comes with the 2D heatmap "
-                                  "ops, which are not ported yet")
+        def criterion(output, target, target_weight):
+            return joints_mse_loss(output, target, target_weight, use_tw)
+        return criterion
     if cfg.LOSS.TYPE == "IntegralL1Loss":
         def criterion(output, target, target_weight):
             return integral_l1_loss(output, target,

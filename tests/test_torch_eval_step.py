@@ -151,8 +151,18 @@ def test_normalize_images_matches_jax(rng):
 
 
 def test_gaussian_target_type_not_ported():
+    """The gaussian eval step is ported now (held against JAX in
+    tests/test_torch_heatmap.py): on the debug 2D config it returns preds
+    and maxvals; a target type that neither package has still raises."""
     cfg = load_config(ROOT / "experiments/debug/synth_smoke.yaml")
-    with pytest.raises(NotImplementedError):
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    model = get_pose_net(cfg, generator=torch.Generator().manual_seed(0))
+    out = make_eval_step(cfg, model, device="cpu")(
+        _batch(np.random.default_rng(1), n=2))
+    assert out["preds"].shape == (2, 16, 2) and out["maxvals"].shape == (
+        2, 16)
+    cfg.MODEL.EXTRA.TARGET_TYPE = "nope"
+    with pytest.raises(ValueError, match="TARGET_TYPE"):
         make_eval_step(cfg, torch.nn.Identity(), device="cpu")
 
 
@@ -300,3 +310,55 @@ def test_smoke_train_eval_train_on_cpu(smoke):
     out = smoke.train_eval_train(cfg, batch, device="cpu")
     assert out["moved"] == [] and out["steps"] == 2
     assert out["dxy"] <= 1e-5 and out["dz"] <= 1e-5
+
+
+def test_smoke_ss_batch_on_cpu(smoke):
+    """The smoke's SS batch at a small crop size on the CPU: shapes, the
+    perfect-teacher pseudo-GT, and the flip folded into ``aug_M`` (the
+    box centre lands on the crop centre, mirrored when flipped)."""
+    from epipolarpose_tpu_torch.core.self_supervised import generate_pseudo_gt
+    from epipolarpose_tpu_torch.geometry.affine import affine_transform
+    cfg = load_config(ROOT / "experiments/h36m/train_ss_r50_256_integral.yaml")
+    cfg.MODEL.IMAGE_SIZE = [32, 32]
+    batch, world, px = smoke.ss_rig_batch(cfg, 3, 4, seed=1, device="cpu")
+    assert batch["input"].shape == batch["input_aug"].shape == (3, 4, 32,
+                                                                 32, 3)
+    assert batch["aug_M"].shape == (3, 4, 2, 3) and px.shape == (3, 4, 17, 2)
+    flips = batch["aug_flip"]
+    assert 0 < flips.sum() < flips.numel()
+    x, res = generate_pseudo_gt(cfg, px, torch.ones(3, 4, 17),
+                                batch["camera"])
+    assert (x - world).norm(dim=-1).max().item() < 1.0
+    assert res.max().item() < 1e-3
+    centre = affine_transform(batch["center"], batch["aug_M"])
+    want_x = torch.where(flips > 0.5, 31.0 - 16.0, 16.0)
+    assert torch.allclose(centre[..., 0], want_x, atol=1e-3)
+    assert torch.allclose(centre[..., 1], torch.full_like(want_x, 16.0),
+                          atol=1e-3)
+
+
+def test_smoke_triangulation_helpers(smoke):
+    from epipolarpose_tpu_torch.geometry import triangulation as ttri
+    from test_torch_kernels import _rig_points
+    smoke_chunk = smoke.EIGH_CHUNK
+    try:
+        smoke.EIGH_CHUNK = 40
+        for per_frame in (False, True):
+            pts, P, w, _ = _rig_points(4, 9, 17, 2, "cpu", per_frame)
+            for method in ("eigh", "svd"):
+                got = smoke.triangulate_in_chunks(pts, P, w, method)
+                want = ttri.triangulate(pts, P, w, method=method)[0]
+                assert torch.equal(got, want)
+            ata = torch.randn(5, 7, 4, 4)
+            ata = ata @ ata.transpose(-1, -2)
+            vals, vecs = smoke.eigh_chunked(ata)
+            ref = torch.linalg.eigh(ata)
+            assert torch.allclose(vals, ref[0]) and vecs.shape == ata.shape
+    finally:
+        smoke.EIGH_CHUNK = smoke_chunk
+    assert smoke.tri_flops(4) == 130 * 4 + 590
+    det, conf = smoke.noisy_detections(torch.zeros(2, 4, 17, 2), seed=0)
+    assert (conf[:, 0] == 1e-3).all() and (det[:, 0].mean() > 50)
+    det, conf = smoke.noisy_detections(torch.zeros(2, 4, 17, 2), seed=0,
+                                       corrupt=False)
+    assert conf.min() >= 0.5 and det.abs().max() < 20

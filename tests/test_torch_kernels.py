@@ -17,7 +17,15 @@ same products; entries below 1/256 of y's rms are measured at that
 floor), stats 1e-3 of the largest stat (both routes sum the rows in
 another order than the plain version; the simt route's atomics add block
 partials in any order, the wgmma route's partials are summed in a fixed
-order, so its stats are the same bits from call to call).
+order, so its stats are the same bits from call to call); triangulation
+(mm, the synthetic H36M-like rig): residual within 1e-4 of the plain
+version; X no further from the same solver run in float64 than twice the
+plain version's distance from it plus 0.05 mm (both round the same
+arithmetic in float32, in other places: the compiler fuses multiplies and
+adds where torch rounds each; at this scale AᵀA spans many decades and
+its adjugate amplifies rounding to millimetres where the data disagree),
+and no further from a float64 SVD than the plain version plus that
+allowance.
 """
 
 import numpy as np
@@ -29,7 +37,15 @@ from epipolarpose_tpu_torch.core import create_train_state, make_train_step
 from epipolarpose_tpu_torch.core.steps import (configure_backends,
                                                make_eval_step)
 from epipolarpose_tpu_torch.kernels import matmul_stats as kms
+from epipolarpose_tpu_torch.core import self_supervised as tss
+from epipolarpose_tpu_torch.data.synthetic import (make_rig,
+                                                  synth_skeleton_poses)
+from epipolarpose_tpu_torch.geometry import triangulation as ttri
+from epipolarpose_tpu_torch.geometry.camera import (Camera,
+                                                    project_point_radial,
+                                                    undistort_points)
 from epipolarpose_tpu_torch.kernels import softargmax as ksa
+from epipolarpose_tpu_torch.kernels import triangulate as ktri
 from epipolarpose_tpu_torch.models import get_pose_net
 
 H36M_FLIP_PAIRS = ((1, 4), (2, 5), (3, 6), (11, 14), (12, 15), (13, 16))
@@ -284,3 +300,158 @@ def test_train_steps_on_card_match_cpu(cuda):
         scale = want.abs().max().item()
         torch.testing.assert_close(card[1][name], want, rtol=0,
                                    atol=1e-3 * scale, msg=name)
+
+
+def _rig_points(views, frames, joints, seed, device, per_frame):
+    """Undistorted noisy detections (N, V, J, 2) of skeleton poses seen by
+    the synthetic rig (one rig for all frames, or one of its own per
+    frame), its P ((V, 3, 4) or (N, V, 3, 4)), weights (with 3 views or
+    more, view 0 moved by 60 px and weighted 1e-3), and the poses."""
+    rng = np.random.default_rng(seed)
+    poses = synth_skeleton_poses(rng, frames, joints) + rng.uniform(
+        [-150, -150, 600], [150, 150, 1000], (frames, 1, 3)).astype(
+            np.float32)
+    # two views from a 4-camera ring stand 90 degrees apart (a 2-camera
+    # ring would face each other, and their rays would nearly coincide)
+    rigs = [Camera.stack(make_rig(max(views, 4), seed=seed + n)[:views])
+            for n in range(frames if per_frame else 1)]
+    cams = Camera.stack(rigs)                        # (1 or N, V, ...)
+    px, _ = project_point_radial(torch.tensor(poses)[:, None], cams)
+    px = px + torch.tensor(rng.normal(0, 2.0, px.shape), dtype=torch.float32)
+    w = torch.tensor(rng.uniform(0.5, 1.0, (frames, views, joints)),
+                     dtype=torch.float32)
+    if views > 2:
+        px[:, 0] += 60.0
+        w[:, 0] = 1e-3
+    und = undistort_points(px, cams)
+    P = cams.P if per_frame else cams.P[0]
+    return (und.contiguous().to(device), P.contiguous().to(device),
+            w.to(device), torch.tensor(poses))
+
+
+@pytest.mark.parametrize("per_frame", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("views", [2, 4, 8])
+def test_triangulate_kernel_matches_plain_and_f64(cuda, views, weighted,
+                                                  per_frame):
+    pts, P, w, poses = _rig_points(views, 300, 17, views, cuda, per_frame)
+    w = w if weighted else None
+    before = ktri.triangulate_fast.launches
+    x, res = ktri.triangulate_fast(pts, P, w)
+    assert ktri.triangulate_fast.launches == before + 1
+    want, want_res = ktri.triangulate_fast_plain(pts, P, w)
+    w64 = None if w is None else w.double()
+    same64, _ = ttri.triangulate(pts.double(), P.double(), w64,
+                                 method="fast")
+    oracle, _ = ttri.triangulate(pts.double(), P.double(), w64,
+                                 method="svd")
+    torch.cuda.synchronize()
+    assert x.shape == (300, 17, 3) and res.shape == (300, 17)
+    assert torch.isfinite(x).all() and torch.isfinite(res).all()
+    torch.testing.assert_close(res, want_res, rtol=0, atol=1e-4)
+
+    def gap(a, b):
+        return (a.double() - b).norm(dim=-1).max().item()
+    # rounding: as close to the same solver in float64 as the plain version
+    allowance = 2 * gap(want, same64) + 0.05
+    assert gap(x, same64) <= allowance, (gap(x, same64), allowance)
+    # the solver's own error (one refinement step) against the float64
+    # SVD: the kernel's is the plain version's, to that rounding
+    assert gap(x, oracle) <= gap(want, oracle) + allowance
+    if weighted and views > 2:     # the moved view is weighted away
+        err = (x.cpu() - poses).norm(dim=-1)
+        assert err.mean().item() < 20.0
+
+
+def test_triangulate_kernel_exact_data_and_tf32(cuda):
+    """Exact detections: the poses to under 1 mm with a residual under
+    1e-3; the same bits with the TF32 flags set and cleared."""
+    rng = np.random.default_rng(1)
+    poses = torch.tensor(synth_skeleton_poses(rng, 64, 17) + 800.0)
+    cams = Camera.stack([Camera.stack(make_rig(4, seed=1))])   # (1, V)
+    px, _ = project_point_radial(poses[:, None], cams)
+    und = undistort_points(px, cams).contiguous().to(cuda)
+    P = cams.P[0].contiguous().to(cuda)
+    outs = []
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    try:
+        for flag in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            torch.backends.cudnn.allow_tf32 = flag
+            outs.append(ktri.triangulate_fast(und, P))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    x, res = outs[0]
+    assert (x.cpu() - poses).norm(dim=-1).max().item() < 1.0
+    assert res.max().item() < 1e-3
+    want, _ = ktri.triangulate_fast_plain(und, P)
+    same64, _ = ttri.triangulate(und.double(), P.double(), method="fast")
+
+    def gap(a):
+        return (a.double() - same64).norm(dim=-1).max().item()
+    assert gap(x) <= 2 * gap(want) + 0.05, (gap(x), gap(want))
+
+
+def test_triangulate_kernel_rejects_what_it_does_not_take(cuda):
+    pts = torch.zeros((2, 9, 17, 2), device=cuda)
+    with pytest.raises(ValueError, match="2 to 8 views"):
+        ktri.triangulate_fast(pts, torch.zeros((9, 3, 4), device=cuda))
+    pts = torch.zeros((2, 4, 17, 2), device=cuda)
+    with pytest.raises(ValueError):
+        ktri.triangulate_fast(pts.double(), torch.zeros((4, 3, 4),
+                                                        device=cuda))
+    with pytest.raises(ValueError):
+        ktri.triangulate_fast(pts, torch.zeros((4, 3, 4)))
+
+
+def test_ss_step_on_card_matches_cpu(cuda):
+    """One self-supervised step at the debug size in float32 (TF32 off):
+    the card (triangulation and soft-argmax kernels) against the CPU
+    (plain versions), from the same weights and detections. Loss relative
+    1e-4, mean residual 1e-4; one launch of each kernel."""
+    cfg = load_config("experiments/debug/synth_smoke_3d.yaml")
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    configure_backends(cfg)
+    base = get_pose_net(cfg, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    groups, views, joints = 2, 4, 17
+    poses = synth_skeleton_poses(rng, groups, joints) + 800.0
+    cams = Camera.stack(make_rig(views, img_size=256, seed=2))
+    cams = cams.map(lambda t: t[None].repeat((groups,) + (1,) * t.ndim))
+    px, _ = project_point_radial(torch.tensor(poses)[:, None], cams)
+    centre = px.mean(dim=2)
+    batch = {"input": rng.integers(0, 256, (groups, views, 64, 64, 3),
+                                   np.uint8),
+             "center": centre.numpy(),
+             "scale": np.full((groups, views, 2), 1.5, np.float32),
+             "camera": cams,
+             "det_src": (px + torch.tensor(rng.normal(0, 1.0, px.shape),
+                                           dtype=torch.float32)).numpy(),
+             "det_conf": rng.uniform(0.5, 1, (groups, views, joints)
+                                     ).astype(np.float32)}
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = get_pose_net(cfg)
+        model.load_state_dict(base.state_dict())
+        state = create_train_state(cfg, model, 10, device=dev)
+        step = tss.make_ss_train_step(cfg, model, None, device=dev)
+        counts = (ktri.triangulate_fast.launches,
+                  ksa.softmax_integral.launches,
+                  ksa.softmax_integral_bwd.launches)
+        _, m = step(state, batch)
+        runs[str(dev)] = ({k: v.item() for k, v in m.items()},
+                          (ktri.triangulate_fast.launches - counts[0],
+                           ksa.softmax_integral.launches - counts[1],
+                           ksa.softmax_integral_bwd.launches - counts[2]))
+    cpu, card = runs["cpu"], runs[str(cuda)]
+    assert cpu[1] == (0, 0, 0) and card[1] == (1, 1, 1)
+    assert cpu[0]["loss"] > 0
+    np.testing.assert_allclose(card[0]["loss"], cpu[0]["loss"], rtol=1e-4)
+    np.testing.assert_allclose(card[0]["tri_residual"],
+                               cpu[0]["tri_residual"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(card[0]["teacher_conf"],
+                               cpu[0]["teacher_conf"], rtol=1e-6)

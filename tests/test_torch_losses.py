@@ -107,9 +107,14 @@ def test_make_loss():
     cfg.LOSS.USE_TARGET_WEIGHT = False
     assert tloss.make_loss(cfg)(a, b, w).item() == pytest.approx(
         9 * 2 * 0.25 / 2)
-    cfg.LOSS.TYPE = "JointsMSELoss"
-    with pytest.raises(NotImplementedError):
-        tloss.make_loss(cfg)
+    cfg.LOSS.TYPE = "JointsMSELoss"          # the heatmap MSE, ported now
+    maps = torch.ones((2, 3, 4, 4))
+    # USE_TARGET_WEIGHT is off: 0.5 * mean(1) for every joint
+    assert tloss.make_loss(cfg)(maps, torch.zeros_like(maps), w).item() \
+        == pytest.approx(0.5)
+    cfg.LOSS.USE_TARGET_WEIGHT = True        # joints weigh 1/2, 0, 2/2
+    assert tloss.make_loss(cfg)(maps, torch.zeros_like(maps), w).item() \
+        == pytest.approx((0.25 + 0.0 + 0.5) / 3)
     cfg.LOSS.TYPE = "nope"
     with pytest.raises(ValueError):
         tloss.make_loss(cfg)

@@ -1,0 +1,557 @@
+"""The port's self-supervised step against the JAX package's, on the CPU.
+
+Sizes of ``tests/test_self_supervised.py::_ss_cfg``: ResNet-18 at 64x64,
+17 joints, D = 4, float32, 32-wide deconvs; batches of G = 2 groups of
+V = 4 views from the JAX ``SyntheticMultiviewDataset.view_batches``, its
+cameras passed across as arrays and the weights through
+``models/convert.py::from_jax_variables``.
+
+The student trains on seeded uint8 noise crops (``input`` and
+``input_aug`` replaced), as ``tests/test_torch_train_step.py``'s batches
+are: the dataset's blob crops are 97% black, and on such inputs the
+backbone gradients of the two packages differ by up to 20% of each
+tensor's largest entry (max-pool windows tie; flax's E[x²]-E[x]² batch
+variance of nearly constant channels cancels). Detections, cameras,
+centres and scales come from the dataset unchanged; the teacher's decode
+runs on the blob crops.
+
+Routes held against JAX ``make_ss_train_step``:
+
+- ``det_src``/``det_conf`` in the batch (2 px noise on the ground truth;
+  a few confidences under ``SS_CONF_MIN`` in group 0 only, so a gate
+  repeated in the wrong order would mask group 1 instead), 3 steps; then
+  one step whose detections hold a nan and an inf (the targets they
+  reach get zero weight);
+- ``detect_fn`` (``make_gt_teacher``) with the dual crop (a mix of
+  flipped and unflipped crops, H36M left/right pairs) and a refiner, 3
+  steps;
+- the random teacher: every joint falls under ``SS_CONF_MIN``, so the
+  loss is 0, no parameter moves, and the teacher's weights and buffers
+  stay as they were.
+
+Tolerances: step-1 loss relative 1e-5 (float32 forwards of another
+summation order; measured about 1e-6); later steps 1e-3 (Adam's first
+update is about lr*sign(g), so entries with near-zero gradients move
+apart on rounding noise, ROADMAP Queue C: measured up to 1.4e-4, while
+one step moves the loss by about 5e-3 relative, so a wrong update
+shows); ``tri_residual`` 1e-4 absolute (residuals of
+unit-row systems); ``teacher_conf`` relative 1e-6. Step-1 gradients are
+held to a float64 evaluation of the same student on the same inputs and
+targets, to 2e-2 of each tensor's largest entry: on these batches float32
+gradients of the backbone are ill-conditioned in both packages (8 crops
+of 4x4 cells in layer3; a BN channel of nearly constant input divides
+rounding by its small sigma). Measured: the port's up to 8.3e-3 off
+(layer3.0.conv2), JAX's up to 5.4e-2 (layer2.1.conv1, where flax's
+E[x²]-E[x]² variance cancels, ROADMAP Queue C), so JAX's gradients are
+no reference for the port's. Parameters against
+JAX: every entry within 2*lr per step; after step 1 every entry whose
+float64 gradient is at least 1e-2 of its tensor's largest agrees to 1e-6
+(Adam moves it by about lr*sign(g)), except where either package's
+gradient is off by a tenth of it: those are counted and must be under
+1% of the compared entries (measured: 0.02%). BN statistics 1e-4 of
+each tensor's largest after step 1 (measured 4e-6); after 3 steps they
+are not compared: the weights have then moved apart on those gradients'
+rounding (Adam turns a near-zero gradient into a step of about lr either
+way), and the running means of layer4 differ by up to 7% (measured); the
+loss after 3 steps is held instead; pseudo-GT 0.05 mm
+(float32 solves of one system at 4.5 m) and residual 1e-4. The teacher's decode
+is compared only where no argmax or offset sign can flip (the JAX maps'
+top-2 gap and neighbour differences above twice the largest gap between
+the packages' maps); the joints left out are counted (none here).
+"""
+
+import copy
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from epipolarpose_tpu.config import load_config as jax_load_config
+from epipolarpose_tpu.core import self_supervised as jss
+from epipolarpose_tpu.core.steps import normalize_images as jax_normalize
+from epipolarpose_tpu.core.train_state import (
+    create_train_state as jax_create_train_state)
+from epipolarpose_tpu.data.h36m import FLIP_PAIRS as H36M_FLIP_PAIRS
+from epipolarpose_tpu.data.synthetic import SyntheticMultiviewDataset
+from epipolarpose_tpu.models import get_model as jax_get_model
+from epipolarpose_tpu_torch.config import load_config
+from epipolarpose_tpu_torch.core import create_train_state
+from epipolarpose_tpu_torch.core import self_supervised as tss
+from epipolarpose_tpu_torch.core.steps import normalize_images
+from epipolarpose_tpu_torch.geometry.camera import Camera, undistort_points
+from epipolarpose_tpu_torch.models import from_jax_variables, get_pose_net
+from epipolarpose_tpu_torch.ops.losses import integral_l1_loss
+from test_torch_heatmap import decisive, nchw
+from test_torch_models import _perturbed_variables
+from test_torch_triangulation import f64_oracle
+
+DEBUG_3D = "experiments/debug/synth_smoke_3d.yaml"
+N_STEPS = 3
+G, V, J = 2, 4, 17
+
+
+def _configs(**tpu):
+    cfgs = []
+    for load in (jax_load_config, load_config):
+        cfg = load(DEBUG_3D)
+        cfg.MODEL.EXTRA.NUM_DECONV_FILTERS = [32, 32, 32]
+        cfg.MODEL.EXTRA.DEPTH_DIM = 4
+        cfg.DATASET.LABEL_SOURCE = "triangulated"
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+        for k, v in tpu.items():
+            cfg.TPU[k] = v
+        cfgs.append(cfg)
+    return cfgs
+
+
+def _numpy(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _students(jcfg, tcfg, seed=0):
+    """The JAX student (init, head re-drawn at std 0.05 so that gradients
+    reach the backbone) and the port's copy of it."""
+    rng = np.random.default_rng(seed)
+    jmodel = jax_get_model(jcfg)
+    state = jax_create_train_state(jcfg, jmodel, jax.random.PRNGKey(0),
+                                   steps_per_epoch=10)
+    params = _numpy(state.params)
+    for name in ("deconv1", "deconv2", "deconv3", "final_layer"):
+        k = params[name]["kernel"]
+        params[name]["kernel"] = rng.normal(0, 0.05, k.shape).astype(
+            np.float32)
+    state = state.replace(params=params, opt_state=state.tx.init(params))
+    model = get_pose_net(tcfg)
+    model.load_state_dict(from_jax_variables(
+        {"params": params, "batch_stats": _numpy(state.batch_stats)}))
+    tstate = create_train_state(tcfg, model, steps_per_epoch=10,
+                                device="cpu")
+    return jmodel, state, model, tstate
+
+
+def _dataset(cfg, train=False):
+    return SyntheticMultiviewDataset(cfg, num_frames=G, is_train=train,
+                                     image_shape=(64, 64))
+
+
+def _gt_src(ds):
+    """(G*V, J, 2) ground-truth source pixels, group-major."""
+    return np.stack([ds.records[i].joints for g in ds.view_groups[:G]
+                     for i in g])
+
+
+def port_batch(batch):
+    """A JAX multi-view batch for the port: the camera as a port
+    ``Camera`` with (G, V) fields, the arrays as they are."""
+    out = {k: v for k, v in batch.items() if k != "camera"}
+    out["camera"] = Camera.from_arrays(batch["camera"])
+    return out
+
+
+def _noise_crops(batch, seed):
+    """``batch`` with its crops replaced by seeded uint8 noise."""
+    rng = np.random.default_rng(seed)
+    out = dict(batch)
+    for key in ("input", "input_aug"):
+        if key in out:
+            out[key] = rng.integers(0, 256, out[key].shape, np.uint8)
+    return out
+
+
+def _run(jstep, jstate, tstep, tstate, batches):
+    """Both steps over ``batches``; metrics per step, weights after step 1
+    and the last step, the first moments after step 1, and a float64
+    gradient of the port's step 1 (its student inputs and targets, caught
+    on their way into the update)."""
+    out = {"metrics": [], "jax": {}, "port": {}}
+    caught = {}
+    update = tss.integral_update
+
+    def catch(state, model, x, target, tw, *args):
+        caught.update(x=x, target=target, tw=tw, args=args,
+                      sd=copy.deepcopy(model.state_dict()))
+        return update(state, model, x, target, tw, *args)
+
+    for k, b in enumerate(batches):
+        jstate, jm = jstep(jstate, b)
+        tss.integral_update = catch if k == 0 else update
+        try:
+            tstate, tm = tstep(tstate, port_batch(b))
+        finally:
+            tss.integral_update = update
+        out["metrics"].append(({n: float(v) for n, v in tm.items()},
+                               {n: float(v) for n, v in jm.items()}))
+        if k == 0:
+            out["jax_moment"] = from_jax_variables(
+                {"params": _numpy(jstate.opt_state[0].mu)})
+            out["port_moment"] = {
+                n: tstate.optimizer.state[p]["exp_avg"].clone()
+                for n, p in tstate.model.named_parameters()}
+        if k + 1 in (1, len(batches)):
+            out["jax"][k + 1] = from_jax_variables(
+                {"params": _numpy(jstate.params),
+                 "batch_stats": _numpy(jstate.batch_stats)})
+            out["port"][k + 1] = copy.deepcopy(tstate.model.state_dict())
+    out["names"] = [n for n, _ in tstate.model.named_parameters()]
+    out["port_steps"] = tstate.step
+    out["grad64"] = _grad64(tstate.model, caught)
+    return out
+
+
+def _grad64(model, caught):
+    """Step-1 gradients of a float64 copy of the student on the caught
+    inputs and targets: the reference both packages' float32 gradients
+    are measured against."""
+    twin = copy.deepcopy(model).double().train()
+    twin.load_state_dict(caught["sd"])
+    num_joints, depth_dim, decode = caught["args"]
+    coords = decode(twin(caught["x"].double()), num_joints, depth_dim)
+    integral_l1_loss(coords, caught["target"].double(),
+                         caught["tw"].double()).backward()
+    return {n: p.grad.float() for n, p in twin.named_parameters()}
+
+
+def _check_metrics(run, residual_finite=True):
+    for k, (got, want) in enumerate(run["metrics"]):
+        assert sorted(got) == sorted(want) == ["loss", "teacher_conf",
+                                               "tri_residual"]
+        assert np.isfinite(got["loss"])
+        np.testing.assert_allclose(got["loss"], want["loss"],
+                                   rtol=1e-5 if k == 0 else 1e-3)
+        np.testing.assert_allclose(got["teacher_conf"], want["teacher_conf"],
+                                   rtol=1e-6)
+        np.testing.assert_allclose(got["tri_residual"], want["tri_residual"],
+                                   rtol=0, atol=1e-4, equal_nan=True)
+        assert np.isfinite(got["tri_residual"]) == residual_finite
+
+
+def _check_weights(run, lr=1e-3):
+    """Step-1 gradients against the float64 gradient; parameters and BN
+    statistics against JAX (module docstring)."""
+    n_steady = n_off = 0
+    for name, moment in run["port_moment"].items():
+        g64 = run["grad64"][name]
+        scale = g64.abs().max().item()
+        torch.testing.assert_close(moment * 10.0, g64, rtol=0,
+                                   atol=2e-2 * scale, msg=name)
+        steady = g64.abs() >= max(1e-2 * scale, 1e-7)
+        # where either package's float32 gradient is off by a tenth of the
+        # float64 one, their Adam updates may differ: counted, not compared
+        off = torch.zeros_like(steady)
+        for g in (moment * 10.0, run["jax_moment"][name] * 10.0):
+            off |= steady & ((g - g64).abs() > 0.1 * g64.abs())
+        n_steady += int(steady.sum())
+        n_off += int(off.sum())
+        run.setdefault("compare", {})[name] = steady & ~off
+    assert n_off <= 1e-2 * n_steady, (n_off, n_steady)
+    for after in sorted(run["jax"]):
+        got, want = run["port"][after], run["jax"][after]
+        for name in run["names"]:
+            diff = (got[name] - want[name]).abs()
+            assert diff.max().item() <= 2 * lr * after, name
+            keep = run["compare"][name]
+            if after == 1 and keep.any():
+                assert diff[keep].max().item() <= 1e-6, name
+        if after > 1:
+            continue
+        for name, v in want.items():
+            if "running" in name:
+                torch.testing.assert_close(got[name], v, rtol=0,
+                                           atol=1e-4 * v.abs().max().item(),
+                                           msg=name)
+
+
+# -------------------------------------------------- the det_src route
+@pytest.fixture(scope="module")
+def det_src_runs():
+    jcfg, tcfg = _configs()
+    ds = _dataset(jcfg)
+    base = next(ds.view_batches(G, shuffle=False))
+    base.pop("joints_3d")
+    rng = np.random.default_rng(21)
+    gt = _gt_src(ds).reshape(G, V, J, 2)
+    batches = []
+    for k in range(N_STEPS):
+        b = _noise_crops(base, k)
+        b["det_src"] = (gt + rng.normal(0, 2.0, gt.shape)).astype(np.float32)
+        conf = rng.uniform(0.3, 1.0, (G, V, J)).astype(np.float32)
+        conf[0, 2, 3] = 0.01           # group 0 only: joints 3 and 10 gated
+        conf[0, 1, 10] = 0.02
+        b["det_conf"] = conf
+        batches.append(b)
+    jmodel, jstate, model, tstate = _students(jcfg, tcfg)
+    jstep = jss.make_ss_train_step(jcfg, jmodel, None, donate=False)
+    tstep = tss.make_ss_train_step(tcfg, model, None, device="cpu")
+    runs = {"clean": _run(jstep, jstate, tstep, tstate, batches)}
+
+    # the same compiled step, fresh weights, detections with nan and inf
+    bad = dict(batches[0])
+    det = bad["det_src"].copy()
+    det[1, 0, 7] = np.nan
+    det[0, 3, 12] = np.inf
+    bad["det_src"] = det
+    jmodel, jstate, model, tstate = _students(jcfg, tcfg)
+    tstep = tss.make_ss_train_step(tcfg, model, None, device="cpu")
+    runs["nan"] = _run(jstep, jstate, tstep, tstate, [bad])
+    return runs
+
+
+def test_det_src_route_matches_jax(det_src_runs):
+    run = det_src_runs["clean"]
+    assert run["port_steps"] == N_STEPS
+    _check_metrics(run)
+    _check_weights(run)
+    losses = [g["loss"] for g, _ in run["metrics"]]
+    assert losses[0] > 0
+
+
+def test_nan_and_inf_detections_are_sanitized_as_in_jax(det_src_runs):
+    """The nan and inf detections make their joints' pseudo-GT nan (so the
+    mean residual is nan in both packages); those targets weigh 0 and the
+    loss and update stay finite and agree."""
+    run = det_src_runs["nan"]
+    _check_metrics(run, residual_finite=False)
+    _check_weights(run)
+    for name, v in run["port"][1].items():
+        if v.is_floating_point():
+            assert torch.isfinite(v).all(), name
+
+
+# ------------------------------- detect_fn, dual crop, flip, refiner
+@pytest.fixture(scope="module")
+def dual_crop_run():
+    jcfg, tcfg = _configs(SS_CONF_MIN=-1.0)
+    ds = _dataset(jcfg, train=True)
+    batch = _noise_crops(next(ds.view_batches(G, shuffle=False,
+                                              augment=True)), 5)
+    batch.pop("joints_3d")
+    flips = batch["aug_flip"].reshape(-1)
+    assert 0 < flips.sum() < flips.size      # flipped and unflipped crops
+    gt = _gt_src(ds)
+    jdetect = jss.make_gt_teacher(gt)
+    tdetect = tss.make_gt_teacher(gt)
+    shift = np.array([5.0, -3.0, 2.0], np.float32)
+    jmodel, jstate, model, tstate = _students(jcfg, tcfg, seed=1)
+    jstep = jss.make_ss_train_step(
+        jcfg, jmodel, None, donate=False, detect_fn=jdetect,
+        flip_pairs=H36M_FLIP_PAIRS,
+        refiner=lambda p: p * 0.95 + jnp.asarray(shift))
+    tstep = tss.make_ss_train_step(
+        tcfg, model, None, device="cpu", detect_fn=tdetect,
+        flip_pairs=H36M_FLIP_PAIRS,
+        refiner=lambda p: p * 0.95 + torch.tensor(shift))
+    return _run(jstep, jstate, tstep, tstate, [batch] * N_STEPS)
+
+
+def test_detect_fn_dual_crop_and_refiner_match_jax(dual_crop_run):
+    _check_metrics(dual_crop_run)
+    _check_weights(dual_crop_run)
+    losses = [g["loss"] for g, _ in dual_crop_run["metrics"]]
+    assert losses[0] > 0 and losses[-1] < losses[0]
+    # perfect detections: the residual is rounding only
+    assert dual_crop_run["metrics"][0][0]["tri_residual"] < 1e-3
+
+
+def test_flip_pairs_change_the_dual_crop_targets():
+    """Without the left/right permutation the flipped crops' targets
+    change, and so does the loss: the remap is not idle."""
+    _, tcfg = _configs(SS_CONF_MIN=-1.0)
+    jcfg, _ = _configs(SS_CONF_MIN=-1.0)
+    ds = _dataset(jcfg, train=True)
+    batch = port_batch(next(ds.view_batches(G, shuffle=False,
+                                            augment=True)))
+    detect = tss.make_gt_teacher(_gt_src(ds))
+    losses = []
+    for pairs in (H36M_FLIP_PAIRS, ()):
+        model = get_pose_net(tcfg, generator=torch.Generator().manual_seed(0))
+        state = create_train_state(tcfg, model, 10, device="cpu")
+        step = tss.make_ss_train_step(tcfg, model, None, device="cpu",
+                                      detect_fn=detect, flip_pairs=pairs)
+        losses.append(step(state, batch)[1]["loss"].item())
+    assert losses[0] != losses[1]
+
+
+# ----------------------------------------------------- the teacher route
+@pytest.fixture(scope="module")
+def teacher_pair():
+    jcfg, tcfg = _configs()
+    jteacher = jss.load_teacher(jcfg)
+    teacher = tss.Teacher(tss.teacher_net(tcfg))
+    teacher.model.load_state_dict(from_jax_variables(
+        {"params": _numpy(jteacher.params),
+         "batch_stats": _numpy(jteacher.batch_stats)}), strict=True)
+    return jcfg, tcfg, jteacher, teacher
+
+
+def test_random_teacher_gates_every_target_as_jax(teacher_pair):
+    """The JAX random teacher's maps stay under SS_CONF_MIN, so every
+    target is gated: loss 0 on both sides, no parameter moves, and the
+    teacher's parameters and BN buffers are unchanged, even after the
+    caller put it in train mode."""
+    jcfg, tcfg, jteacher, teacher = teacher_pair
+    ds = _dataset(jcfg)
+    batch = _noise_crops(next(ds.view_batches(G, shuffle=False)), 6)
+    batch.pop("joints_3d")
+    jmodel, jstate, model, tstate = _students(jcfg, tcfg, seed=2)
+    before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    teacher.train()
+    jstep = jss.make_ss_train_step(jcfg, jmodel, jteacher, donate=False)
+    tstep = tss.make_ss_train_step(tcfg, model, teacher, device="cpu")
+    run = _run(jstep, jstate, tstep, tstate, [batch])
+    got, want = run["metrics"][0]
+    assert got["loss"] == want["loss"] == 0.0
+    assert got["teacher_conf"] < 0.05
+    np.testing.assert_allclose(got["teacher_conf"], want["teacher_conf"],
+                               rtol=1e-4)
+    assert np.isfinite(got["tri_residual"])
+    for name in run["names"]:
+        assert torch.equal(run["port"][1][name], start[name]), name
+    _check_weights(run)
+    after = teacher.state_dict()
+    assert all(torch.equal(after[k], v) for k, v in before.items())
+    assert not teacher.model.training
+    assert not any(p.requires_grad for p in teacher.parameters())
+
+
+def test_teacher_decode_matches_jax(teacher_pair, rng):
+    """``teacher_detect`` on a teacher with a perturbed head (its maps
+    have peaks), on the batch's crops, against JAX; near-ties left out
+    and counted."""
+    jcfg, tcfg, jteacher, _ = teacher_pair
+    variables = _perturbed_variables(jteacher.model, rng, 64)
+    jt = jss.Teacher(jteacher.model, variables["params"],
+                     variables["batch_stats"])
+    teacher = tss.Teacher(tss.teacher_net(tcfg))
+    teacher.model.load_state_dict(from_jax_variables(variables), strict=True)
+    ds = _dataset(jcfg)
+    batch = next(ds.view_batches(G, shuffle=False))
+    imgs = batch["input"].reshape((G * V, 64, 64, 3))
+    centers = batch["center"].reshape(G * V, 2)
+    scales = batch["scale"].reshape(G * V, 2)
+    jx = jax_normalize(jnp.asarray(imgs))
+    jmaps = nchw(jt(jx))
+    want, wconf = jss.teacher_detect(jcfg, jt, jx, centers, scales)
+    x = normalize_images(torch.tensor(imgs)).permute(0, 3, 1, 2).contiguous()
+    maps = teacher(x)
+    got, conf = tss.teacher_detect(tcfg, teacher, x, torch.tensor(centers),
+                                   torch.tensor(scales))
+    assert got.dtype == conf.dtype == torch.float32
+    assert got.shape == (G * V, J, 2) and conf.shape == (G * V, J)
+    gap = (maps - jmaps).abs().max().item()
+    assert gap <= 1e-4 * jmaps.abs().max().item()
+    keep = decisive(jmaps, 2 * gap).numpy()
+    # near-ties are counted, never hidden: none of the 136 joints on these
+    # inputs (a change in that count fails here, to be looked at)
+    assert (~keep).sum() == 0, int((~keep).sum())
+    np.testing.assert_allclose(got.numpy()[keep], np.asarray(want)[keep],
+                               rtol=0, atol=1e-3)
+    np.testing.assert_allclose(conf.numpy(), np.asarray(wconf), rtol=0,
+                               atol=2 * gap)
+
+
+def test_load_teacher_sources(tmp_path):
+    _, tcfg = _configs()
+    a = tss.load_teacher(tcfg, "cpu", torch.Generator().manual_seed(3))
+    b = tss.load_teacher(tcfg, "cpu", torch.Generator().manual_seed(3))
+    assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(),
+                                                 b.state_dict().values()))
+    assert a.model.depth_dim == 1 and a.model.num_joints == J
+    assert not any(p.requires_grad for p in a.parameters())
+    sd = {"module." + k: v for k, v in a.model.state_dict().items()}
+    torch.save({"state_dict": sd}, tmp_path / "teacher.pth.tar")
+    tcfg.MODEL.PRETRAINED = str(tmp_path / "teacher.pth.tar")
+    c = tss.load_teacher(tcfg, "cpu")
+    assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(),
+                                                 c.state_dict().values()))
+    tcfg.MODEL.PRETRAINED = str(tmp_path)
+    with pytest.raises(ValueError, match="orbax"):
+        tss.load_teacher(tcfg, "cpu")
+
+
+# --------------------------------------------------- pseudo-GT and rules
+@pytest.mark.parametrize("method,conf_weight", [("fast", True),
+                                                ("fast", False),
+                                                ("eigh", True),
+                                                ("svd", True)])
+def test_generate_pseudo_gt_matches_jax(method, conf_weight):
+    """Undistort, then triangulate (2 px noise, confidences in [0.2, 1]),
+    against JAX and against a float64 SVD of the same undistorted system.
+    ``fast`` and ``svd`` agree with JAX to 0.05 mm and with the oracle to
+    0.2 mm (measured 0.08 mm). float32 ``eigh`` of AᵀA is no solver at
+    this scale: in mm the system's AᵀA spans some seven decades, so its
+    small eigenvalues sit at the rounding of its largest, and both
+    packages miss the oracle by tens to hundreds of mm, each its own way
+    (measured 50 mm here, 200 mm in JAX): the port's is held to no worse
+    than JAX's."""
+    jcfg, tcfg = _configs()
+    for cfg in (jcfg, tcfg):
+        cfg.TPU.TRIANGULATION.METHOD = method
+        cfg.TPU.TRIANGULATION.CONF_WEIGHT = conf_weight
+    ds = _dataset(jcfg)
+    batch = next(ds.view_batches(G, shuffle=False))
+    rng = np.random.default_rng(4)
+    det = (_gt_src(ds).reshape(G, V, J, 2)
+           + rng.normal(0, 2.0, (G, V, J, 2))).astype(np.float32)
+    conf = rng.uniform(0.2, 1.0, (G, V, J)).astype(np.float32)
+    cam = Camera.from_arrays(batch["camera"])
+    want, wres = jss.generate_pseudo_gt(jcfg, det, conf, batch["camera"])
+    got, res = tss.generate_pseudo_gt(tcfg, torch.tensor(det),
+                                      torch.tensor(conf), cam)
+    assert got.shape == (G, J, 3) and res.shape == (G, J)
+    und = undistort_points(torch.tensor(det), cam).numpy()
+    oracle = f64_oracle(und, cam.P.numpy(), conf if conf_weight else None)
+
+    def err(x):
+        return np.linalg.norm(np.asarray(x, np.float64) - oracle,
+                              axis=-1).max()
+    if method == "eigh":
+        assert err(got) <= err(want)
+        return
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=0.05)
+    np.testing.assert_allclose(res.numpy(), np.asarray(wres), rtol=0,
+                               atol=1e-4)
+    assert err(got) < 0.2
+
+
+def test_pseudo_gt_from_gt_detections_recovers_3d():
+    """Perfect detections give the world pose to under 1 mm (as
+    tests/test_self_supervised.py), through the port alone."""
+    jcfg, tcfg = _configs()
+    ds = _dataset(jcfg)
+    batch = next(ds.view_batches(G, shuffle=False))
+    det = torch.tensor(_gt_src(ds).reshape(G, V, J, 2))
+    x, res = tss.generate_pseudo_gt(tcfg, det, torch.ones(G, V, J),
+                                    Camera.from_arrays(batch["camera"]))
+    world = np.stack([ds.records[ds.view_groups[t][0]].meta["pose_world"]
+                      for t in range(G)])
+    assert np.linalg.norm(x.numpy() - world, axis=-1).max() < 1.0
+    assert res.max().item() < 1e-3
+
+
+def test_estimated_cameras_are_not_ported():
+    _, tcfg = _configs(SS_CAMERAS="estimated")
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        tss.make_ss_train_step(tcfg, torch.nn.Identity(), None,
+                               device="cpu")
+
+
+def test_ss_step_refuses_a_state_of_another_model():
+    jcfg, tcfg = _configs()
+    batch = port_batch(next(_dataset(jcfg).view_batches(G, shuffle=False)))
+    model = get_pose_net(tcfg, generator=torch.Generator().manual_seed(0))
+    state = create_train_state(tcfg, model, 10, device="cpu")
+    step = tss.make_ss_train_step(tcfg, copy.deepcopy(model), None,
+                                  device="cpu",
+                                  detect_fn=tss.make_gt_teacher(
+                                      torch.zeros(G * V, J, 2)))
+    with pytest.raises(ValueError, match="another model"):
+        step(state, batch)
+
+
+def test_h36m_bones_match_jax():
+    for j in (17, 14, 5):
+        assert tss._h36m_bones(j) == jss._h36m_bones(j)

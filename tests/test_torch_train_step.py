@@ -350,9 +350,20 @@ def test_optimizers_and_their_settings():
 
 
 def test_gaussian_training_not_ported():
+    """Gaussian training is ported now (held against JAX in
+    tests/test_torch_heatmap.py): on the debug 2D config a step returns
+    the loss and the heatmap accuracy; an unknown target type raises."""
     cfg = load_config("experiments/debug/synth_smoke.yaml")
-    with pytest.raises(NotImplementedError):
-        make_train_step(cfg, torch.nn.Identity(), device="cpu")
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    model = get_pose_net(cfg, generator=torch.Generator().manual_seed(0))
+    state = create_train_state(cfg, model, steps_per_epoch=3, device="cpu")
+    batch = _batch(0, n=2, joints=16, with_3d=False)
+    _, metrics = make_train_step(cfg, model, device="cpu")(state, batch)
+    assert sorted(metrics) == ["acc", "loss"] and state.step == 1
+    assert np.isfinite(metrics["loss"].item())
+    cfg.MODEL.EXTRA.TARGET_TYPE = "nope"
+    with pytest.raises(ValueError, match="TARGET_TYPE"):
+        make_train_step(cfg, model, device="cpu")
 
 
 def test_bench_step_runs_small_on_cpu(capsys):
