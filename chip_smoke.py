@@ -35,7 +35,8 @@ card, then drives the port's paths through their entry points:
    batch built on the card from the port's synthetic rig and skeleton
    poses, with a seeded dual crop: the triangulation kernel against its
    plain version and float64 ``svd``/``eigh`` oracles at 544 and about
-   10^6 points (with TF32 allowed and not), the soft-argmax kernels at
+   10^6 points (with TF32 allowed and not), timed beside the launch floor
+   and with its registers from the build's report, the soft-argmax kernels at
    (128, 17*64, 64, 64), the perfect teacher (pseudo-GT within 1 mm,
    3 warm-up steps and 2 timed windows of 20 steps through
    ``make_ss_train_step``), a random bf16 ResNet-50 teacher for 3 steps
@@ -130,6 +131,8 @@ def phase_env(res: dict) -> None:
     path, compile_s = _build.build(verbose=True)
     _build.library()
     res["build_s"] = time.perf_counter() - t0
+    res["ptxas"] = _build.kernel_resources(
+        (path.parent / _build.PTXAS_LOG).read_text())
     log(f"[build] {path.name} in {res['build_s']:.1f} s "
         f"(nvcc {compile_s:.1f} s)")
 
@@ -185,8 +188,9 @@ def bf16_spacing(x: torch.Tensor) -> torch.Tensor:
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch counter (and the teacher's decodes,
-    which launch no hand-written kernel)."""
+    """Every kernel wrapper's launch counter (the triangulation kernel's
+    also per layout; and the teacher's decodes, which launch no
+    hand-written kernel)."""
     from epipolarpose_tpu_torch.core.self_supervised import teacher_detect
     from epipolarpose_tpu_torch.kernels import softargmax as ksa
     from epipolarpose_tpu_torch.kernels.matmul_stats import matmul_stats
@@ -195,6 +199,7 @@ def launch_counts() -> dict:
             "softargmax_bwd": ksa.softmax_integral_bwd.launches,
             "matmul_stats": matmul_stats.launches,
             "triangulate": triangulate_fast.launches,
+            "triangulate_split": triangulate_fast.launches_split,
             "teacher_decode": teacher_detect.calls}
 
 
@@ -205,6 +210,7 @@ def reset_counts() -> None:
     from epipolarpose_tpu_torch.kernels.triangulate import triangulate_fast
     ksa.softmax_integral.launches = ksa.softmax_integral_bwd.launches = 0
     triangulate_fast.launches = teacher_detect.calls = 0
+    triangulate_fast.launches_thread = triangulate_fast.launches_split = 0
     reset_matmul_routes()
 
 
@@ -745,10 +751,11 @@ def ss_rig_batch(cfg, groups: int, views: int, seed: int, device="cuda"):
 
 
 def tri_flops(views: int) -> int:
-    """f32 operations of ``epk_triangulate`` per point: rows, norms and
-    weights 50V, AᵀA 64V, residual 16V; two adjugates of 16 3x3 minors
-    (14 each) 448; column norms, argmax, normalize, the Rayleigh step,
-    sign and dehomogenize about 140."""
+    """f32 operations per point of the reference algorithm (the plain
+    version's arithmetic), the bound's work: rows, norms and weights 50V,
+    AᵀA 64V, residual 16V; two adjugates of 16 3x3 minors (14 each) 448;
+    column norms, argmax, normalize, the Rayleigh step, sign and
+    dehomogenize about 140."""
     return 130 * views + 590
 
 
@@ -825,10 +832,10 @@ def tri_check(res: dict, key: str, pts, P, w) -> None:
     torch.cuda.synchronize()
     dx = (x - xp).abs().max().item()
     dr = (r - rp).abs().max().item()
-    # float32 rounds the same arithmetic in other places in the kernel
-    # (fused multiply-adds) and the plain version; AᵀA in mm spans many
-    # decades, so the adjugate amplifies that rounding where views
-    # disagree. The kernel must stay as close to the same solver in
+    # The plain version rounds in float32 throughout; AᵀA in mm spans many
+    # decades, so its adjugate amplifies that rounding where views
+    # disagree (the kernel sums AᵀA and takes the Rayleigh step in
+    # float64). The kernel must stay as close to the same solver in
     # float64 as twice the plain version does, plus 0.05 mm.
     allowance = 2 * gaps["fast64"][1] + 0.05
     log(f"[ss] triangulation {key}: {n} x {j} points, V {v}, P "
@@ -857,6 +864,11 @@ def tri_check(res: dict, key: str, pts, P, w) -> None:
           "plain version")
     ms = time_ms(lambda: ktri.triangulate_fast(pts, P, w), dev, iters=20)
     dev_ms = card_time_ms(lambda: ktri.triangulate_fast(pts, P, w), iters=20)
+    # the launch floor: the card time of a one-element elementwise launch
+    one = torch.zeros(1, device=dev)
+    floor_ms = card_time_ms(lambda: one.add_(1.0), iters=20)
+    layout = ktri.route(n * j)
+    usage = tri_resources(res["ptxas"], v, layout, P.ndim == 4)
     plain_ms = time_ms(lambda: ktri.triangulate_fast_plain(pts, P, w), dev,
                        iters=5)
     ata = ttri.normal_matrix(ttri.build_dlt_system(
@@ -873,11 +885,26 @@ def tri_check(res: dict, key: str, pts, P, w) -> None:
                     allowance_mm=allowance, p99_and_share_over_1mm=spread,
                     tf32_same_bits=same, ms=ms, device_ms=dev_ms,
                     plain_ms=plain_ms, eigh_ms=eigh_ms, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=None)
+                    bound_by=b_by, library_ms=None, floor_ms=floor_ms,
+                    layout=layout, **usage)
     log(f"[ss] triangulation {key}: kernel {ms:.4g} ms (card alone "
-        f"{dev_ms:.4g}), plain {plain_ms:.4g} ms, torch.linalg.eigh on "
-        f"AᵀA {eigh_ms:.4g} ms (in chunks of {EIGH_CHUNK}), bound "
-        f"{b_ms:.4g} ms ({b_by})")
+        f"{dev_ms:.4g}; launch floor {floor_ms:.4g}), plain {plain_ms:.4g} "
+        f"ms, torch.linalg.eigh on AᵀA {eigh_ms:.4g} ms (in chunks of "
+        f"{EIGH_CHUNK}), bound {b_ms:.4g} ms ({b_by}); layout {layout}, "
+        f"{usage['registers']} registers a thread, spills "
+        f"{usage['spill_stores']} / {usage['spill_loads']} bytes")
+
+
+def tri_resources(ptxas: dict, views: int, layout: str,
+                  per_frame: bool) -> dict:
+    """Registers a thread and spill bytes of the triangulation kernel's
+    instance for ``views`` views in ``layout``, with P per frame or
+    shared, from the build's report."""
+    lanes = 4 if layout == "split" else 1
+    tag = f"triangulate_kernelILi{views}ELi{lanes}ELb{int(per_frame)}E"
+    found = [u for name, u in ptxas.items() if tag in name]
+    check(len(found) == 1, f"ptxas report: {len(found)} kernels {tag}")
+    return found[0]
 
 
 def noisy_detections(px, seed: int, corrupt: bool = True):
@@ -1000,6 +1027,8 @@ def phase_ss(res: dict) -> None:
           == counts["softargmax_bwd"] == steps,
           f"kernels launched {counts} times in {steps} steps, expected one "
           f"launch of each a step")
+    check(counts["triangulate_split"] == steps,
+          f"the SS step's {G * joints} points took the thread layout")
     check(counts["matmul_stats"] == 0 and counts["teacher_decode"] == 0,
           f"SS path with the perfect teacher launched {counts}")
 

@@ -9,7 +9,9 @@ temporary file and renames it into place, so concurrent builders need no
 lock file and a reader never sees a half-written library.
 
 Every exported function returns ``cudaGetLastError()`` after its launch;
-:func:`check` turns a non-zero code into an exception.
+:func:`check` turns a non-zero code into an exception. ``ptxas -v``'s
+report (each kernel's registers, shared memory and spills) is kept beside
+the library; :func:`kernel_resources` reads it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -30,8 +33,10 @@ PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libepipolarpose_kernels.so"
+PTXAS_LOG = "ptxas.log"
+# -Xptxas=-v: the report of registers and spills, kept beside the library
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
@@ -42,6 +47,7 @@ SIGNATURES = {
     "epk_matmul_stats": (_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p),
     "epk_matmul_stats_simt": (_p, _p, _p, _p, _i, _i, _i, _i, _p),
     "epk_triangulate": (_p, _p, _i, _p, _p, _p, _i, _i, _i, _i, _p),
+    "epk_triangulate_split": (_p, _p, _i, _p, _p, _p, _i, _i, _i, _i, _p),
 }
 
 
@@ -91,10 +97,10 @@ def build(verbose: bool = False) -> tuple[pathlib.Path, float]:
     if lib.exists():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.{uuid.uuid4().hex}.tmp"
+    stem = f"{os.getpid()}.{uuid.uuid4().hex}.tmp"
+    tmp = out_dir / f".{LIB_NAME}.{stem}"
+    tmp_log = out_dir / f".{PTXAS_LOG}.{stem}"
     cmd = nvcc_command(nvcc, srcs, tmp)
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
     t0 = time.perf_counter()
     try:
         res = subprocess.run(cmd, capture_output=True, text=True)
@@ -103,10 +109,33 @@ def build(verbose: bool = False) -> tuple[pathlib.Path, float]:
                                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
         if verbose:
             print(res.stdout + res.stderr, flush=True)
+        tmp_log.write_text(res.stdout + res.stderr)
+        os.replace(tmp_log, out_dir / PTXAS_LOG)
         os.replace(tmp, lib)
     finally:
         tmp.unlink(missing_ok=True)
+        tmp_log.unlink(missing_ok=True)
     return lib, time.perf_counter() - t0
+
+
+def kernel_resources(log: str) -> dict[str, dict[str, int]]:
+    """Each kernel's registers a thread and spill bytes (stores and loads)
+    from a ``ptxas -v`` report, by its mangled name."""
+    out: dict[str, dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name = m.group(1)
+            out[name] = {}
+        elif name is None:
+            continue
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        elif m := re.search(r"Used (\d+) registers", line):
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,9 +159,16 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
 
 
+def current_stream(index: int) -> int:
+    """PyTorch's current stream on device ``index`` as an integer handle
+    (``torch.cuda.current_stream(index).cuda_stream`` without building a
+    ``Stream`` object)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def launch_args(device: torch.device) -> tuple[int, int]:
     """(device index, PyTorch's current stream on it as an integer handle),
     the last two arguments of every exported launch function."""
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    return index, torch.cuda.current_stream(index).cuda_stream
+    return index, current_stream(index)

@@ -247,6 +247,24 @@ def test_build_key_and_command(tmp_path):
                    for s in _build.sources())
 
 
+def test_kernel_resources_reads_the_ptxas_report():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118triangulate_kernelILi4ELi1EEEvPKfS2_iS2_PfS3_ji' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118triangulate_kernelILi4ELi1EEEvPKfS2_iS2_PfS3_ji
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 1920 bytes smem, 408 bytes cmem[0]
+ptxas info    : Compiling entry function 'k2' for 'sm_90a'
+ptxas info    : Function properties for k2
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, 400 bytes cmem[0]
+"""
+    got = _build.kernel_resources(log)
+    assert got == {
+        "_ZN12_GLOBAL__N_118triangulate_kernelILi4ELi1EEEvPKfS2_iS2_PfS3_ji":
+            {"registers": 72, "spill_stores": 0, "spill_loads": 0},
+        "k2": {"registers": 255, "spill_stores": 4, "spill_loads": 12}}
+
+
 def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setenv("PATH", "/nonexistent")
@@ -264,6 +282,23 @@ def smoke():
     finally:
         sys.path.remove(str(ROOT))
     return chip_smoke
+
+
+def test_smoke_tri_resources_picks_the_layouts_instance(smoke):
+    def name(v, lanes, per_frame):
+        return (f"_ZN12_GLOBAL__N_118triangulate_kernelILi{v}ELi{lanes}ELb"
+                f"{per_frame}EEEvPKfS2_S2_PfS3_ji")
+    ptxas = {name(4, 1, 0): {"registers": 62, "spill_stores": 0,
+                             "spill_loads": 0},
+             name(4, 1, 1): {"registers": 64, "spill_stores": 0,
+                             "spill_loads": 0},
+             name(4, 4, 1): {"registers": 53, "spill_stores": 0,
+                             "spill_loads": 0}}
+    assert smoke.tri_resources(ptxas, 4, "thread", False)["registers"] == 62
+    assert smoke.tri_resources(ptxas, 4, "thread", True)["registers"] == 64
+    assert smoke.tri_resources(ptxas, 4, "split", True)["registers"] == 53
+    with pytest.raises(smoke.PhaseFailed):
+        smoke.tri_resources(ptxas, 4, "split", False)
 
 
 def test_smoke_bound_takes_the_larger_time(smoke):

@@ -20,12 +20,12 @@ partials in any order, the wgmma route's partials are summed in a fixed
 order, so its stats are the same bits from call to call); triangulation
 (mm, the synthetic H36M-like rig): residual within 1e-4 of the plain
 version; X no further from the same solver run in float64 than twice the
-plain version's distance from it plus 0.05 mm (both round the same
-arithmetic in float32, in other places: the compiler fuses multiplies and
-adds where torch rounds each; at this scale AᵀA spans many decades and
-its adjugate amplifies rounding to millimetres where the data disagree),
-and no further from a float64 SVD than the plain version plus that
-allowance.
+plain version's distance from it plus 0.05 mm (the plain version rounds
+in float32 throughout, the kernel its rows in float32 and AᵀA and the
+Rayleigh step in float64; at this scale AᵀA spans many decades and a
+float32 adjugate amplifies rounding to millimetres where the data
+disagree), and no further from a float64 SVD than the plain version plus
+that allowance.
 """
 
 import numpy as np
@@ -329,16 +329,28 @@ def _rig_points(views, frames, joints, seed, device, per_frame):
             w.to(device), torch.tensor(poses))
 
 
-@pytest.mark.parametrize("per_frame", [False, True])
-@pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("views", [2, 4, 8])
-def test_triangulate_kernel_matches_plain_and_f64(cuda, views, weighted,
-                                                  per_frame):
-    pts, P, w, poses = _rig_points(views, 300, 17, views, cuda, per_frame)
-    w = w if weighted else None
-    before = ktri.triangulate_fast.launches
-    x, res = ktri.triangulate_fast(pts, P, w)
-    assert ktri.triangulate_fast.launches == before + 1
+# each layout of the kernel, forced through the route's threshold
+LAYOUTS = {"thread": -1, "split": 2 ** 31}
+
+
+def _launch_in(layout, monkeypatch, pts, P, w):
+    """One call of the wrapper in ``layout``; asserts that it launched once,
+    in that layout."""
+    monkeypatch.setattr(ktri, "SPLIT_MAX_POINTS", LAYOUTS[layout])
+    before = (ktri.triangulate_fast.launches,
+              getattr(ktri.triangulate_fast, f"launches_{layout}"))
+    out = ktri.triangulate_fast(pts, P, w)
+    assert (ktri.triangulate_fast.launches,
+            getattr(ktri.triangulate_fast, f"launches_{layout}")) == (
+        before[0] + 1, before[1] + 1)
+    return out
+
+
+def _check_against_plain_and_f64(x, res, pts, P, w):
+    """Residual within 1e-4 of the plain version; X no further from the
+    same solver in float64 than twice the plain version plus 0.05 mm, and
+    no further from a float64 SVD than the plain version plus that."""
+    n, _, j, _ = pts.shape
     want, want_res = ktri.triangulate_fast_plain(pts, P, w)
     w64 = None if w is None else w.double()
     same64, _ = ttri.triangulate(pts.double(), P.double(), w64,
@@ -346,7 +358,7 @@ def test_triangulate_kernel_matches_plain_and_f64(cuda, views, weighted,
     oracle, _ = ttri.triangulate(pts.double(), P.double(), w64,
                                  method="svd")
     torch.cuda.synchronize()
-    assert x.shape == (300, 17, 3) and res.shape == (300, 17)
+    assert x.shape == (n, j, 3) and res.shape == (n, j)
     assert torch.isfinite(x).all() and torch.isfinite(res).all()
     torch.testing.assert_close(res, want_res, rtol=0, atol=1e-4)
 
@@ -358,9 +370,59 @@ def test_triangulate_kernel_matches_plain_and_f64(cuda, views, weighted,
     # the solver's own error (one refinement step) against the float64
     # SVD: the kernel's is the plain version's, to that rounding
     assert gap(x, oracle) <= gap(want, oracle) + allowance
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("per_frame", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("views", range(2, 9))
+def test_triangulate_kernel_matches_plain_and_f64(cuda, monkeypatch, views,
+                                                  weighted, per_frame,
+                                                  layout):
+    pts, P, w, poses = _rig_points(views, 300, 17, views, cuda, per_frame)
+    w = w if weighted else None
+    x, res = _launch_in(layout, monkeypatch, pts, P, w)
+    _check_against_plain_and_f64(x, res, pts, P, w)
     if weighted and views > 2:     # the moved view is weighted away
         err = (x.cpu() - poses).norm(dim=-1)
         assert err.mean().item() < 20.0
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("frames, joints",
+                         [(1, 1), (1, 16), (1, 17), (31, 16), (31, 17),
+                          (300, 16), (300, 17)])
+@pytest.mark.parametrize("views", [3, 4, 5])
+def test_triangulate_kernel_ragged_sizes(cuda, monkeypatch, views, frames,
+                                         joints, layout):
+    """Point counts that leave a warp, a block or a frame part-full, with
+    per-frame P at odd frame counts: every point right."""
+    pts, P, w, _ = _rig_points(views, frames, joints, 40 + frames, cuda,
+                               per_frame=frames % 2 == 1)
+    x, res = _launch_in(layout, monkeypatch, pts, P, w)
+    _check_against_plain_and_f64(x, res, pts, P, w)
+
+
+def test_triangulate_kernel_at_the_ss_step_shape(cuda):
+    """The self-supervised step's call: 32 frames x 17 joints, 4 views,
+    per-frame P, weights; the wrapper's own route."""
+    pts, P, w, poses = _rig_points(4, 32, 17, 7, cuda, per_frame=True)
+    assert ktri.route(32 * 17) == "split"
+    before = ktri.triangulate_fast.launches_split
+    x, res = ktri.triangulate_fast(pts, P, w)
+    assert ktri.triangulate_fast.launches_split == before + 1
+    _check_against_plain_and_f64(x, res, pts, P, w)
+    assert (x.cpu() - poses).norm(dim=-1).mean().item() < 20.0
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_triangulate_kernel_gives_the_same_bits_twice(cuda, monkeypatch,
+                                                      layout):
+    pts, P, w, _ = _rig_points(4, 300, 17, 8, cuda, per_frame=False)
+    first = _launch_in(layout, monkeypatch, pts, P, w)
+    second = _launch_in(layout, monkeypatch, pts, P, w)
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
 
 
 def test_triangulate_kernel_exact_data_and_tf32(cuda):

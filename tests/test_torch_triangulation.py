@@ -281,6 +281,23 @@ def test_kernel_host_check_takes_two_to_eight_views(views):
             ktri.check_kernel_args(pts, P, None)
 
 
+@pytest.mark.parametrize("points, layout",
+                         [(1, "split"), (544, "split"), (8704, "split"),
+                          (8705, "thread"), (1114112, "thread")])
+def test_kernel_route_splits_small_batches(points, layout):
+    """Four lanes a point up to ``SPLIT_MAX_POINTS`` points (the SS step's
+    544 among them), one thread a point beyond."""
+    assert ktri.SPLIT_MAX_POINTS == 8704
+    assert ktri.route(points) == layout
+
+
+def test_kernel_host_check_refuses_more_points_than_it_numbers():
+    pts = torch.empty((2 ** 16, 2, 2 ** 16, 2), device="meta")
+    P = torch.empty((2, 3, 4), device="meta")
+    with pytest.raises(ValueError, match="at most"):
+        ktri.check_kernel_args(pts, P, None)
+
+
 def test_kernel_host_check_refuses_other_layouts():
     pts = torch.zeros((3, 4, 17, 2))
     P = torch.zeros((4, 3, 4))
