@@ -47,7 +47,24 @@ card, then drives the port's paths through their entry points:
    flip-test eval batch, the teacher's own network, with no hand-written
    kernel;
 8. the tool path: ``tools.profile_step.bench_conv1x1()``, every shape on
-   the wgmma route.
+   the wgmma route;
+9. the eval path fed by the port's own data: the eval config of phase 4
+   over 48 frames x 4 views of the port's ``synthetic_multiview`` dataset
+   (skeleton poses, cameras, absolute depths, 1024 px views) through
+   ``epoch_loader`` -> ``validate`` -> the dataset's H36M ``evaluate``
+   (the undistort + ``pixel2cam`` lift, MPJPE, NMPJPE, PA-MPJPE, PSS@50);
+   the first loader batch on the card bit-equal to ``get_batch`` on the
+   host;
+10. the SS path fed by the port's own data: the config of phase 6 over
+   96 frames through ``epoch_loader(multiview=True, is_train=True)``, the
+   real dual crop, the batches' labels as detections: two epochs of 3
+   steps, the loss falling from the first to the second, the first
+   batch's pseudo-GT within 1 mm of the world poses;
+11. the 2D path fed by the port's own data: the MPII config over the
+   port's ``synthetic`` dataset through ``epoch_loader``: 3 gaussian
+   steps, then ``validate`` on 64 held-out samples scored by the
+   dataset's PCKh ``evaluate``;
+12. none of OpenCV, PIL or torchvision was imported on the way.
 
 Kernel launch counters are set to 0 just before each path and read just
 after it. Each phase checks its own time limit. Any failed phase makes the
@@ -80,7 +97,8 @@ F32_FLOPS = 67e12
 # seconds each phase may take; the whole run aims at under 300 s
 PHASE_LIMITS = {"build": 120.0, "softargmax": 30.0, "matmul_stats": 60.0,
                 "eval": 90.0, "train": 150.0, "ss": 150.0, "pose2d": 60.0,
-                "tool": 30.0}
+                "tool": 30.0, "eval_data": 60.0, "ss_data": 90.0,
+                "pose2d_data": 60.0, "image_libs": 1.0}
 
 # H36M left/right joint pairs (the JAX package's data/h36m.py FLIP_PAIRS)
 H36M_FLIP_PAIRS = ((1, 4), (2, 5), (3, 6), (11, 14), (12, 15), (13, 16))
@@ -93,6 +111,15 @@ SS_GROUPS, SS_VIEWS, SS_WARMUP, SS_WINDOWS, SS_STEPS = 32, 4, 3, 2, 20
 # the triangulation kernel's large check: frames x joints, 4 views
 TRI_FRAMES = 65536
 POSE2D_BATCH, POSE2D_STEPS = 32, 3
+# the loader-fed paths: the port's own datasets through epoch_loader.
+# eval: 48 frames x 4 views = 192 records, 3 batches of 64; ss: 96 frames,
+# 3 batches of 32 groups an epoch, two epochs (the loss rises over the
+# first three steps from the init and falls in the second epoch);
+# pose2d: 3 train batches, 2 eval batches
+EVAL_FRAMES, SS_FRAMES, SS_EPOCHS = 48, 96, 2
+POSE2D_SAMPLES, POSE2D_EVAL_SAMPLES = 96, 64
+# image libraries the card's machine does not have
+IMAGE_LIBS = ("cv2", "PIL", "torchvision")
 
 
 def log(msg: str) -> None:
@@ -1174,6 +1201,315 @@ def phase_tool(res: dict) -> None:
         f"launches {launches} (wgmma {wgmma}, simt {simt})")
 
 
+def keep_first(batches, kept: list):
+    """Yield ``batches``, keeping the first one in ``kept``."""
+    for b in batches:
+        if not kept:
+            kept.append(b)
+        yield b
+
+
+def stats_shares(stats: dict, wall: float) -> dict:
+    """Each loader stage's waits and work as shares of ``wall`` seconds."""
+    return {stage: {k: stats[stage][k] / wall for k in
+                    ("upstream_wait_s", "transform_s", "queue_full_s")}
+            for stage in ("host", "device")}
+
+
+def format_shares(shares: dict) -> str:
+    """The host stage's ``upstream_wait_s`` is the dataset's decode and
+    warp; the device stage's ``transform_s`` is the copy to the card."""
+    return "shares of the wall time: " + "; ".join(
+        f"{stage} " + ", ".join(f"{k} {v[k]:.1%}" for k in
+                                ("upstream_wait_s", "transform_s",
+                                 "queue_full_s"))
+        for stage, v in shares.items())
+
+
+def loader_route(ds) -> str:
+    """Which route decodes ``ds``'s records, and whether the native
+    loader is built."""
+    from epipolarpose_tpu_torch.data import fastloader
+    built = fastloader.available()
+    native = "built" if built else f"not built ({fastloader.build_error()})"
+    route = ("native decode + warp" if ds._native_eligible([0])
+             else "numpy render + warp on the thread pool")
+    return f"{route}; native loader {native}"
+
+
+def assert_same_batch(on_card: dict, on_host: dict) -> None:
+    """A loader batch on the card holds the host batch's bits."""
+    check(sorted(on_card) == sorted(on_host),
+          f"loader batch keys {sorted(on_card)} vs {sorted(on_host)}")
+    for k, v in on_host.items():
+        got = on_card[k].cpu()
+        check(torch.equal(got, torch.from_numpy(v)),
+              f"loader batch {k!r} on the card differs from the host's")
+
+
+def eval_on_data(cfg, model, step, frames: int, seed: int,
+                 device="cuda") -> dict:
+    """``validate`` over ``epoch_loader`` of a synthetic multiview dataset
+    (skeleton poses, cameras, absolute depths) of ``frames`` x 4 records,
+    scored by the dataset's H36M ``evaluate``; the first batch on the
+    device against ``get_batch`` on the host. Returns what it measured."""
+    from epipolarpose_tpu_torch.core.function import validate
+    from epipolarpose_tpu_torch.data import epoch_loader, get_dataset
+    import numpy as np
+    cfg.DATASET.DATASET = "synthetic_multiview"
+    ds = get_dataset(cfg, cfg.DATASET.TEST_SET, False, num_frames=frames,
+                     pose_mode="skeleton", seed=seed)
+    bs = int(cfg.TEST.BATCH_SIZE)
+    stats, kept = {}, []
+    reset_counts()
+    t0 = time.perf_counter()
+    name_values, perf = validate(cfg, keep_first(epoch_loader(
+        ds, bs, 0, is_train=False, device=device, stats=stats), kept), ds,
+        step)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    assert_same_batch(kept[0], ds.get_batch(list(range(bs)), seed=0))
+    root_z = np.abs([r.joints_3d[0, 2] for r in ds.records])
+    # the keys JAX's H36MDataset.evaluate gives this dataset: its one
+    # action, the MPJPE family, and PSS@50 (fit on the 4 x frames eval
+    # poses; PSS@100 needs 200)
+    keys = ["Synth", "MPJPE", "NMPJPE", "PA-MPJPE"] + (
+        ["PSS@50"] if len(ds) >= 100 else [])
+    check(list(name_values) == keys,
+          f"evaluate gave {list(name_values)}, expected {keys}")
+    check(all(math.isfinite(v) for v in name_values.values()),
+          f"evaluate gave {name_values}")
+    check(float(np.median(root_z)) > 1000.0,
+          "records lack absolute depths: the camera lift would not run")
+    return dict(name_values=name_values, perf=perf, wall=wall,
+                samples_per_s=len(ds) / wall, counts=counts,
+                shares=stats_shares(stats, wall), route=loader_route(ds),
+                records=len(ds))
+
+
+def ss_on_data(cfg, frames: int, epochs: int, seed: int,
+               device="cuda") -> dict:
+    """The SS step over ``epochs`` epochs of ``epoch_loader(multiview=True,
+    is_train=True)`` of a synthetic multiview dataset of ``frames``
+    frames: the real dual crop, each view rendered once and warped twice;
+    the detections are the batch's labels mapped back to source pixels (a
+    perfect teacher, through the batch's ``det_src`` route). The loss must
+    fall from the first epoch to the last; the first batch's pseudo-GT is
+    held to the dataset's world poses. Returns what it measured."""
+    from epipolarpose_tpu_torch.core import create_train_state
+    from epipolarpose_tpu_torch.core import self_supervised as tss
+    from epipolarpose_tpu_torch.data import epoch_loader, get_dataset
+    from epipolarpose_tpu_torch.geometry.affine import transform_preds
+    from epipolarpose_tpu_torch.models import get_model
+    import numpy as np
+    dev = torch.device(device)
+    cfg.DATASET.DATASET = "synthetic_multiview"
+    ds = get_dataset(cfg, cfg.DATASET.TRAIN_SET, True, num_frames=frames,
+                     pose_mode="skeleton", seed=seed)
+    G = int(cfg.TRAIN.BATCH_SIZE)
+    size = tuple(int(v) for v in cfg.MODEL.IMAGE_SIZE)
+    model = get_model(cfg, True, torch.Generator().manual_seed(seed + 1))
+    state = create_train_state(cfg, model, steps_per_epoch=1000, device=dev)
+    step = tss.make_ss_train_step(cfg, model, None, device=dev,
+                                  flip_pairs=ds.flip_pairs)
+    stats, losses, resid, kept = {}, [], [], []
+    reset_counts()
+    t0 = time.perf_counter()
+    for epoch in range(epochs):
+        epoch_stats = stats if epoch == 0 else None
+        for batch in keep_first(epoch_loader(ds, G, epoch, is_train=True,
+                                             device=dev, multiview=True,
+                                             stats=epoch_stats), kept):
+            batch["det_src"] = transform_preds(
+                batch["joints"], batch["center"], batch["scale"], size)
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+            resid.append(m["tri_residual"])
+        if epoch == 0:
+            epoch_wall = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    first = kept[0]
+    x_w, _ = tss.generate_pseudo_gt(
+        cfg, first["det_src"], torch.ones(first["det_src"].shape[:-1],
+                                          device=dev), first["camera"])
+    world = np.stack([ds.records[int(i)].meta["pose_world"]
+                      for i in first["index"][:, 0].cpu()])
+    pgt_err = (x_w.cpu() - torch.from_numpy(world)).norm(dim=-1).max().item()
+    curve = torch.stack(losses).tolist()
+    per_epoch = frames // G
+    flips = first["aug_flip"]
+    check(len(curve) == epochs * per_epoch, f"{len(curve)} steps, "
+          f"expected {epochs * per_epoch}")
+    check(tuple(first["input_aug"].shape) == tuple(first["input"].shape)
+          == (G, 4, size[1], size[0], 3), "dual crop shapes")
+    check(0 < int((flips > 0.5).sum()) < flips.numel(),
+          "the dual crop drew no flips, or only flips")
+    check(all(math.isfinite(v) for v in curve), f"losses {curve}")
+    first_mean = sum(curve[:per_epoch]) / per_epoch
+    last_mean = sum(curve[-per_epoch:]) / per_epoch
+    check(curve[-1] < curve[0] and last_mean < first_mean,
+          f"SS loss did not fall from the first epoch to the last: {curve}")
+    check(pgt_err < 1.0, f"pseudo-GT {pgt_err:.3g} mm from the world poses")
+    return dict(losses=curve, tri_residual=torch.stack(resid).max().item(),
+                pgt_err_mm=pgt_err, wall=wall, steps=len(curve),
+                samples_per_s=G * 4 * len(curve) / wall, counts=counts,
+                shares=stats_shares(stats, epoch_wall),
+                route=loader_route(ds))
+
+
+def pose2d_on_data(cfg, samples: int, eval_samples: int, seed: int,
+                   device="cuda") -> dict:
+    """Gaussian train steps over ``epoch_loader`` of a synthetic 2D
+    dataset, then ``validate`` on a held-out one scored by its PCKh
+    ``evaluate``; beside them the same number of steps on the first batch
+    already on the device. Returns what it measured."""
+    from epipolarpose_tpu_torch.core import (create_train_state,
+                                             make_train_step)
+    from epipolarpose_tpu_torch.core.function import validate
+    from epipolarpose_tpu_torch.core.steps import make_eval_step
+    from epipolarpose_tpu_torch.data import epoch_loader, get_dataset
+    from epipolarpose_tpu_torch.models import get_model
+    dev = torch.device(device)
+    cfg.DATASET.DATASET = "synthetic"
+    size = tuple(int(v) for v in cfg.MODEL.IMAGE_SIZE)
+    ds = get_dataset(cfg, cfg.DATASET.TRAIN_SET, True, num_samples=samples,
+                     image_shape=size[::-1], seed=seed)
+    held_out = get_dataset(cfg, cfg.DATASET.TEST_SET, False,
+                           num_samples=eval_samples, image_shape=size[::-1],
+                           seed=seed + 1)
+    bs = int(cfg.TRAIN.BATCH_SIZE)
+    model = get_model(cfg, True, torch.Generator().manual_seed(seed + 2))
+    state = create_train_state(cfg, model, steps_per_epoch=1000, device=dev)
+    step = make_train_step(cfg, model, device=dev)
+    eval_step = make_eval_step(cfg, model, ds.flip_pairs, device=dev)
+    stats, metrics, kept = {}, [], []
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    reset_counts()
+    t0 = time.perf_counter()
+    for b in keep_first(epoch_loader(ds, bs, 0, is_train=True, device=dev,
+                                     stats=stats), kept):
+        state, m = step(state, b)
+        metrics.append(m)
+    sync()
+    wall = time.perf_counter() - t0
+    name_values, pckh = validate(cfg, epoch_loader(
+        held_out, bs, 0, is_train=False, device=dev), held_out, eval_step)
+    sync()
+    counts = launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(len(metrics)):
+        step(state, kept[0])
+    sync()
+    on_card = bs * len(metrics) / (time.perf_counter() - t0)
+    losses = [m["loss"].item() for m in metrics]
+    accs = [m["acc"].item() for m in metrics]
+    check(len(losses) == samples // bs, f"{len(losses)} steps")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(all(0.0 <= a <= 1.0 for a in accs), f"acc {accs}")
+    check(list(name_values) == ["Mean"] and 0.0 <= pckh <= 100.0,
+          f"evaluate gave {name_values}")
+    return dict(losses=losses, accs=accs, pckh=pckh, wall=wall,
+                samples_per_s=bs * len(losses) / wall,
+                on_card_samples_per_s=on_card, counts=counts,
+                shares=stats_shares(stats, wall), route=loader_route(ds))
+
+
+def phase_eval_data(res: dict) -> None:
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.core.steps import (configure_backends,
+                                                   make_eval_step)
+    from epipolarpose_tpu_torch.models import get_model
+    cfg = load_config(ROOT / "experiments/h36m/valid_r50_256_integral.yaml")
+    check(cfg.TEST.BATCH_SIZE == EVAL_BATCH and cfg.TEST.FLIP_TEST,
+          "unexpected flagship config")
+    configure_backends(cfg)
+    model = get_model(cfg, False, torch.Generator().manual_seed(0))
+    # the synthetic dataset's flip pairs: its blob colours do not change
+    # sides
+    step = make_eval_step(cfg, model, (), device="cuda")
+    out = eval_on_data(cfg, model, step, EVAL_FRAMES, seed=41)
+    res["paths"]["eval_data"] = c = out["counts"]
+    check(c["softargmax_fwd"] == EVAL_BATCHES and c["softargmax_bwd"] == 0
+          and c["matmul_stats"] == c["triangulate"] == 0,
+          f"loader-fed eval launched {c}, expected {EVAL_BATCHES} forward "
+          f"soft-argmax launches and nothing else")
+    res["eval_data"] = {k: v for k, v in out.items() if k != "counts"}
+    nv = out["name_values"]
+    log(f"[eval_data] {out['records']} records of the port's "
+        f"synthetic_multiview dataset (skeleton poses, 1024 px views) -> "
+        f"epoch_loader -> validate -> H36M evaluate: "
+        f"{out['samples_per_s']:.1f} samples/s loader-fed ({out['wall']:.3f}"
+        f" s) against {res['samples_per_s']:.1f} samples/s with the data "
+        f"already on the card; " + ", ".join(
+            f"{k} {v:.4g}" for k, v in nv.items())
+        + f" (random weights); first loader batch on the card equal to "
+        f"get_batch on the host; soft-argmax launches {c['softargmax_fwd']}"
+        f"; {out['route']}; {format_shares(out['shares'])}")
+
+
+def phase_ss_data(res: dict) -> None:
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.core.steps import configure_backends
+    cfg = load_config(ROOT / "experiments/h36m/train_ss_r50_256_integral.yaml")
+    check(int(cfg.TRAIN.BATCH_SIZE) == SS_GROUPS, "unexpected SS config")
+    configure_backends(cfg)
+    out = ss_on_data(cfg, SS_FRAMES, SS_EPOCHS, seed=43)
+    res["paths"]["ss_data"] = c = out["counts"]
+    steps = out["steps"]
+    check(c["triangulate"] == c["triangulate_split"] == c["softargmax_fwd"]
+          == c["softargmax_bwd"] == steps and c["matmul_stats"] == 0
+          and c["teacher_decode"] == 0,
+          f"loader-fed SS launched {c} in {steps} steps, expected one "
+          f"triangulation (split), soft-argmax forward and backward a step")
+    res["ss_data"] = {k: v for k, v in out.items() if k != "counts"}
+    log(f"[ss_data] {SS_FRAMES} frames of the port's synthetic_multiview "
+        f"dataset -> epoch_loader(multiview, dual crop) -> SS step, "
+        f"{SS_GROUPS} x 4 crops a step, labels as detections: {SS_EPOCHS} "
+        f"epochs, {steps} steps "
+        f"in {out['wall']:.3f} s = {out['samples_per_s']:.1f} samples/s "
+        f"loader-fed against " + ", ".join(
+            f"{r:.1f}" for r in res["ss_samples_per_s"])
+        + f" samples/s with one batch on the card; losses " + ", ".join(
+            f"{v:.4f}" for v in out["losses"])
+        + f"; max tri_residual {out['tri_residual']:.3g}; first batch's "
+        f"pseudo-GT within {out['pgt_err_mm']:.3g} mm of the world poses "
+        f"(limit 1); launches {c}; {out['route']}; "
+        f"{format_shares(out['shares'])}")
+
+
+def phase_pose2d_data(res: dict) -> None:
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.core.steps import configure_backends
+    cfg = load_config(ROOT / "experiments/mpii/"
+                      "train_r50_256x256_d256x3_adam_lr1e-3.yaml")
+    check(cfg.TRAIN.BATCH_SIZE == POSE2D_BATCH, "unexpected MPII config")
+    configure_backends(cfg)
+    out = pose2d_on_data(cfg, POSE2D_SAMPLES, POSE2D_EVAL_SAMPLES, seed=51)
+    res["paths"]["pose2d_data"] = c = out["counts"]
+    check(not any(c.values()), f"pose2d path launched {c}")
+    res["pose2d_data"] = {k: v for k, v in out.items() if k != "counts"}
+    log(f"[pose2d_data] {POSE2D_SAMPLES} samples of the port's synthetic "
+        f"dataset -> epoch_loader -> gaussian steps, batch {POSE2D_BATCH}: "
+        f"{out['samples_per_s']:.1f} samples/s loader-fed against "
+        f"{out['on_card_samples_per_s']:.1f} samples/s on one batch on the "
+        f"card; losses " + ", ".join(f"{v:.6f}" for v in out["losses"])
+        + ", acc " + ", ".join(f"{a:.3f}" for a in out["accs"])
+        + f"; held-out PCKh@0.5 {out['pckh']:.2f} (random weights, "
+        f"{POSE2D_EVAL_SAMPLES} samples via validate); {out['route']}; "
+        f"{format_shares(out['shares'])}")
+
+
+def phase_image_libs(res: dict) -> None:
+    loaded = [m for m in IMAGE_LIBS if m in sys.modules]
+    check(not loaded, f"the card paths imported {loaded}")
+    log(f"[image_libs] none of {', '.join(IMAGE_LIBS)} was imported")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1187,7 +1523,10 @@ def main() -> int:
     phases = [("build", phase_env), ("softargmax", phase_softargmax),
               ("matmul_stats", phase_matmul_stats), ("eval", phase_eval),
               ("train", phase_train), ("ss", phase_ss),
-              ("pose2d", phase_pose2d), ("tool", phase_tool)]
+              ("pose2d", phase_pose2d), ("tool", phase_tool),
+              ("eval_data", phase_eval_data), ("ss_data", phase_ss_data),
+              ("pose2d_data", phase_pose2d_data),
+              ("image_libs", phase_image_libs)]
     failed = []
     for i, (name, fn) in enumerate(phases, 1):
         if failed and failed[0] == "build":
@@ -1273,6 +1612,12 @@ def main() -> int:
             f"{r:.1f}" for r in res["ss_samples_per_s"]) + ", ms a step "
         + ", ".join(f"{t:.2f}" for t in res["ss_step_ms"])
         + f"; random teacher: {res['ss_teacher_step_ms']:.2f} ms a step")
+    log(f"loader-fed (the port's datasets through epoch_loader): eval "
+        f"{res['eval_data']['samples_per_s']:.1f} samples/s (data on the "
+        f"card {res['samples_per_s']:.1f}), ss "
+        f"{res['ss_data']['samples_per_s']:.1f} samples/s, pose2d "
+        f"{res['pose2d_data']['samples_per_s']:.1f} samples/s (one batch "
+        f"on the card {res['pose2d_data']['on_card_samples_per_s']:.1f})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

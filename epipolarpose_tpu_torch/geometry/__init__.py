@@ -1,5 +1,6 @@
-"""Geometry in float32 torch: crop affines, the H36M camera model and
-batched DLT triangulation (elementwise arithmetic, never TF32)."""
+"""Geometry in float32 torch: crop affines, the H36M camera model,
+batched DLT triangulation and Procrustes alignment (elementwise
+arithmetic, never TF32)."""
 
 from epipolarpose_tpu_torch.geometry.affine import (  # noqa: F401
     affine_transform,
@@ -20,6 +21,10 @@ from epipolarpose_tpu_torch.geometry.camera import (  # noqa: F401
     project_point_radial,
     undistort_points,
     world_to_camera_frame,
+)
+from epipolarpose_tpu_torch.geometry.procrustes import (  # noqa: F401
+    compute_similarity_transform,
+    procrustes_align,
 )
 from epipolarpose_tpu_torch.geometry.triangulation import (  # noqa: F401
     build_dlt_system,

@@ -1,5 +1,6 @@
 """Tensor ops: soft-argmax decode, integral targets, gaussian heatmap
-targets and decode, losses, accuracy and MPJPE."""
+targets and decode, losses, and the metrics (accuracy, PCK, PCKh, the
+MPJPE family, PSS)."""
 
 from epipolarpose_tpu_torch.ops.heatmap import (  # noqa: F401
     generate_target,
@@ -18,7 +19,13 @@ from epipolarpose_tpu_torch.ops.losses import (  # noqa: F401
     make_loss,
 )
 from epipolarpose_tpu_torch.ops.metrics import (  # noqa: F401
+    fit_pss_centers,
     heatmap_accuracy,
+    kmeans,
     mpjpe,
     nmpjpe,
+    pa_mpjpe,
+    pck,
+    pckh,
+    pss,
 )

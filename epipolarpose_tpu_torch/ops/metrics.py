@@ -1,10 +1,12 @@
 """Metrics (counterparts of the JAX package's ``ops/metrics.py``): the
-train-time heatmap accuracy and the MPJPE family."""
+train-time heatmap accuracy, PCK and PCKh (2D), the MPJPE family and the
+Pose Structure Score (3D)."""
 
 from __future__ import annotations
 
 import torch
 
+from epipolarpose_tpu_torch.geometry.procrustes import procrustes_align
 from epipolarpose_tpu_torch.ops.heatmap import get_max_preds
 
 
@@ -69,3 +71,92 @@ def nmpjpe(pred: torch.Tensor, gt: torch.Tensor,
     den = (pred * pred).sum(dim=(-1, -2), keepdim=True)
     s = num / torch.where(den < 1e-12, torch.full_like(den, 1e-12), den)
     return mpjpe(s * pred, gt, joints_vis)
+
+
+def pck(preds: torch.Tensor, target: torch.Tensor, normalize: torch.Tensor,
+        thr: float = 0.5) -> torch.Tensor:
+    """PCK@thr per joint with an external normalizer (N,) or (N, 2); -1
+    where a joint has no valid target."""
+    return _dist_acc(_calc_dists(preds, target, normalize), thr)
+
+
+def pckh(preds: torch.Tensor, target: torch.Tensor, headsizes: torch.Tensor,
+         joints_vis: torch.Tensor | None = None, thr: float = 0.5):
+    """PCKh@thr: distances over each sample's head size (N,).
+    preds/target (N, J, 2). Returns (per joint (J,), mean), in percent."""
+    d = torch.linalg.vector_norm(preds - target, dim=-1) / headsizes[:, None]
+    valid = (torch.ones(d.shape, dtype=torch.bool, device=d.device)
+             if joints_vis is None else joints_vis > 0)
+    hit = (d <= thr) & valid
+    n = valid.sum(dim=0)
+    per_joint = torch.where(n > 0, hit.sum(dim=0) / n.clamp(min=1),
+                            torch.zeros((), device=d.device)) * 100.0
+    mean = 100.0 * hit.sum() / valid.sum().clamp(min=1)
+    return per_joint, mean
+
+
+def pa_mpjpe(pred: torch.Tensor, gt: torch.Tensor,
+             joints_vis: torch.Tensor | None = None) -> torch.Tensor:
+    """Procrustes-aligned MPJPE (protocol 2)."""
+    return mpjpe(procrustes_align(pred, gt), gt, joints_vis)
+
+
+def _nearest(points: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """Index of the nearest centre (the first of equals) for each point."""
+    d = torch.linalg.vector_norm(points[:, None] - centers[None], dim=-1)
+    return d.argmin(dim=-1)
+
+
+def kmeans(points: torch.Tensor, k: int, iters: int = 20,
+           generator: torch.Generator | None = None,
+           init: torch.Tensor | None = None):
+    """Plain k-means with a fixed number of iterations. points (N, D).
+
+    The start is ``points[init]`` (k indices), else k distinct indices
+    drawn from ``generator``. A cluster that loses every point keeps its
+    centre. Returns (centers (k, D), assignment (N,)).
+    """
+    n = points.shape[0]
+    if n < k:
+        raise ValueError(f"kmeans needs at least k={k} points, got {n}")
+    if init is None:
+        init = torch.randperm(n, generator=generator)[:k]
+    centers = points[torch.as_tensor(init, device=points.device)]
+    for _ in range(iters):
+        assign = _nearest(points, centers)
+        counts = torch.zeros(k, dtype=points.dtype, device=points.device)
+        counts.index_add_(0, assign, torch.ones_like(assign,
+                                                     dtype=points.dtype))
+        sums = torch.zeros_like(centers).index_add_(0, assign, points)
+        new = sums / counts.clamp(min=1.0)[:, None]
+        centers = torch.where(counts[:, None] > 0, new, centers)
+    return centers, _nearest(points, centers)
+
+
+# the version of _pose_embed; cached PSS centres (data/h36m.py) carry it
+# in their file name, so centres fit under another embedding are not read
+PSS_EMBED_VERSION = 2
+
+
+def _pose_embed(poses: torch.Tensor, root_idx: int = 0) -> torch.Tensor:
+    """Root-centred, flattened, unit-norm poses: PSS's representation."""
+    x = poses - poses[..., root_idx:root_idx + 1, :]
+    x = x.reshape(x.shape[:-2] + (-1,))
+    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
+
+
+def pss(pred: torch.Tensor, gt: torch.Tensor,
+        centers: torch.Tensor) -> torch.Tensor:
+    """Pose Structure Score: the share of samples whose prediction and
+    ground truth fall in the same cluster of ``centers`` (embedded by
+    :func:`_pose_embed`)."""
+    same = _nearest(_pose_embed(pred), centers) == _nearest(
+        _pose_embed(gt), centers)
+    return same.to(torch.float32).mean()
+
+
+def fit_pss_centers(generator: torch.Generator | None, gt_poses: torch.Tensor,
+                    k: int = 50, iters: int = 20) -> torch.Tensor:
+    """PSS cluster centres: k-means on the embedded GT poses (J, 3)."""
+    centers, _ = kmeans(_pose_embed(gt_poses), k, iters, generator=generator)
+    return centers

@@ -517,3 +517,85 @@ def test_ss_step_on_card_matches_cpu(cuda):
                                cpu[0]["tri_residual"], rtol=0, atol=1e-4)
     np.testing.assert_allclose(card[0]["teacher_conf"],
                                cpu[0]["teacher_conf"], rtol=1e-6)
+
+
+# ------------------------------------------------ the loader on the card
+def _busy(device: torch.device) -> None:
+    """Queue about a millisecond of work on the current stream, so a read
+    that did not wait for the loader's copy would race it."""
+    a = torch.randn((2048, 2048), device=device)
+    for _ in range(4):
+        a = a @ a
+        a = a / a.norm()
+
+
+@pytest.mark.parametrize("mode", ["eval", "multiview"])
+def test_epoch_loader_on_card_equals_the_host_batches(cuda, mode):
+    """Every batch the loader puts on the card (pinned copies on a side
+    stream) holds the host batch's bits, read by a busy consumer stream,
+    with the copies' memory recycled from batch to batch."""
+    from epipolarpose_tpu_torch.data import epoch_loader, get_dataset
+    cfg = load_config("experiments/debug/synth_smoke_3d.yaml")
+    cfg.DATASET.DATASET = ("synthetic_multiview" if mode == "multiview"
+                           else "synthetic")
+    kw = (dict(num_frames=8, image_shape=(64, 64)) if mode == "multiview"
+          else dict(num_samples=40, image_shape=(96, 96)))
+    ds = get_dataset(cfg, "valid", mode == "multiview", **kw)
+    if mode == "multiview":
+        want = list(ds.view_batches(2, seed=3, shuffle=True, augment=True))
+        got = epoch_loader(ds, 2, 3, is_train=True, device=cuda,
+                           multiview=True, prefetch=3)
+    else:
+        want = list(ds.batches(8, seed=3, shuffle=False, drop_last=False))
+        got = epoch_loader(ds, 8, 3, is_train=False, device=cuda, prefetch=3)
+    n = 0
+    for g, w in zip(got, want):
+        _busy(cuda)
+        for k, v in w.items():
+            if k == "camera":
+                for f in ("R", "T", "f", "c", "k", "p"):
+                    t = getattr(g[k], f)
+                    assert t.device.type == "cuda"
+                    assert torch.equal(t.cpu(), getattr(v, f))
+            else:
+                assert g[k].device.type == "cuda", k
+                assert torch.equal(g[k].cpu(), torch.from_numpy(v)), k
+        n += 1
+        del g
+    assert n == len(want) == (4 if mode == "multiview" else 5)
+
+
+def test_validate_over_epoch_loader_on_card_matches_cpu(cuda):
+    """Debug config in float32 with flip test: validate over epoch_loader
+    on the card (soft-argmax kernel) and on the CPU (plain decode), same
+    weights, scored by the synthetic multiview dataset's H36M evaluate;
+    MPJPE-family values within 1e-3 relative."""
+    from epipolarpose_tpu_torch.core.function import validate
+    from epipolarpose_tpu_torch.data import epoch_loader, get_dataset
+    cfg = load_config("experiments/debug/synth_smoke_3d.yaml")
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TEST.FLIP_TEST = True
+    cfg.DATASET.DATASET = "synthetic_multiview"
+    configure_backends(cfg)
+    gen = torch.Generator().manual_seed(0)
+    model = get_pose_net(cfg, generator=gen)
+    with torch.no_grad():
+        for mod in (*model.deconv_layers, model.final_layer):
+            w = getattr(mod, "weight", None)
+            if w is not None and w.ndim == 4:
+                w.normal_(0.0, 0.05, generator=gen)
+    ds = get_dataset(cfg, "valid", False, num_frames=8, image_shape=(64, 64),
+                     pose_mode="skeleton")
+    out = {}
+    for dev in ("cpu", cuda):
+        step = make_eval_step(cfg, model, (), device=dev)
+        before = ksa.softmax_integral.launches
+        out[str(dev)] = validate(cfg, epoch_loader(ds, 16, 0, is_train=False,
+                                                   device=dev), ds, step)[0]
+        launched = ksa.softmax_integral.launches - before
+        assert launched == (2 if dev == cuda else 0)
+    want, got = out["cpu"], out[str(cuda)]
+    assert list(got) == list(want) == ["Synth", "MPJPE", "NMPJPE",
+                                       "PA-MPJPE"]
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-3), k
