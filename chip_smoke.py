@@ -64,7 +64,22 @@ card, then drives the port's paths through their entry points:
    port's ``synthetic`` dataset through ``epoch_loader``: 3 gaussian
    steps, then ``validate`` on 64 held-out samples scored by the
    dataset's PCKh ``evaluate``;
-12. none of OpenCV, PIL or torchvision was imported on the way.
+12. none of OpenCV, PIL, torchvision or matplotlib was imported on the
+   way;
+13. the user's workflow through the CLIs' ``main(argv)`` at ResNet-50@256
+   (outputs in a temporary directory, deleted at the end): a 2D teacher
+   derived from the SS config as ``make_teacher_cfg`` does (1 epoch); the
+   FS config for 2 epochs, the restored state bit-equal to the one saved,
+   a resume to epoch 3, ``best/`` in the MPJPE direction; ``valid`` on
+   the final weights in this process and as a ``python -m`` subprocess
+   against ``validate`` here (within 0.01 mm); the SS config with that
+   teacher (strict load, backbone merged, head skipped, one triangulation
+   a step); ``train_refiner`` and the data-free ``demo`` with the refiner
+   (both PNGs decode); the ``DEBUG.DEBUG`` dumps of one 2D ``train``
+   call; checkpoint bytes and save and restore seconds;
+14. a cut run of the port's SS convergence tool at ResNet-50@256, D 64
+   (the JAX CI pin's operating point): the train-pose MPJPE at the last
+   point below the first, the pseudo-GT floor finite.
 
 Kernel launch counters are set to 0 just before each path and read just
 after it. Each phase checks its own time limit. Any failed phase makes the
@@ -98,7 +113,8 @@ F32_FLOPS = 67e12
 PHASE_LIMITS = {"build": 120.0, "softargmax": 30.0, "matmul_stats": 60.0,
                 "eval": 90.0, "train": 150.0, "ss": 150.0, "pose2d": 60.0,
                 "tool": 30.0, "eval_data": 60.0, "ss_data": 90.0,
-                "pose2d_data": 60.0, "image_libs": 1.0}
+                "pose2d_data": 60.0, "image_libs": 1.0, "cli": 300.0,
+                "ss_convergence": 120.0}
 
 # H36M left/right joint pairs (the JAX package's data/h36m.py FLIP_PAIRS)
 H36M_FLIP_PAIRS = ((1, 4), (2, 5), (3, 6), (11, 14), (12, 15), (13, 16))
@@ -118,8 +134,15 @@ POSE2D_BATCH, POSE2D_STEPS = 32, 3
 # pose2d: 3 train batches, 2 eval batches
 EVAL_FRAMES, SS_FRAMES, SS_EPOCHS = 48, 96, 2
 POSE2D_SAMPLES, POSE2D_EVAL_SAMPLES = 96, 64
+# the CLI path: 2 steps of the 2D teacher, 3 FS steps an epoch (24 frames
+# x 4 views), 2 SS steps of 32 groups, refiner steps
+CLI_TEACHER_SAMPLES, CLI_FS_SAMPLES, CLI_SS_SAMPLES = 64, 96, 256
+CLI_REFINER_STEPS = 40
+# the cut convergence run: the JAX CI pin's 2 frames in batches of 2 groups,
+# twice its 48 steps, the evaluation interval
+CONV_FRAMES, CONV_STEPS, CONV_EVAL_EVERY = 2, 96, 24
 # image libraries the card's machine does not have
-IMAGE_LIBS = ("cv2", "PIL", "torchvision")
+IMAGE_LIBS = ("cv2", "PIL", "torchvision", "matplotlib")
 
 
 def log(msg: str) -> None:
@@ -1510,6 +1533,358 @@ def phase_image_libs(res: dict) -> None:
     log(f"[image_libs] none of {', '.join(IMAGE_LIBS)} was imported")
 
 
+# ------------------------------------------------- the user's entry points
+def cli_yaml(dst: pathlib.Path, src: str, **sections) -> str:
+    """Write ``experiments/<src>`` with ``SECTION={KEY: value}`` overrides
+    (merged one level deep) as ``dst``; the run directory takes its name."""
+    import yaml
+    data = yaml.safe_load((ROOT / "experiments" / src).read_text())
+    for sec, kv in sections.items():
+        if isinstance(kv, dict):
+            for k, v in kv.items():
+                if isinstance(v, dict):
+                    data.setdefault(sec, {}).setdefault(k, {}).update(v)
+                else:
+                    data.setdefault(sec, {})[k] = v
+        else:
+            data[sec] = kv
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    dst.write_text(yaml.safe_dump(data))
+    return str(dst)
+
+
+def run_cli(main, argv: list, counts: dict | None = None):
+    """Call a CLI's ``main(argv)`` in this process with the launch
+    counters at 0 (their values after it go into ``counts``); give the
+    root logger back to stdout afterwards (``create_logger`` took it)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out = main(argv)
+        torch.cuda.synchronize()
+    finally:
+        logging.basicConfig(level=logging.INFO, stream=sys.stdout,
+                            format="%(message)s", force=True)
+    if counts is not None:
+        counts.update(launch_counts())
+        counts["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def log_rates(output_dir: str) -> tuple[list, list]:
+    """The train steps' and validations' samples/s from a run's log."""
+    import re
+    text = "".join(p.read_text() for p in
+                   sorted(pathlib.Path(output_dir).glob("*_train.log")))
+    steps = [float(v) for v in re.findall(
+        r"Epoch: \[\d+\]\[\d+\]\tTime [\d.]+s \(([\d.]+) samples/s\)", text)]
+    evals = [float(v) for v in re.findall(
+        r"validate: \d+ samples in [\d.]+s \(([\d.]+) samples/s\)", text)]
+    return steps, evals
+
+
+def check_png(path: str, size: tuple[int, int]) -> None:
+    """The PNG decodes (signature, every CRC, IHDR) at (W, H) ``size``."""
+    from epipolarpose_tpu_torch.utils.vis import read_png
+    img = read_png(path)
+    check(img.shape[:2] == (size[1], size[0]),
+          f"{path}: {img.shape} is not {size[1]}x{size[0]}")
+
+
+def same_state(a, b) -> list[str]:
+    """Names of what differs between two train states: the model's
+    entries, Adam's moments and step counts, the optimizer's groups, the
+    schedule and the step."""
+    diff = []
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    diff += [k for k in sa if not torch.equal(sa[k], sb[k])]
+    oa, ob = a.optimizer.state_dict(), b.optimizer.state_dict()
+    for i, st in oa["state"].items():
+        diff += [f"optimizer.{i}.{k}" for k, v in st.items()
+                 if not torch.equal(v.cpu(), ob["state"][i][k].cpu())]
+    if oa["param_groups"] != ob["param_groups"]:
+        diff.append("optimizer.param_groups")
+    if (a.scheduler.last_epoch != b.scheduler.last_epoch
+            or a.scheduler.get_last_lr() != b.scheduler.get_last_lr()):
+        diff.append("scheduler")
+    if a.step != b.step:
+        diff.append("step")
+    return diff
+
+
+def phase_cli(res: dict) -> None:
+    """The user's workflow through the CLIs' ``main(argv)``, at the
+    ResNet-50@256 width, in a temporary directory deleted at the end."""
+    import shutil
+    import tempfile
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="epk_cli_"))
+    try:
+        cli_workflow(res, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cli_workflow(res: dict, tmp: pathlib.Path) -> None:
+    import re
+
+    import numpy as np
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.core import (create_train_state,
+                                             make_eval_step, make_train_step,
+                                             train, validate)
+    from epipolarpose_tpu_torch.core.checkpoint import (CheckpointManager,
+                                                        load_model_variables)
+    from epipolarpose_tpu_torch.data import epoch_loader, get_dataset
+    from epipolarpose_tpu_torch.models import get_model
+    from epipolarpose_tpu_torch.scripts import (demo, train as train_cli,
+                                                train_refiner, valid)
+    paths, out = res["paths"], {}
+    dirs = ["--modelDir", str(tmp / "out"), "--logDir", str(tmp / "log")]
+    ss_src = "h36m/train_ss_r50_256_integral.yaml"
+    fs_src = "h36m/train_fs_r50_256_integral.yaml"
+    valid_src = "h36m/valid_r50_256_integral.yaml"
+
+    # 1. the 2D teacher, as make_teacher_cfg derives it from the SS config
+    teacher_yaml = cli_yaml(
+        tmp / "cli_teacher.yaml", ss_src, PRINT_FREQ=1,
+        DATASET={"LABEL_SOURCE": "gt"}, LOSS={"TYPE": "JointsMSELoss"},
+        MODEL={"NAME": "pose_resnet", "EXTRA": {"TARGET_TYPE": "gaussian",
+                                                "DEPTH_DIM": 1}},
+        TRAIN={"LR": 0.003})
+    c = paths["cli_teacher"] = {}
+    teacher = run_cli(train_cli.main, ["--cfg", teacher_yaml, "--synthetic",
+                                       "--samples", str(CLI_TEACHER_SAMPLES),
+                                       "--epochs", "1"] + dirs, c)
+    check(not any(c[k] for k in ("softargmax_fwd", "softargmax_bwd",
+                                 "triangulate", "matmul_stats")),
+          f"the 2D teacher's run launched {c}")
+    check(math.isfinite(teacher["loss"]), f"teacher loss {teacher['loss']}")
+    out["teacher"] = dict(wall_s=c["wall_s"], loss=teacher["loss"],
+                          pckh=teacher["perf"])
+
+    # 2. the FS 3D step: 2 epochs, then resume to the third
+    fs_yaml = cli_yaml(tmp / "cli_fs.yaml", fs_src, PRINT_FREQ=1)
+    argv = ["--cfg", fs_yaml, "--synthetic", "--samples",
+            str(CLI_FS_SAMPLES)] + dirs
+    c = paths["cli_fs"] = {}
+    fs = run_cli(train_cli.main, argv + ["--epochs", "2"], c)
+    # the rates of these two epochs alone: the resumed run logs beside them
+    fs_steps, fs_evals = log_rates(fs["output_dir"])
+    steps = CLI_FS_SAMPLES // 32
+    check(fs["state"].step == 2 * steps, f"FS step {fs['state'].step}")
+    # one forward a step and an eval batch (3 of 32 an epoch), one backward
+    check(c["softargmax_fwd"] == 4 * steps and c["softargmax_bwd"]
+          == 2 * steps and c["triangulate"] == c["matmul_stats"] == 0,
+          f"FS run launched {c} in {2 * steps} steps")
+    ckpt_dir = pathlib.Path(fs["output_dir"]) / "checkpoints"
+    fcfg = load_config(fs_yaml)
+    fresh = create_train_state(fcfg, get_model(fcfg, True), steps, "cuda")
+    t0 = time.perf_counter()
+    fresh, next_epoch = CheckpointManager(str(ckpt_dir), best_mode="min"
+                                          ).restore(fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    diff = same_state(fs["state"], fresh)
+    check(not diff and next_epoch == 2,
+          f"restored state differs in {diff[:5]} (epoch {next_epoch})")
+    t0 = time.perf_counter()
+    CheckpointManager(str(tmp / "timed"), best_mode="min").save(
+        fs["state"].step, fs["state"], 1, fs["perf"])
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = (tmp / "timed" / f"{fs['state'].step}.pth.tar").stat(
+        ).st_size
+    final_bytes = pathlib.Path(fs["final"]).stat().st_size
+    del fresh
+    cli_yaml(tmp / "cli_fs.yaml", fs_src, PRINT_FREQ=1,
+             TRAIN={"RESUME": True})
+    c = paths["cli_fs_resume"] = {}
+    resumed = run_cli(train_cli.main, argv + ["--epochs", "3"], c)
+    check(resumed["state"].step == 3 * steps,
+          f"resumed run ended at step {resumed['state'].step}")
+    check(c["softargmax_fwd"] == 2 * steps and c["softargmax_bwd"] == steps,
+          f"resumed epoch launched {c}")
+    perfs = {}
+    for f in ckpt_dir.glob("*.pth.tar"):
+        if f.stem.split(".")[0].isdigit():
+            perfs[int(f.stem.split(".")[0])] = float(torch.load(
+                f, map_location="cpu", weights_only=True)["perf"])
+    best = list((ckpt_dir / "best").glob("*.pth.tar"))
+    check(sorted(perfs) == [steps, 2 * steps, 3 * steps] and len(best) == 1,
+          f"checkpoints {sorted(perfs)}, best {best}")
+    best_perf = float(torch.load(best[0], map_location="cpu",
+                                 weights_only=True)["perf"])
+    check(best_perf == min(perfs.values())
+          and int(best[0].name.split(".")[0]) == min(perfs, key=perfs.get),
+          f"best/ holds {best[0].name} perf {best_perf}, epochs {perfs}")
+    out["fs"] = dict(perfs=perfs, best_perf=best_perf, save_s=save_s,
+                     restore_s=restore_s, checkpoint_bytes=ckpt_bytes,
+                     final_bytes=final_bytes, step_rates=fs_steps,
+                     eval_rates=fs_evals, wall_s=paths["cli_fs"]["wall_s"])
+    final = resumed["final"]
+    del fs, resumed
+
+    # 3. validate the saved weights: in this process, the CLI, a subprocess
+    valid_argv = ["--cfg", str(ROOT / "experiments" / valid_src),
+                  "--synthetic", "--samples", str(CLI_FS_SAMPLES),
+                  "--model-file", final] + dirs
+    c = paths["cli_valid"] = {}
+    cli_perf = run_cli(valid.main, valid_argv, c)
+    vcfg = load_config(ROOT / "experiments" / valid_src)
+    vcfg.DATASET.DATASET = "synthetic_multiview"
+    ds = get_dataset(vcfg, vcfg.DATASET.TEST_SET, False,
+                     num_frames=CLI_FS_SAMPLES // 4)
+    model = load_model_variables(get_model(vcfg, False), final)
+    _, own_perf = validate(vcfg, epoch_loader(
+        ds, int(vcfg.TEST.BATCH_SIZE), 0, is_train=False, device="cuda"),
+        ds, make_eval_step(vcfg, model, (), device="cuda"))
+    del model
+    r = subprocess.run([sys.executable, "-m",
+                        "epipolarpose_tpu_torch.scripts.valid"] + valid_argv,
+                       capture_output=True, text=True, cwd=ROOT, timeout=240)
+    found = re.findall(r"perf: ([-\d.]+)", r.stdout + r.stderr)
+    check(r.returncode == 0 and found,
+          f"valid subprocess rc {r.returncode}: {r.stderr[-2000:]}")
+    sub_perf = float(found[-1])
+    check(abs(cli_perf - own_perf) <= 0.01 and abs(sub_perf - own_perf)
+          <= 0.01, f"valid perf {cli_perf} (in process), {sub_perf} "
+          f"(subprocess) against validate {own_perf}")
+    n_eval = -(-CLI_FS_SAMPLES // int(vcfg.TEST.BATCH_SIZE))
+    check(c["softargmax_fwd"] == n_eval and c["softargmax_bwd"] == 0,
+          f"valid launched {c}, expected {n_eval} forward launches")
+    out["valid"] = dict(cli_perf=cli_perf, subprocess_perf=sub_perf,
+                        validate_perf=own_perf)
+
+    # 4. the SS step with the teacher the CLI wrote
+    ss_yaml = cli_yaml(tmp / "cli_ss.yaml", ss_src, PRINT_FREQ=1,
+                       MODEL={"PRETRAINED": teacher["final"]})
+    c = paths["cli_ss"] = {}
+    ss = run_cli(train_cli.main, ["--cfg", ss_yaml, "--synthetic",
+                                  "--samples", str(CLI_SS_SAMPLES),
+                                  "--epochs", "1"] + dirs, c)
+    ss_steps = CLI_SS_SAMPLES // 4 // SS_GROUPS
+    n_eval = CLI_SS_SAMPLES // 32
+    check(ss["state"].step == ss_steps, f"SS step {ss['state'].step}")
+    check(c["triangulate"] == c["softargmax_bwd"] == c["teacher_decode"]
+          == ss_steps and c["softargmax_fwd"] == ss_steps + n_eval,
+          f"SS run launched {c} in {ss_steps} steps and {n_eval} eval "
+          f"batches")
+    check(math.isfinite(ss["loss"]), f"SS loss {ss['loss']}")
+    log_text = "".join(p.read_text() for p in pathlib.Path(
+        ss["output_dir"]).glob("*_train.log"))
+    check("pretrained: skipping final_layer.weight" in log_text,
+          "the SS run did not log the skipped final_layer")
+    teacher_sd = torch.load(teacher["final"], map_location="cpu",
+                            weights_only=True)["state_dict"]
+    moved = (ss["state"].model.conv1.weight.detach().float().cpu()
+             - teacher_sd["conv1.weight"]).abs().max().item()
+    check(moved < 0.01, f"student conv1 {moved:.3g} from the teacher's")
+    ss_rates, ss_evals = log_rates(ss["output_dir"])
+    out["ss"] = dict(loss=ss["loss"], perf=ss["perf"], conv1_moved=moved,
+                     step_rates=ss_rates, eval_rates=ss_evals,
+                     wall_s=c["wall_s"])
+    del ss
+
+    # 5. the refiner and the demo
+    c = paths["cli_refiner"] = {}
+    ref = run_cli(train_refiner.main, [
+        "--cfg", ss_yaml, "--synthetic", "--steps", str(CLI_REFINER_STEPS),
+        "--out", str(tmp / "refiner")], c)
+    check(c["triangulate"] == 1 and c["triangulate_split"] == 0,
+          f"train_refiner launched {c}")
+    check(math.isfinite(ref["after_mm"]), f"refiner {ref}")
+    c = paths["cli_demo"] = {}
+    shown = run_cli(demo.main, [
+        "--cfg", str(ROOT / "experiments" / valid_src), "--model-file",
+        final, "--refiner-file", ref["path"], "--out", str(tmp / "demo")], c)
+    check(c["softargmax_fwd"] == 1, f"demo launched {c}")
+    check_png(shown["files"][0], (258, 258))
+    check_png(shown["files"][1], (512, 256))
+    check(bool(np.isfinite(shown["pose3d"]).all()), "demo pose not finite")
+    out["refiner"] = dict(before_mm=ref["before_mm"],
+                          after_mm=ref["after_mm"])
+
+    # 6. the debug dumps of one train call on the 2D config
+    dcfg = load_config(ROOT / "experiments/mpii/"
+                       "train_r50_256x256_d256x3_adam_lr1e-3.yaml")
+    dcfg.DEBUG.DEBUG = dcfg.DEBUG.SAVE_BATCH_IMAGES_GT = True
+    dcfg.PRINT_FREQ = 1
+    dcfg.DATASET.DATASET = "synthetic"
+    dds = get_dataset(dcfg, dcfg.DATASET.TRAIN_SET, True, num_samples=64)
+    dmodel = get_model(dcfg, True, torch.Generator().manual_seed(61))
+    dstate = create_train_state(dcfg, dmodel, 2, "cuda")
+    reset_counts()
+    train(dcfg, epoch_loader(dds, 32, 0, device="cuda"), dstate,
+          make_train_step(dcfg, dmodel, device="cuda"), 0,
+          output_dir=str(tmp / "debug"))
+    paths["cli_debug"] = launch_counts()
+    dumps = sorted(p.name for p in (tmp / "debug").iterdir())
+    check(dumps == ["train_0_0_gt.png", "train_0_1_gt.png"],
+          f"debug dumps {dumps}")
+    for name in dumps:
+        check_png(str(tmp / "debug" / name), (8 * 258, 4 * 258))
+    loaded = [m for m in IMAGE_LIBS if m in sys.modules]
+    check(not loaded, f"the CLIs imported {loaded}")
+    res["cli"] = out
+    med = (lambda v: sorted(v)[len(v) // 2] if v else float("nan"))
+    log(f"[cli] teacher -> FS 2 epochs -> resume to 3 -> valid -> SS with "
+        f"the teacher -> refiner -> demo -> debug dumps, ResNet-50@256: FS "
+        f"checkpoint {ckpt_bytes / 1e6:.1f} MB saved in {save_s:.3f} s, "
+        f"restored in {restore_s:.3f} s (bit-equal), final weights "
+        f"{final_bytes / 1e6:.1f} MB; FS perfs {perfs} best {best_perf:.3f}"
+        f"; valid {cli_perf:.4f} / subprocess {sub_perf:.4f} / validate "
+        f"{own_perf:.4f} mm; CLI-fed steps: FS median "
+        f"{med(fs_steps[1:]):.1f} samples/s, SS median "
+        f"{med(ss_rates[1:]):.1f} samples/s; validation "
+        + ", ".join(f"{v:.1f}" for v in fs_evals + ss_evals)
+        + f" samples/s; SS loss {out['ss']['loss']:.4f}, student conv1 "
+        f"{moved:.2e} from the teacher's; refiner {ref['before_mm']:.2f} -> "
+        f"{ref['after_mm']:.2f} mm; launches " + json.dumps(
+            {k: {n: v for n, v in paths[k].items() if n != "wall_s"}
+             for k in paths if k.startswith("cli_")}))
+
+
+def phase_ss_convergence(res: dict) -> None:
+    """The port's SS convergence tool at the SS config's width (ResNet-50
+    @256, D 64), at the JAX CI pin's operating point: noisy GT detections
+    in the batch, a randomly initialized student, the curve on the
+    training poses, LR 0.005."""
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.core.steps import configure_backends
+    from epipolarpose_tpu_torch.tools.ss_convergence import run
+    cfg = load_config(ROOT / "experiments/h36m/train_ss_r50_256_integral.yaml")
+    configure_backends(cfg)
+    cfg.TRAIN.LR = 0.005
+    lines: list[str] = []
+    reset_counts()
+    t0 = time.perf_counter()
+    curve, floor, losses = run(
+        cfg, frames=CONV_FRAMES, val_frames=CONV_FRAMES, groups=CONV_FRAMES,
+        teacher_steps=0, ss_steps=CONV_STEPS, eval_every=CONV_EVAL_EVERY,
+        log=lines.append, detector="gt_noise", noise_px=2.0,
+        merge_backbone=False, eval_on="train", device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = res["paths"]["ss_convergence"] = launch_counts()
+    check(math.isfinite(floor), f"floor {floor}")
+    check(all(math.isfinite(v) for _, v in curve + losses),
+          f"curve {curve}, losses {losses}")
+    check(c["triangulate"] == CONV_STEPS + 1
+          and c["softargmax_bwd"] == CONV_STEPS,
+          f"ss_convergence launched {c} in {CONV_STEPS} steps")
+    check(curve[-1][1] < curve[0][1],
+          f"train-pose MPJPE did not fall: {curve}")
+    res["ss_convergence"] = dict(curve=curve, floor=floor, losses=losses,
+                                 wall_s=wall)
+    log(f"[ss_convergence] ResNet-50@256 D64, {CONV_FRAMES} frames x 4 "
+        f"views, {CONV_STEPS} steps, gt_noise, random-init student, "
+        f"train-pose MPJPE " + " -> ".join(f"{v:.1f}" for _, v in curve)
+        + f" mm (steps {[s for s, _ in curve]}); losses " + ", ".join(
+            f"{v:.4f}" for _, v in losses)
+        + f"; pseudo-GT floor {floor:.2f} mm; {wall:.1f} s; launches {c}")
+    loaded = [m for m in IMAGE_LIBS if m in sys.modules]
+    check(not loaded, f"ss_convergence imported {loaded}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1526,7 +1901,8 @@ def main() -> int:
               ("pose2d", phase_pose2d), ("tool", phase_tool),
               ("eval_data", phase_eval_data), ("ss_data", phase_ss_data),
               ("pose2d_data", phase_pose2d_data),
-              ("image_libs", phase_image_libs)]
+              ("image_libs", phase_image_libs), ("cli", phase_cli),
+              ("ss_convergence", phase_ss_convergence)]
     failed = []
     for i, (name, fn) in enumerate(phases, 1):
         if failed and failed[0] == "build":

@@ -15,21 +15,31 @@ keeps as its own copy. Layout mirrors the reference package:
              targets, the argmax decode, the heatmap MSE and accuracy;
              MPJPE metrics.
 - models:    ``PoseResNet`` as an ``nn.Module`` (NCHW, flax's BatchNorm
-             convention), and the weight bridge from the reference
-             package's variables.
-- data:      the synthetic multi-view rig and skeleton poses.
+             convention), the refinement unit ``PoseRefiner``, and the
+             weight bridge from the reference package's variables.
+- data:      the datasets (H36M, MPII, the synthetic rig and skeleton
+             poses), the numpy crop warp, the native loader's binding and
+             ``epoch_loader``.
 - core:      the train step (``integral``: soft-argmax and L1;
              ``gaussian``: heatmap MSE and accuracy; backward, Adam or
              SGD) with its ``TrainState`` and ``train`` loop; the eval step
              (flip test, decode, ``transform_preds``) and ``validate``; the
              self-supervised step (frozen 2D teacher, undistortion,
-             triangulation, reprojection, the student's step).
+             triangulation, reprojection, the student's step); the
+             checkpoints (reference ``.pth.tar`` files), the run's logger,
+             and the refinement unit's training.
 - kernels:   hand-written CUDA kernels (``csrc/*.cu``: soft-argmax forward
              and backward, matmul + BN statistics, triangulation) built with
              ``nvcc`` into one shared library bound through ``ctypes``;
              every kernel keeps its plain PyTorch version beside it.
-- tools:     ``profile_step --step`` (the train step and its parts) and
-             ``--conv1x1`` (the 1x1-conv matmul+stats bench).
+- utils:     debug images as PNG, drawn in numpy.
+- scripts:   the CLIs ``train``, ``valid``, ``demo``, ``train_refiner``
+             (``python -m epipolarpose_tpu_torch.scripts.<name>``).
+- tools:     ``profile_step --step`` (the train step and its parts),
+             ``--conv1x1`` (the 1x1-conv matmul+stats bench),
+             ``bench_triangulate``, ``ss_convergence`` (the SS loop's MPJPE
+             curve) and ``trace_summary`` (a profiler trace's top kernels
+             and idle share).
 
 Entry points take a ``device`` argument that defaults to ``"cuda"``; the
 CPU runs only when the caller asks for it.

@@ -137,3 +137,37 @@ def load_config(config_file: str | os.PathLike) -> ConfigDict:
     cfg = _default_config()
     _merge(cfg, _read_yaml(config_file))
     return cfg
+
+
+def update_dir(cfg: ConfigDict, model_dir: str | None = None,
+               log_dir: str | None = None,
+               data_dir: str | None = None) -> None:
+    """Rebase the output, log and data directories (the CLIs' ``--modelDir``,
+    ``--logDir``, ``--dataDir``). Empty model files stay empty."""
+    if model_dir:
+        cfg.OUTPUT_DIR = model_dir
+    if log_dir:
+        cfg.LOG_DIR = log_dir
+    if data_dir:
+        cfg.DATA_DIR = data_dir
+        cfg.DATASET.ROOT = os.path.join(data_dir, cfg.DATASET.ROOT)
+        if cfg.TEST.MODEL_FILE:
+            cfg.TEST.MODEL_FILE = os.path.join(data_dir, cfg.TEST.MODEL_FILE)
+        if cfg.MODEL.PRETRAINED:
+            cfg.MODEL.PRETRAINED = os.path.join(data_dir,
+                                                cfg.MODEL.PRETRAINED)
+
+
+def get_model_name(cfg: ConfigDict) -> tuple[str, str]:
+    """(name, full_name) of the run, e.g. ``pose_resnet_50`` and
+    ``pose_resnet_50_256x256_d64``; the run directory is
+    ``<OUTPUT_DIR>/<dataset>/<full_name>/<cfg_name>/``."""
+    name = cfg.MODEL.NAME
+    extra = cfg.MODEL.EXTRA
+    if name not in ("pose_resnet", "pose3d_resnet"):
+        raise ValueError(f"unknown model: {cfg.MODEL.NAME}")
+    name = f"{cfg.MODEL.NAME}_{extra.NUM_LAYERS}"
+    full_name = f"{name}_{cfg.MODEL.IMAGE_SIZE[1]}x{cfg.MODEL.IMAGE_SIZE[0]}"
+    if int(extra.get("DEPTH_DIM", 1)) > 1:
+        full_name = f"{full_name}_d{extra.DEPTH_DIM}"
+    return name, full_name

@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``core/function.py`` (``AverageMeter``,
 ``train``, ``validate``) for one process and one batch per step
 (``TPU.FUSED_STEPS`` has no counterpart here). ``train`` waits for the
 card only when it logs; ``validate`` gathers predictions on the host and
-hands them to ``dataset.evaluate``.
+hands them to ``dataset.evaluate``. A ``writer`` is anything with
+tensorboard's ``add_scalar(tag, value, step)``.
 """
 
 from __future__ import annotations
@@ -42,16 +43,18 @@ def _host(a) -> np.ndarray:
     return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
 
-def train(cfg, loader, state, train_step, epoch: int):
+def train(cfg, loader, state, train_step, epoch: int, writer=None,
+          output_dir=None):
     """One training epoch of ``train_step`` over ``loader`` (any iterable
-    of batches). Logs every ``PRINT_FREQ`` batches, the only points where
-    it waits for the card. Returns (state, average of the logged losses).
+    of batches). Every ``PRINT_FREQ`` batches it logs the loss (and the
+    accuracy, when the step gives one), writes them to ``writer``
+    (``add_scalar`` at the optimizer step), and with ``DEBUG.DEBUG`` dumps
+    the batch's images for a single-view batch into ``output_dir``: the
+    only points where it waits for the card. Returns (state, average of
+    the logged losses).
     """
-    if cfg.DEBUG.DEBUG:
-        raise NotImplementedError("DEBUG.DEBUG image dumps need utils/vis, "
-                                  "which is not ported yet")
-    batch_time, data_time, losses = (AverageMeter(), AverageMeter(),
-                                     AverageMeter())
+    batch_time, data_time = AverageMeter(), AverageMeter()
+    losses, accs = AverageMeter(), AverageMeter()
     end = time.time()
     metrics = None
     for i, batch in enumerate(loader):
@@ -59,24 +62,45 @@ def train(cfg, loader, state, train_step, epoch: int):
         state, metrics = train_step(state, batch)
         n = int(batch["input"].shape[0])
         if i % int(cfg.PRINT_FREQ) == 0:
-            losses.update(float(metrics["loss"]), n)   # waits for the card
+            if (cfg.DEBUG.DEBUG and output_dir is not None
+                    and batch["input"].ndim == 4):
+                from epipolarpose_tpu_torch.utils.vis import save_debug_images
+                dbg = {k: _host(batch[k])
+                       for k in ("input", "joints", "joints_vis")}
+                save_debug_images(cfg, dbg, None, None, None,
+                                  f"{output_dir}/train_{epoch}_{i}")
+            loss_v = float(metrics["loss"])          # waits for the card
+            losses.update(loss_v, n)
+            acc_v = None
+            if "acc" in metrics:
+                acc_v = float(metrics["acc"])
+                accs.update(acc_v, n)
             batch_time.update(time.time() - end)
             speed = n / max(batch_time.val, 1e-9)
-            logger.info(f"Epoch: [{epoch}][{i}]\t"
-                        f"Time {batch_time.val:.3f}s ({speed:.1f} "
-                        f"samples/s)\tData {data_time.val:.3f}s\t"
-                        f"Loss {losses.val:.5f} ({losses.avg:.5f})")
+            msg = (f"Epoch: [{epoch}][{i}]\t"
+                   f"Time {batch_time.val:.3f}s ({speed:.1f} samples/s)\t"
+                   f"Data {data_time.val:.3f}s\t"
+                   f"Loss {losses.val:.5f} ({losses.avg:.5f})")
+            if acc_v is not None:
+                msg += f"\tAccuracy {accs.val:.3f} ({accs.avg:.3f})"
+            logger.info(msg)
+            if writer is not None:
+                writer.add_scalar("train/loss", loss_v, int(state.step))
+                if acc_v is not None:
+                    writer.add_scalar("train/acc", acc_v, int(state.step))
         end = time.time()
     if metrics is not None and losses.count == 0:
         losses.update(float(metrics["loss"]))
     return state, losses.avg
 
 
-def validate(cfg, loader, dataset, eval_step, output_dir=None):
+def validate(cfg, loader, dataset, eval_step, output_dir=None, writer=None,
+             step: int = 0):
     """Run ``eval_step`` over ``loader`` and score with ``dataset.evaluate``.
 
     ``loader`` is any iterable of batches; ``dataset`` has ``__len__`` and
-    ``evaluate(cfg, preds, output_dir)``. Returns (name_values, perf).
+    ``evaluate(cfg, preds, output_dir)``. The perf goes to ``writer`` at
+    ``step``. Returns (name_values, perf).
     """
     all_preds, all_boxes = [], []
     n_seen = 0
@@ -98,6 +122,8 @@ def validate(cfg, loader, dataset, eval_step, output_dir=None):
     name_values, perf = dataset.evaluate(cfg, preds, output_dir)
     if isinstance(name_values, dict):
         _print_name_value(name_values, cfg.MODEL.NAME)
+    if writer is not None:
+        writer.add_scalar("valid/perf", float(perf), int(step))
     return name_values, perf
 
 

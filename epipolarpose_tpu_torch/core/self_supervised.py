@@ -22,12 +22,14 @@ dual crop. Numpy arrays or tensors, moved to the step's device.
 
 from __future__ import annotations
 
-import os
 from typing import Callable
 
 import torch
 from torch import nn
 
+from epipolarpose_tpu_torch.core.checkpoint import (load_model_variables,
+                                                    read_state_dict)
+from epipolarpose_tpu_torch.core.refine import make_refiner_apply
 from epipolarpose_tpu_torch.core.steps import (integral_update,
                                                normalize_images)
 from epipolarpose_tpu_torch.geometry.affine import (affine_transform,
@@ -40,6 +42,7 @@ from epipolarpose_tpu_torch.geometry.camera import (Camera,
 from epipolarpose_tpu_torch.geometry.triangulation import triangulate
 from epipolarpose_tpu_torch.kernels.triangulate import triangulate_fast
 from epipolarpose_tpu_torch.models.pose_resnet import PoseResNet
+from epipolarpose_tpu_torch.models.refiner import PoseRefiner
 from epipolarpose_tpu_torch.ops.heatmap import (get_max_preds,
                                                 post_process_preds)
 from epipolarpose_tpu_torch.ops.integral import (generate_integral_target,
@@ -82,32 +85,41 @@ def load_teacher(cfg, device: str | torch.device = "cuda",
     """The frozen teacher named by ``cfg.MODEL.PRETRAINED``.
 
     ``''``: random weights drawn from ``generator`` (the pipeline runs, the
-    pseudo-GT is noise). A reference ``.pth`` / ``.pth.tar``: loaded with
-    ``strict=True`` (its ``state_dict`` entry if it has one, ``module.``
-    prefixes dropped). An orbax directory cannot be read here: the port
-    does not import JAX; export it to ``.pth`` with the JAX package's
-    ``models/torch_convert.py::export_state_dict`` first.
+    pseudo-GT is noise). Otherwise any checkpoint path
+    ``core/checkpoint.py::resolve_checkpoint_path`` takes (a reference
+    ``.pth`` / ``.pth.tar``, or the port's ``checkpoints`` directories),
+    loaded with ``strict=True``. An orbax directory raises: the port does
+    not import JAX; export it to ``.pth`` with the JAX package's
+    ``models/torch_convert.py`` first.
     """
     model = teacher_net(cfg)
     path = str(cfg.MODEL.PRETRAINED)
-    if not path:
-        model.init_weights(generator)
-    elif path.endswith((".pth", ".pth.tar")):
-        ckpt = torch.load(path, map_location="cpu", weights_only=False)
-        sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
-        sd = {k[len("module."):] if k.startswith("module.") else k:
-              torch.as_tensor(v) for k, v in sd.items()}
-        model.load_state_dict(sd, strict=True)
-    elif os.path.isdir(path):
-        raise ValueError(
-            f"MODEL.PRETRAINED {path!r} is a directory (an orbax "
-            "checkpoint): the PyTorch port cannot read it without JAX. "
-            "Export it to a .pth state_dict with the JAX package's "
-            "models/torch_convert.py::export_state_dict.")
+    if path:
+        load_model_variables(model, path)
     else:
-        raise ValueError(f"MODEL.PRETRAINED {path!r}: expected a .pth or "
-                         ".pth.tar file")
+        model.init_weights(generator)
     return Teacher(model).to(device)
+
+
+def load_refiner(cfg, path: str, device: str | torch.device = "cuda"
+                 ) -> Callable:
+    """A trained refinement unit (a ``.pth`` that
+    ``scripts/train_refiner.py`` wrote) as a callable for the SS step's
+    ``refiner``: root-relative (N, ``NUM_JOINTS``, 3) poses in mm ->
+    refined ones, in eval mode with no gradient. Its width and depth are
+    read from the file's shapes."""
+    sd = read_state_dict(path)
+    hidden = int(sd["stem.linear.weight"].shape[0])
+    blocks = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    model = PoseRefiner(int(cfg.MODEL.NUM_JOINTS), hidden, blocks)
+    model.load_state_dict(sd, strict=True)
+    model = model.to(device).eval()
+    apply = make_refiner_apply(model)
+
+    def refine(poses):
+        return apply(None, torch.as_tensor(poses, dtype=torch.float32,
+                                           device=device))
+    return refine
 
 
 def teacher_detect(cfg, teacher: Teacher, imgs: torch.Tensor,

@@ -18,10 +18,11 @@ import torch
 @dataclasses.dataclass
 class TrainState:
     """The model (parameters and BN statistics), its optimizer, the
-    schedule, and the number of optimizer steps taken."""
+    schedule (None for the refinement unit's constant rate), and the
+    number of optimizer steps taken."""
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
-    scheduler: torch.optim.lr_scheduler.LRScheduler
+    scheduler: torch.optim.lr_scheduler.LRScheduler | None
     step: int = 0
 
 

@@ -1,7 +1,7 @@
-"""The loader's two image operations, in numpy, with OpenCV's semantics.
+"""The loader's image operations, in numpy, with OpenCV's semantics.
 
 The port's loader runs where OpenCV may not be installed, so it carries
-its own copies of the two calls the JAX package's loader makes:
+its own copies of the calls the JAX package's loader makes:
 
 - :func:`warp_affine_u8` is ``cv2.warpAffine(img, M, (W, H),
   flags=cv2.INTER_LINEAR)`` with ``BORDER_CONSTANT`` 0 on uint8 images, as
@@ -10,6 +10,11 @@ its own copies of the two calls the JAX package's loader makes:
   float32, a bilinear blend as three fused lerps in float32 (x, then y),
   rounded half to even. Fused multiply-adds are emulated in float64,
   where every product and sum they take is exact or rounds once.
+- :func:`warp_affine_f32` is the same call on float32 images (1, 3 or 4
+  channels): the same coordinates and lerps, unrounded; equal bits but in
+  OpenCV's scalar tail (the last W mod 16 columns), within 3e-5 there on
+  [0, 1] images. Two-channel images take an older OpenCV path that
+  neither warp reproduces.
 - :func:`resize_bilinear_u8` is ``cv2.resize(img, (W, H),
   interpolation=cv2.INTER_LINEAR)`` on uint8 images in float32 (OpenCV's
   fixed-point path rounds its weights to 1/2048; the two differ by at
@@ -41,13 +46,9 @@ def _fma(a, b, c) -> np.ndarray:
     return (np.asarray(a, _F64) * b + c).astype(_F32)
 
 
-def warp_affine_u8(img: np.ndarray, M, size) -> np.ndarray:
-    """``cv2.warpAffine(img, M, size, flags=cv2.INTER_LINEAR)`` for uint8
-    (H, W) or (H, W, C) images, zero border. ``M`` (2, 3) maps source to
-    destination pixels; ``size`` is (W, H) of the output."""
-    img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise TypeError(f"warp_affine_u8 takes uint8 images, got {img.dtype}")
+def _warp_bilinear(img: np.ndarray, M, size) -> np.ndarray:
+    """The bilinear warp of (H, W) or (H, W, C) ``img`` in float32, zero
+    border, before any rounding: (H_out, W_out, C) float32."""
     W, H = int(size[0]), int(size[1])
     m = _inverse_affine_f32(M)
     xs = np.arange(W, dtype=_F32)[None, :]
@@ -60,7 +61,7 @@ def warp_affine_u8(img: np.ndarray, M, size) -> np.ndarray:
     sh, sw = img.shape[:2]
     # one zero pixel around the image: a tap outside it reads the border
     # value 0, and indices clipped into the pad read 0 too
-    pad = np.zeros((sh + 2, sw + 2) + img.shape[2:], np.uint8)
+    pad = np.zeros((sh + 2, sw + 2) + img.shape[2:], img.dtype)
     pad[1:-1, 1:-1] = img
     pad = pad.reshape((sh + 2) * (sw + 2), -1)
     # clip in float first: a coordinate far outside may not fit an int32
@@ -72,9 +73,31 @@ def warp_affine_u8(img: np.ndarray, M, size) -> np.ndarray:
                           (y0 + x0, y0 + x1, y1 + x0, y1 + x1))
     top = _fma(ax, p01 - p00, p00)
     bottom = _fma(ax, p11 - p10, p10)
-    out = _fma(ay, bottom - top, top)
+    return _fma(ay, bottom - top, top)
+
+
+def warp_affine_u8(img: np.ndarray, M, size) -> np.ndarray:
+    """``cv2.warpAffine(img, M, size, flags=cv2.INTER_LINEAR)`` for uint8
+    (H, W) or (H, W, C) images, zero border. ``M`` (2, 3) maps source to
+    destination pixels; ``size`` is (W, H) of the output."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise TypeError(f"warp_affine_u8 takes uint8 images, got {img.dtype}")
+    out = _warp_bilinear(img, M, size)
     out = np.clip(np.rint(out), 0, 255).astype(np.uint8)
-    return out.reshape((H, W) + img.shape[2:])
+    return out.reshape((int(size[1]), int(size[0])) + img.shape[2:])
+
+
+def warp_affine_f32(img: np.ndarray, M, size) -> np.ndarray:
+    """``cv2.warpAffine(img, M, size, flags=cv2.INTER_LINEAR)`` for float32
+    (H, W) or (H, W, C) images, zero border: the uint8 warp's coordinates
+    and lerps, unrounded."""
+    img = np.asarray(img)
+    if img.dtype != np.float32:
+        raise TypeError(f"warp_affine_f32 takes float32 images, got "
+                        f"{img.dtype}")
+    out = _warp_bilinear(img, M, size)
+    return out.reshape((int(size[1]), int(size[0])) + img.shape[2:])
 
 
 def _linear_taps(n_src: int, n_dst: int):

@@ -1,13 +1,16 @@
 """Model registry: ``pose_resnet`` (2D) and ``pose3d_resnet`` (integral 3D)
-are the same module with ``depth_dim`` 1 vs >1."""
+are the same module with ``depth_dim`` 1 vs >1; and the refinement unit
+``PoseRefiner``."""
 
 from epipolarpose_tpu_torch.models.convert import (  # noqa: F401
     from_jax_variables,
+    refiner_from_jax_variables,
 )
 from epipolarpose_tpu_torch.models.pose_resnet import (  # noqa: F401
     PoseResNet,
     get_pose_net,
 )
+from epipolarpose_tpu_torch.models.refiner import PoseRefiner  # noqa: F401
 
 _REGISTRY = {
     "pose_resnet": get_pose_net,

@@ -6,7 +6,8 @@ numpy (or array-like) leaves and returns a state_dict of float32 tensors
 keyed by the reference PyTorch names, which :class:`PoseResNet` loads with
 ``strict=True``. Conv kernels go HWIO -> OIHW. Deconv kernels go HWIO ->
 IOHW *and* flip spatially: torch's ConvTranspose2d correlates, flax's
-ConvTranspose convolves.
+ConvTranspose convolves. :func:`refiner_from_jax_variables` does the same
+for the refinement unit.
 """
 
 from __future__ import annotations
@@ -85,4 +86,42 @@ def from_jax_variables(variables) -> dict[str, torch.Tensor]:
             bn(node, stats.get(name), f"deconv_layers.{3 * stage + 1}")
         else:
             raise KeyError(f"unknown parameter group {name}")
+    return out
+
+
+def refiner_from_jax_variables(variables) -> dict[str, torch.Tensor]:
+    """The JAX package's ``PoseRefiner`` variables -> this port's
+    :class:`~epipolarpose_tpu_torch.models.refiner.PoseRefiner`
+    state_dict. flax ``Dense`` kernels (in, out) become ``Linear`` weights
+    (out, in)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out: dict[str, torch.Tensor] = {}
+
+    def block(p, s, prefix):
+        out[f"{prefix}.linear.weight"] = _t(
+            np.asarray(p["Dense_0"]["kernel"]).T)
+        out[f"{prefix}.linear.bias"] = _t(p["Dense_0"]["bias"])
+        bn, bs = p["BatchNorm_0"], (s or {}).get("BatchNorm_0", {})
+        n = np.asarray(bn["scale"]).shape[0]
+        out[f"{prefix}.bn.weight"] = _t(bn["scale"])
+        out[f"{prefix}.bn.bias"] = _t(bn["bias"])
+        out[f"{prefix}.bn.running_mean"] = _t(bs.get("mean", np.zeros(n)))
+        out[f"{prefix}.bn.running_var"] = _t(bs.get("var", np.ones(n)))
+        out[f"{prefix}.bn.num_batches_tracked"] = torch.tensor(0)
+
+    res_re = re.compile(r"^_ResidualBlock_(\d+)$")
+    for name, node in params.items():
+        if name == "_LinearBlock_0":
+            block(node, stats.get(name), "stem")
+        elif res_re.match(name):
+            i = res_re.match(name).group(1)
+            for sub, tag in (("_LinearBlock_0", "a"), ("_LinearBlock_1", "b")):
+                block(node[sub], stats.get(name, {}).get(sub),
+                      f"blocks.{i}.{tag}")
+        elif name == "Dense_0":
+            out["head.weight"] = _t(np.asarray(node["kernel"]).T)
+            out["head.bias"] = _t(node["bias"])
+        else:
+            raise KeyError(f"unknown refiner parameter group {name}")
     return out

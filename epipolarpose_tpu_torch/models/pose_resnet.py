@@ -61,9 +61,9 @@ def _trunc_normal_(t: torch.Tensor, std: float,
     return t.clamp_(-2 * std, 2 * std)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose train-mode update keeps flax's biased
-    running variance.
+class FlaxRunningVar:
+    """Mixin for torch's batch norms whose train-mode update keeps flax's
+    biased running variance.
 
     torch adds ``m * var * n/(n-1)`` to ``(1-m) * running_var``; flax adds
     ``m * var``. With the old buffer ``old`` and torch's result ``new``,
@@ -82,6 +82,11 @@ class BatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():
             self.running_var = torch.lerp(self.running_var, old, 1.0 / n)
         return y
+
+
+class BatchNorm2d(FlaxRunningVar, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's running variance
+    (:class:`FlaxRunningVar`)."""
 
 
 def _bn(c: int) -> BatchNorm2d:

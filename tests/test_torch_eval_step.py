@@ -195,7 +195,7 @@ PORT_FILES = sorted((ROOT / "epipolarpose_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 # image libraries the card's machine does not have: the port may import
 # OpenCV only lazily, in these functions, none of them on a card path
-IMAGE_LIBS = ("cv2", "PIL", "torchvision")
+IMAGE_LIBS = ("cv2", "PIL", "torchvision", "matplotlib")
 LAZY_IMAGE_IMPORTS = {
     ("epipolarpose_tpu_torch/data/zipreader.py", "imread", "cv2"),
     ("epipolarpose_tpu_torch/data/synthetic.py", "write_synthetic_mpii",
@@ -228,12 +228,14 @@ def test_lazy_image_imports_are_where_the_list_says():
     assert found == LAZY_IMAGE_IMPORTS
 
 
-def test_port_data_path_runs_without_image_libraries():
+def test_port_data_path_runs_without_image_libraries(tmp_path):
     """The port's datasets, loader and evaluation import and run with
-    cv2, PIL and torchvision unimportable."""
+    cv2, PIL, torchvision and matplotlib unimportable; so does the
+    data-free demo, which writes its PNGs."""
     code = (
         "import sys\n"
-        "for m in ('cv2', 'PIL', 'torchvision'): sys.modules[m] = None\n"
+        "for m in ('cv2', 'PIL', 'torchvision', 'matplotlib'): "
+        "sys.modules[m] = None\n"
         "from epipolarpose_tpu_torch.config import load_config\n"
         "from epipolarpose_tpu_torch.data import get_dataset, epoch_loader\n"
         f"cfg = load_config({str(DEBUG_3D)!r})\n"
@@ -244,10 +246,16 @@ def test_port_data_path_runs_without_image_libraries():
         "assert b['input_aug'].shape == (1, 4, 64, 64, 3)\n"
         "import numpy as np\n"
         "p = np.stack([r.joints_3d for r in ds.records])\n"
-        "print(ds.evaluate(cfg, p)[1])\n")
+        "print(ds.evaluate(cfg, p)[1])\n"
+        "from epipolarpose_tpu_torch.scripts import demo\n"
+        f"out = demo.main(['--cfg', {str(DEBUG_3D)!r}, '--device', 'cpu', "
+        f"'--out', {str(tmp_path)!r}])\n"
+        "assert len(out['files']) == 2\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=ROOT, timeout=120)
     assert r.returncode == 0, r.stderr
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "pose_2d.png", "pose_3d.png"]
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -289,11 +289,22 @@ def test_train_loop_runs_one_epoch(caplog):
     assert lines[1].startswith("Epoch: [4][2]") and "samples/s" in lines[1]
 
 
-def test_train_loop_refuses_debug_dumps():
+def test_train_loop_refuses_debug_dumps(tmp_path):
+    """``DEBUG.DEBUG`` no longer raises: ``train`` dumps the batch's
+    ground-truth joints as ``train_<epoch>_<i>_gt.png`` every
+    ``PRINT_FREQ`` batches into ``output_dir``, and nothing without one.
+    The name is historical: the loop once refused ``DEBUG.DEBUG``."""
     cfg, model, state = _small()
     cfg.DEBUG.DEBUG = True
-    with pytest.raises(NotImplementedError):
-        function.train(cfg, [], state, make_train_step(cfg, model, "cpu"), 0)
+    cfg.DEBUG.SAVE_BATCH_IMAGES_GT = True
+    cfg.PRINT_FREQ = 2
+    step = make_train_step(cfg, model, "cpu")
+    batches = [_batch(seed, n=2) for seed in range(3)]
+    function.train(cfg, batches[:1], state, step, 0)
+    assert not list(tmp_path.iterdir())
+    function.train(cfg, batches, state, step, 5, output_dir=str(tmp_path))
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "train_5_0_gt.png", "train_5_2_gt.png"]
 
 
 def test_loss_falls_on_a_repeated_batch():
