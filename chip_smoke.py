@@ -76,10 +76,39 @@ card, then drives the port's paths through their entry points:
    teacher (strict load, backbone merged, head skipped, one triangulation
    a step); ``train_refiner`` and the data-free ``demo`` with the refiner
    (both PNGs decode); the ``DEBUG.DEBUG`` dumps of one 2D ``train``
-   call; checkpoint bytes and save and restore seconds;
+   call; checkpoint bytes and save and restore seconds; and the
+   calibration-free SS config (``train_ss_nocam_r50_256_integral.yaml``)
+   with that teacher, four triangulation launches a step;
 14. a cut run of the port's SS convergence tool at ResNet-50@256, D 64
    (the JAX CI pin's operating point): the train-pose MPJPE at the last
-   point below the first, the pseudo-GT floor finite.
+   point below the first, the pseudo-GT floor finite;
+15. calibration-free SS (``train_ss_nocam_r50_256_integral.yaml``:
+   ``TPU.SS_CAMERAS: estimated``, 32 groups x 4 views) on a batch built
+   on the card from an undistorted synthetic rig: with perfect
+   detections the estimated rotations within 0.1 degree and the
+   pseudo-GT within 1 mm of the truth (after one scale, and through
+   ``SS_BONE_LENGTH_MM``); the triangulation kernel against its plain
+   version and float64 oracles at the rig's shapes (544 two-view points
+   with a shared P (2, 3, 4) in normalized coordinates, and 32 x 4 x 17),
+   the rig's bits the same with TF32 allowed and not; one step through
+   the kernel against one through the plain solver (the same targets);
+   timed steps beside phase 6's (4 triangulation launches a step, the
+   loss falling), peak memory and the host synchronisations a step
+   (``torch.cuda.set_sync_debug_mode``) beside the calibrated step's;
+16. the offline pseudo-GT CLI's ``main(argv)`` on the SS config's
+   synthetic rig in batches of its 32 groups, with phase 13's teacher and
+   with ``--gt-detections`` merged into an annot json (MPJPE under 5 mm,
+   every record merged); the triangulation kernel on each run's first
+   batch against its plain version and float64 oracles; records/s of
+   the batch loop and of the whole call, and launches;
+17. loader-fed eval and FS-step rates with ``TPU.LOADER: grain`` at 0, 4
+   and 8 worker processes beside ``threads`` over 32 batches each: the
+   whole epoch, the seconds to its first batch and the rate from the
+   loader's second round on; every eval batch equal to the ``threads``
+   route's, ``os.cpu_count()``;
+18. no process left: every process this script started has ended but
+   the worker loader's ``forkserver`` and its resource tracker, and those
+   two end when ``stop_worker_server`` stops them.
 
 Kernel launch counters are set to 0 just before each path and read just
 after it. Each phase checks its own time limit. Any failed phase makes the
@@ -109,12 +138,14 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
 
-# seconds each phase may take; the whole run aims at under 300 s
+# seconds each phase may take; the whole run aims at under 600 s
 PHASE_LIMITS = {"build": 120.0, "softargmax": 30.0, "matmul_stats": 60.0,
                 "eval": 90.0, "train": 150.0, "ss": 150.0, "pose2d": 60.0,
                 "tool": 30.0, "eval_data": 60.0, "ss_data": 90.0,
                 "pose2d_data": 60.0, "image_libs": 1.0, "cli": 300.0,
-                "ss_convergence": 120.0}
+                "ss_convergence": 120.0, "ss_nocam": 150.0,
+                "pseudo_gt": 120.0, "loader_workers": 360.0,
+                "processes": 30.0}
 
 # H36M left/right joint pairs (the JAX package's data/h36m.py FLIP_PAIRS)
 H36M_FLIP_PAIRS = ((1, 4), (2, 5), (3, 6), (11, 14), (12, 15), (13, 16))
@@ -141,6 +172,14 @@ CLI_REFINER_STEPS = 40
 # the cut convergence run: the JAX CI pin's 2 frames in batches of 2 groups,
 # twice its 48 steps, the evaluation interval
 CONV_FRAMES, CONV_STEPS, CONV_EVAL_EVERY = 2, 96, 24
+# the pseudo-GT CLI: records (frames x 4 views), groups a batch: the SS
+# config's 32, so its triangulation launches at the SS step's shape
+PGT_SAMPLES, PGT_GROUPS = 512, SS_GROUPS
+# the worker-process loader: frames x 4 views of the eval and FS datasets
+# (32 eval batches of 64 and 32 FS batches of 32: a DataLoader worker
+# builds whole batches, so 8 workers take 4 rounds an epoch), worker counts
+LOADER_EVAL_FRAMES, LOADER_FS_FRAMES = 512, 256
+LOADER_WORKERS = (0, 4, 8)
 # image libraries the card's machine does not have
 IMAGE_LIBS = ("cv2", "PIL", "torchvision", "matplotlib")
 
@@ -748,12 +787,14 @@ def phase_train(res: dict) -> None:
           "final_layer gradient: kernels and plain decode disagree")
 
 
-def ss_rig_batch(cfg, groups: int, views: int, seed: int, device="cuda"):
+def ss_rig_batch(cfg, groups: int, views: int, seed: int, device="cuda",
+                 distortion: bool = True):
     """A multi-view batch built on ``device`` from the port's synthetic
-    rig (H36M-like, 1000 px images, with distortion) and skeleton poses:
-    centres and scales from the projected joints, seeded uint8 crops, and
-    a dual crop from a seeded scale, rotation and flip. Returns (batch,
-    world poses (G, J, 3), projected joints (G, V, J, 2))."""
+    rig (H36M-like, 1000 px images, with distortion unless
+    ``distortion`` is False) and skeleton poses: centres and scales from
+    the projected joints, seeded uint8 crops, and a dual crop from a
+    seeded scale, rotation and flip. Returns (batch, world poses
+    (G, J, 3), projected joints (G, V, J, 2))."""
     from epipolarpose_tpu_torch.data.synthetic import (make_rig,
                                                       synth_skeleton_poses)
     from epipolarpose_tpu_torch.geometry.affine import get_affine_transform
@@ -768,6 +809,9 @@ def ss_rig_batch(cfg, groups: int, views: int, seed: int, device="cuda"):
         [-150, -150, 600], [150, 150, 1000], (groups, 1, 3))
     world = torch.tensor(poses, dtype=torch.float32, device=dev)
     cams = Camera.stack(make_rig(views, seed=seed)).to(dev)
+    if not distortion:
+        cams = cams.replace(k=torch.zeros_like(cams.k),
+                            p=torch.zeros_like(cams.p))
     cams = cams.map(lambda t: t[None].expand((groups,) + t.shape)
                     .contiguous())
     px, _ = project_point_radial(world[:, None], cams)       # (G, V, J, 2)
@@ -833,11 +877,15 @@ def triangulate_in_chunks(pts, P, w, method: str):
         for i in range(0, pts.shape[0], step)])
 
 
-def tri_check(res: dict, key: str, pts, P, w) -> None:
+def tri_check(res: dict, key: str, pts, P, w, tag: str = "ss",
+              mm_per_unit: float = 1.0) -> None:
     """``epk_triangulate`` against its plain version and float64 ``svd``
     and ``eigh`` oracles, twice (TF32 allowed, then not: the same bits),
     then timed beside the plain version and ``torch.linalg.eigh`` on the
-    same AᵀA (a yardstick: no one PyTorch call computes the function)."""
+    same AᵀA (a yardstick: no one PyTorch call computes the function).
+    ``mm_per_unit``: millimetres in one unit of X (1 for pixel systems in
+    mm; a rig's baseline length for its unit-baseline systems): every
+    distance is reported and bounded in mm."""
     from epipolarpose_tpu_torch.geometry import triangulation as ttri
     from epipolarpose_tpu_torch.kernels import triangulate as ktri
     from epipolarpose_tpu_torch.tools.profile_step import (card_time_ms,
@@ -869,14 +917,17 @@ def tri_check(res: dict, key: str, pts, P, w) -> None:
             pts[sub].double(), P.double() if P.ndim == 3 else
             P[sub].double(), None if w is None else w64[sub],
             method="svd")[0])}
-    gaps = {name: ((x[rows].double() - o).norm(dim=-1).max().item(),
-                   (xp[rows].double() - o).norm(dim=-1).max().item())
+    gaps = {name: ((x[rows].double() - o).norm(dim=-1).max().item()
+                   * mm_per_unit,
+                   (xp[rows].double() - o).norm(dim=-1).max().item()
+                   * mm_per_unit)
             for name, (rows, o) in refs.items()}
     # the spread of the distances to the float64 run: 99th percentile and
     # share of points beyond 1 mm, kernel and plain
     spread = {}
     for name, t in (("kernel", x), ("plain", xp)):
         d = (t.double() - refs["fast64"][1]).norm(dim=-1).flatten().float()
+        d = d * mm_per_unit
         spread[name] = (d.quantile(0.99).item(),
                         (d > 1.0).float().mean().item())
     torch.cuda.synchronize()
@@ -888,10 +939,11 @@ def tri_check(res: dict, key: str, pts, P, w) -> None:
     # float64). The kernel must stay as close to the same solver in
     # float64 as twice the plain version does, plus 0.05 mm.
     allowance = 2 * gaps["fast64"][1] + 0.05
-    log(f"[ss] triangulation {key}: {n} x {j} points, V {v}, P "
+    log(f"[{tag}] triangulation {key}: {n} x {j} points, V {v}, P "
         f"{'per frame' if P.ndim == 4 else 'shared'}, weights "
         f"{'yes' if w is not None else 'no'}: max |dX| kernel vs plain "
-        f"{dx:.3g} mm, |d residual| {dr:.3g} (limit 1e-4); max distance "
+        f"{dx * mm_per_unit:.3g} mm, |d residual| {dr:.3g} (limit 1e-4); "
+        f"max distance "
         + ", ".join(f"to {name} {k:.3g} mm (plain {p:.3g})"
                     for name, (k, p) in gaps.items())
         + f"; limits: fast64 {allowance:.3g} mm, the oracles the plain's "
@@ -930,14 +982,15 @@ def tri_check(res: dict, key: str, pts, P, w) -> None:
     n_bytes = (pts.numel() + (w.numel() if w is not None else 0)) * 4 \
         + p_bytes + points * 4 * 4
     b_ms, b_by = bound(n_bytes, tri_flops(v) * points, F32_FLOPS)
-    res[key] = dict(points=points, views=v, max_abs_err=dx,
+    res[key] = dict(points=points, views=v, mm_per_unit=mm_per_unit,
+                    max_abs_err=dx,
                     residual_max_abs_err=dr, gap_mm=gaps,
                     allowance_mm=allowance, p99_and_share_over_1mm=spread,
                     tf32_same_bits=same, ms=ms, device_ms=dev_ms,
                     plain_ms=plain_ms, eigh_ms=eigh_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=None, floor_ms=floor_ms,
                     layout=layout, **usage)
-    log(f"[ss] triangulation {key}: kernel {ms:.4g} ms (card alone "
+    log(f"[{tag}] triangulation {key}: kernel {ms:.4g} ms (card alone "
         f"{dev_ms:.4g}; launch floor {floor_ms:.4g}), plain {plain_ms:.4g} "
         f"ms, torch.linalg.eigh on AᵀA {eigh_ms:.4g} ms (in chunks of "
         f"{EIGH_CHUNK}), bound {b_ms:.4g} ms ({b_by}); layout {layout}, "
@@ -1141,6 +1194,243 @@ def phase_ss(res: dict) -> None:
     check(abs(rk - rp) <= 1e-4, "SS step residual: kernel and plain differ")
     check(gmax > 0 and dgrad <= 2 ** -7 * gmax,
           "SS step final_layer gradient: kernels and plain disagree")
+
+
+def count_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: returns
+    (its result, the synchronizing calls it made, by source line). Only
+    calls that go through PyTorch's own copy and synchronize wrappers are
+    seen (a ``.item()``, cuSOLVER's status read after ``eigh``/``svd``)."""
+    import collections
+    import warnings
+    old = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(old)
+    where = collections.Counter(
+        f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchronizing" in str(w.message))
+    return out, sum(where.values()), dict(where)
+
+
+def rotation_error_deg(r: torch.Tensor, r_gt: torch.Tensor) -> float:
+    """Angle of ``r @ r_gtᵀ`` in degrees (float64)."""
+    m = (r.double()[:, None, :] * r_gt.double()[None, :, :]).sum(-1)
+    cos = ((m.trace() - 1) / 2).clamp(-1.0, 1.0).item()
+    return math.degrees(math.acos(cos))
+
+
+def catch_targets(run) -> dict:
+    """``run()`` with the SS step's student update wrapped: the first
+    update's targets and weights, and ``run()``'s result."""
+    from epipolarpose_tpu_torch.core import self_supervised as tss
+    caught, update = {}, tss.integral_update
+
+    def catch(state, model, x, target, tw, *args):
+        caught.setdefault("target", target.clone())
+        caught.setdefault("tw", tw.clone())
+        return update(state, model, x, target, tw, *args)
+    tss.integral_update = catch
+    try:
+        caught["out"] = run()
+    finally:
+        tss.integral_update = update
+    return caught
+
+
+def phase_ss_nocam(res: dict) -> None:
+    """Calibration-free SS (``TPU.SS_CAMERAS: estimated``) at the
+    flagship width: the rig from the detections, its kernel launches at
+    their shapes, the timed step and its host synchronisations."""
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.core import create_train_state
+    from epipolarpose_tpu_torch.core import self_supervised as tss
+    from epipolarpose_tpu_torch.core.steps import configure_backends
+    from epipolarpose_tpu_torch.geometry.camera import world_to_camera_frame
+    from epipolarpose_tpu_torch.geometry.rig import pseudo_gt_uncalibrated
+    from epipolarpose_tpu_torch.kernels import triangulate as ktri
+    from epipolarpose_tpu_torch.models import get_model
+
+    cfg = load_config(ROOT / "experiments/h36m/"
+                      "train_ss_nocam_r50_256_integral.yaml")
+    G, V = int(cfg.TRAIN.BATCH_SIZE), int(cfg.DATASET.NUM_VIEWS)
+    check((G, V) == (SS_GROUPS, SS_VIEWS)
+          and cfg.TPU.SS_CAMERAS == "estimated"
+          and float(cfg.TPU.SS_BONE_LENGTH_MM) == 0.0
+          and cfg.MODEL.EXTRA.DEPTH_DIM == 64
+          and cfg.MODEL.EXTRA.NUM_LAYERS == 50
+          and cfg.TPU.COMPUTE_DTYPE == "bfloat16",
+          "unexpected calibration-free SS config")
+    joints = int(cfg.MODEL.NUM_JOINTS)
+    configure_backends(cfg)
+    dev = torch.device("cuda")
+    batch, world, px = ss_rig_batch(cfg, G, V, seed=71, distortion=False)
+    intr = batch["camera"].map(lambda t: t[0])
+    ones = torch.ones(px.shape[:-1], device=dev)
+    gt = world_to_camera_frame(world, intr.map(lambda t: t[0]))
+
+    # 1. perfect detections: the rig's rotations, the pseudo-GT up to one
+    # scale, and in mm through the mean bone
+    x, p, _ = pseudo_gt_uncalibrated(px, intr, conf=ones)
+    angles = [rotation_error_deg(p[v, :, :3], intr.R[v] @ intr.R[0].T)
+              for v in range(1, V)]
+    scale = ((x * gt).sum() / (x * x).sum()).item()
+    ls_err = (scale * x - gt).norm(dim=-1).max().item()
+    bones = tss._h36m_bones(joints)
+    a, b = [q[0] for q in bones], [q[1] for q in bones]
+    bone_mm = (gt[:, a] - gt[:, b]).norm(dim=-1).mean().item()
+    xb, _, _ = pseudo_gt_uncalibrated(px, intr, conf=ones, bone_pairs=bones,
+                                      bone_length_mm=bone_mm)
+    bone_err = (xb - gt).norm(dim=-1).max().item()
+    log(f"[ss_nocam] perfect detections, {G} groups x {V} views x {joints} "
+        f"joints: rotation errors " + ", ".join(f"{e:.4f}" for e in angles)
+        + f" deg (limit 0.1); pseudo-GT after one least-squares scale "
+        f"({scale:.1f} mm a unit baseline) max {ls_err:.4f} mm (limit 1); "
+        f"with SS_BONE_LENGTH_MM {bone_mm:.2f} (the poses' mean H36M bone) "
+        f"max {bone_err:.4f} mm unscaled (limit 1)")
+    check(max(angles) < 0.1, f"rotation errors {angles} deg")
+    check(ls_err < 1.0, f"pseudo-GT up to scale {ls_err:.3g} mm off")
+    check(bone_err < 1.0, f"bone-scaled pseudo-GT {bone_err:.3g} mm off")
+
+    # 2. the kernel at the rig's shapes, from noisy weighted detections:
+    # the V - 1 two-view calls and the V-view call, each held to its plain
+    # version and float64 oracles; the TF32 flags change no bit
+    det, conf = noisy_detections(px, seed=73, corrupt=False)
+    calls = []
+
+    def capture(pts, P, w):
+        calls.append((pts, P, w))
+        return ktri.triangulate_fast(pts, P, w)
+    pseudo_gt_uncalibrated(det, intr, conf=conf, solve=capture)
+    shapes = [(tuple(c[0].shape), tuple(c[1].shape), c[2] is not None)
+              for c in calls]
+    want = [((G * joints, 2, 1, 2), (2, 3, 4), False)] * (V - 1) + [
+        ((G, V, joints, 2), (V, 3, 4), True)]
+    check(shapes == want, f"the rig's solves took {shapes}, expected {want}")
+    tri_check(res, "triangulate_rig_pair", *calls[0], tag="ss_nocam",
+              mm_per_unit=scale)
+    tri_check(res, "triangulate_rig_views", *calls[-1], tag="ss_nocam",
+              mm_per_unit=scale)
+    del calls
+    old = torch.backends.cuda.matmul.allow_tf32
+    outs = []
+    try:
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            outs.append(pseudo_gt_uncalibrated(det, intr, conf=conf))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    same = all(torch.equal(u, w) for u, w in zip(*outs))
+    log(f"[ss_nocam] estimate_rig and the pseudo-GT with TF32 allowed and "
+        f"not: same bits {same}")
+    check(same, "the TF32 flag changed the estimated rig")
+
+    # 3. one step through the kernels against one through the plain
+    # solver, from one state, on the noisy detections: the same targets
+    model = get_model(cfg, True, torch.Generator().manual_seed(75))
+    twin = copy.deepcopy(model)
+    det_fn = tss.make_gt_teacher(det.reshape(G * V, joints, 2),
+                                 conf.reshape(G * V, joints))
+    got = {}
+    for name, m, solve in (("kernel", model, None),
+                           ("plain", twin, ktri.triangulate_fast_plain)):
+        st = create_train_state(cfg, m, steps_per_epoch=1000, device=dev)
+        step = tss.make_ss_train_step(cfg, m, None, device=dev,
+                                      detect_fn=det_fn,
+                                      flip_pairs=H36M_FLIP_PAIRS, solve=solve)
+        got[name] = catch_targets(lambda: step(st, batch)[1])
+    target_dt = (got["kernel"]["target"]
+                 - got["plain"]["target"]).abs().max().item()
+    same_tw = torch.equal(got["kernel"]["tw"], got["plain"]["tw"])
+    lk, lp = (got[k]["out"]["loss"].item() for k in ("kernel", "plain"))
+    loss_limit = 3 * joints * 1e-4
+    log(f"[ss_nocam] one step, kernel vs plain solver (noisy detections): "
+        f"targets max |d| {target_dt:.3g} (limit 1e-4), weights equal "
+        f"{same_tw}, "
+        f"loss {lk:.6f} vs {lp:.6f} (limit {loss_limit:.3g})")
+    check(target_dt <= 1e-4 and same_tw,
+          "estimated-rig targets: kernel and plain solver disagree")
+    check(math.isfinite(lk) and abs(lk - lp) <= loss_limit,
+          "estimated-rig loss: kernel and plain solver disagree")
+    del twin, got
+
+    # 4. the timed steps with the perfect detections
+    model = get_model(cfg, True, torch.Generator().manual_seed(76))
+    state = create_train_state(cfg, model, steps_per_epoch=1000, device=dev)
+    step = tss.make_ss_train_step(
+        cfg, model, None, device=dev,
+        detect_fn=tss.make_gt_teacher(px.reshape(G * V, joints, 2)),
+        flip_pairs=H36M_FLIP_PAIRS)
+    losses = []
+
+    def run(n):
+        nonlocal state
+        for _ in range(n):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+
+    run(SS_WARMUP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rates, step_ms = [], []
+    for _ in range(SS_WINDOWS):
+        t0 = time.perf_counter()
+        run(SS_STEPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates.append(G * V * SS_STEPS / dt)
+        step_ms.append(dt * 1e3 / SS_STEPS)
+    counts = launch_counts()
+    res["paths"]["ss_nocam"] = counts
+    steps = SS_WINDOWS * SS_STEPS
+    curve = torch.stack(losses).tolist()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # 5. host synchronisations a step: this step, and the calibrated step
+    # on the same batch and model
+    _, syncs, where = count_syncs(lambda: step(state, batch))
+    given = copy.deepcopy(cfg)
+    given.TPU.SS_CAMERAS = "given"
+    gstep = tss.make_ss_train_step(
+        given, model, None, device=dev,
+        detect_fn=tss.make_gt_teacher(px.reshape(G * V, joints, 2)),
+        flip_pairs=H36M_FLIP_PAIRS)
+    _, given_syncs, given_where = count_syncs(lambda: gstep(state, batch))
+    res["ss_nocam"] = dict(
+        rotation_err_deg=angles, ls_err_mm=ls_err, bone_err_mm=bone_err,
+        unit_baseline_mm=scale, step_ms=step_ms, samples_per_s=rates,
+        peak_gb=peak, syncs_per_step=syncs, syncs_by_line=where,
+        given_syncs_per_step=given_syncs, given_syncs_by_line=given_where,
+        target_kernel_vs_plain=target_dt, loss_kernel_vs_plain=(lk, lp),
+        losses=curve)
+    log(f"[ss_nocam] perfect detections, G {G} x V {V} = {G * V} crops, "
+        f"ResNet-50@256 J=17 D=64 bf16 Adam, rig estimated every step: "
+        f"{SS_WINDOWS} windows of {SS_STEPS} steps: " + ", ".join(
+            f"{r:.1f} samples/s ({t:.2f} ms a step)"
+            for r, t in zip(rates, step_ms))
+        + f" against the calibrated step's " + ", ".join(
+            f"{t:.2f}" for t in res.get("ss_step_ms", []))
+        + f" ms (phase ss); peak memory {peak:.2f} GB; host synchronisations"
+        f" a step {syncs} ({where}), calibrated step {given_syncs} "
+        f"({given_where}); launches {counts}; losses ({SS_WARMUP} warm-up "
+        f"first) " + ", ".join(f"{v:.4f}" for v in curve[:4]) + " ... "
+        + ", ".join(f"{v:.4f}" for v in curve[-3:]))
+    check(all(math.isfinite(v) for v in curve), f"losses {curve}")
+    check(curve[-1] < curve[SS_WARMUP],
+          "the estimated-rig SS loss did not fall over the timed steps")
+    check(counts["triangulate"] == counts["triangulate_split"] == 4 * steps,
+          f"{counts} in {steps} steps: expected 4 triangulation launches a "
+          f"step, all in the split layout")
+    check(counts["softargmax_fwd"] == counts["softargmax_bwd"] == steps
+          and counts["matmul_stats"] == 0 and counts["teacher_decode"] == 0,
+          f"{counts} in {steps} steps: expected one soft-argmax forward and "
+          f"backward a step")
 
 
 def phase_pose2d(res: dict) -> None:
@@ -1614,14 +1904,11 @@ def same_state(a, b) -> list[str]:
 
 def phase_cli(res: dict) -> None:
     """The user's workflow through the CLIs' ``main(argv)``, at the
-    ResNet-50@256 width, in a temporary directory deleted at the end."""
-    import shutil
+    ResNet-50@256 width, in a temporary directory that phase
+    ``pseudo_gt`` reads too (``main`` deletes it at the end)."""
     import tempfile
-    tmp = pathlib.Path(tempfile.mkdtemp(prefix="epk_cli_"))
-    try:
-        cli_workflow(res, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    res["cli_dir"] = tmp = pathlib.Path(tempfile.mkdtemp(prefix="epk_cli_"))
+    cli_workflow(res, tmp)
 
 
 def cli_workflow(res: dict, tmp: pathlib.Path) -> None:
@@ -1661,6 +1948,7 @@ def cli_workflow(res: dict, tmp: pathlib.Path) -> None:
     check(math.isfinite(teacher["loss"]), f"teacher loss {teacher['loss']}")
     out["teacher"] = dict(wall_s=c["wall_s"], loss=teacher["loss"],
                           pckh=teacher["perf"])
+    res["cli_teacher"] = teacher["final"]
 
     # 2. the FS 3D step: 2 epochs, then resume to the third
     fs_yaml = cli_yaml(tmp / "cli_fs.yaml", fs_src, PRINT_FREQ=1)
@@ -1784,6 +2072,26 @@ def cli_workflow(res: dict, tmp: pathlib.Path) -> None:
                      wall_s=c["wall_s"])
     del ss
 
+    # 4b. the calibration-free SS config with the same teacher: the rig
+    # estimated in every step (4 triangulations a step)
+    nocam_yaml = cli_yaml(tmp / "cli_ss_nocam.yaml",
+                          "h36m/train_ss_nocam_r50_256_integral.yaml",
+                          PRINT_FREQ=1, MODEL={"PRETRAINED": teacher["final"]})
+    c = paths["cli_ss_nocam"] = {}
+    nocam = run_cli(train_cli.main, ["--cfg", nocam_yaml, "--synthetic",
+                                     "--samples", str(CLI_SS_SAMPLES),
+                                     "--epochs", "1"] + dirs, c)
+    check(nocam["state"].step == ss_steps, f"nocam step {nocam['state'].step}")
+    check(c["triangulate"] == c["triangulate_split"] == 4 * ss_steps
+          and c["softargmax_bwd"] == c["teacher_decode"] == ss_steps
+          and c["softargmax_fwd"] == ss_steps + n_eval,
+          f"nocam SS run launched {c} in {ss_steps} steps and {n_eval} eval "
+          f"batches")
+    check(math.isfinite(nocam["loss"]), f"nocam SS loss {nocam['loss']}")
+    out["ss_nocam"] = dict(loss=nocam["loss"], perf=nocam["perf"],
+                           wall_s=c["wall_s"])
+    del nocam
+
     # 5. the refiner and the demo
     c = paths["cli_refiner"] = {}
     ref = run_cli(train_refiner.main, [
@@ -1836,7 +2144,8 @@ def cli_workflow(res: dict, tmp: pathlib.Path) -> None:
         f"{med(fs_steps[1:]):.1f} samples/s, SS median "
         f"{med(ss_rates[1:]):.1f} samples/s; validation "
         + ", ".join(f"{v:.1f}" for v in fs_evals + ss_evals)
-        + f" samples/s; SS loss {out['ss']['loss']:.4f}, student conv1 "
+        + f" samples/s; SS loss {out['ss']['loss']:.4f} (nocam "
+        f"{out['ss_nocam']['loss']:.4f}), student conv1 "
         f"{moved:.2e} from the teacher's; refiner {ref['before_mm']:.2f} -> "
         f"{ref['after_mm']:.2f} mm; launches " + json.dumps(
             {k: {n: v for n, v in paths[k].items() if n != "wall_s"}
@@ -1885,6 +2194,289 @@ def phase_ss_convergence(res: dict) -> None:
     check(not loaded, f"ss_convergence imported {loaded}")
 
 
+def phase_pseudo_gt(res: dict) -> None:
+    """The offline pseudo-GT CLI's ``main(argv)`` in this process on the
+    SS config's synthetic rig: once with the 2D teacher phase ``cli``
+    trained, once with ``--gt-detections`` merged into an annot json
+    written from the same synthetic records."""
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.core import self_supervised as tss
+    from epipolarpose_tpu_torch.data import get_dataset
+    from epipolarpose_tpu_torch.kernels import triangulate as ktri
+    from epipolarpose_tpu_torch.scripts import generate_pseudo_gt as pgt
+    tmp = res["cli_dir"]
+    ss_yaml = cli_yaml(tmp / "pgt_ss.yaml",
+                       "h36m/train_ss_r50_256_integral.yaml",
+                       MODEL={"PRETRAINED": res["cli_teacher"]})
+    cfg = load_config(ss_yaml)
+    cfg.DATASET.DATASET = "synthetic_multiview"
+    ds = get_dataset(cfg, cfg.DATASET.TRAIN_SET, False,
+                     num_frames=PGT_SAMPLES // 4)
+    annot = tmp / "pgt_annot.json"
+    annot.write_text(json.dumps([
+        {"image": r.image, "center": r.center.tolist(),
+         "scale": r.scale.tolist(), "joints_2d": r.joints.tolist(),
+         "joints_vis": r.joints_vis.tolist(),
+         "joints_3d": r.joints_3d.tolist()} for r in ds.records]))
+    merged = tmp / "pgt_annot_pseudo.json"
+    batches = PGT_SAMPLES // 4 // PGT_GROUPS
+    out = {}
+    # the kernel's inputs of each run's first batch, held to its plain
+    # version after the run (the solver is looked up at each call)
+    calls: list = []
+
+    def capture(pts, P, w):
+        if len(calls) == len(out):
+            calls.append((pts.clone(), P.clone(),
+                          None if w is None else w.clone()))
+        return ktri.triangulate_fast(pts, P, w)
+    for name, extra in (("teacher", []),
+                        ("gt_detections", ["--gt-detections", "--merge-into",
+                                           str(annot), "--merge-out",
+                                           str(merged)])):
+        c = res["paths"][f"pseudo_gt_{name}"] = {}
+        tss.triangulate_fast = capture
+        try:
+            r = run_cli(pgt.main, [
+                "--cfg", ss_yaml, "--synthetic", "--samples",
+                str(PGT_SAMPLES), "--groups-per-batch", str(PGT_GROUPS),
+                "--out", str(tmp / f"pgt_{name}.json")] + extra, c)
+        finally:
+            tss.triangulate_fast = ktri.triangulate_fast
+        # records/s of the batch loop; set-up (config, dataset, teacher)
+        # and the json after it apart
+        out[name] = dict(r, wall_s=c["wall_s"],
+                         setup_s=c["wall_s"] - r["loop_s"],
+                         records_per_s=r["records"] / r["loop_s"],
+                         wall_records_per_s=r["records"] / c["wall_s"])
+        check(r["records"] == len(ds) == PGT_SAMPLES,
+              f"{name}: {r['records']} records, expected {len(ds)}")
+        check(c["triangulate"] == c["triangulate_split"] == batches
+              and c["softargmax_fwd"] == c["softargmax_bwd"] == 0
+              and c["teacher_decode"] == (batches if name == "teacher"
+                                          else 0),
+              f"{name}: launches {c} for {batches} batches")
+        check(r["mpjpe"] is not None and math.isfinite(r["mpjpe"]),
+              f"{name}: MPJPE {r['mpjpe']}")
+    want = ((PGT_GROUPS, 4, int(cfg.MODEL.NUM_JOINTS), 2),
+            (PGT_GROUPS, 4, 3, 4), True)
+    for name, (pts, P, w) in zip(out, calls):
+        check((tuple(pts.shape), tuple(P.shape), w is not None) == want,
+              f"{name}: the kernel took {tuple(pts.shape)}, P "
+              f"{tuple(P.shape)}, weights {w is not None}; expected {want}")
+        tri_check(res, f"triangulate_pgt_{name}", pts, P, w, tag="pseudo_gt")
+    check(len(calls) == len(out), f"{len(calls)} runs captured")
+    gt = out["gt_detections"]
+    check(gt["mpjpe"] < 5.0, f"pseudo-GT from the GT detections "
+          f"{gt['mpjpe']:.3g} mm from the dataset's (limit 5)")
+    rows = json.loads(merged.read_text())
+    check(gt["merged"] == len(rows) == len(ds),
+          f"merged {gt['merged']} of {len(rows)} records")
+    res["pseudo_gt"] = out
+    log(f"[pseudo_gt] scripts.generate_pseudo_gt on the SS config's "
+        f"synthetic rig, {PGT_SAMPLES} records in batches of {PGT_GROUPS} "
+        f"groups: " + "; ".join(
+            f"{k}: {v['records']} records, batch loop {v['loop_s']:.3f} s "
+            f"= {v['records_per_s']:.1f} records/s (with the set-up's "
+            f"{v['setup_s']:.3f} s and the json: {v['wall_s']:.3f} s, "
+            f"{v['wall_records_per_s']:.1f}), pseudo-GT MPJPE vs the "
+            f"dataset {v['mpjpe']:.3f} mm, launches "
+            + json.dumps({n: x for n, x in res["paths"][f"pseudo_gt_{k}"]
+                          .items() if n != "wall_s"})
+            for k, v in out.items())
+        + f"; merged into {gt['merged']} annot records (limit: all "
+        f"{len(ds)}); GT-detection MPJPE limit 5 mm")
+
+
+def timed(batches, arrivals: list, kept: list | None = None):
+    """Yield ``batches``, appending each one's arrival time
+    (``time.perf_counter()``) to ``arrivals`` and the batch to ``kept``."""
+    for b in batches:
+        arrivals.append(time.perf_counter())
+        if kept is not None:
+            kept.append(b)
+        yield b
+
+
+def loader_rates(arrivals: list, t0: float, t_end: float, batch: int,
+                 workers: int | None) -> dict:
+    """Rates of one loader-fed epoch: all samples over all its time, the
+    seconds to its first batch, and the rate from the loader's second
+    round on. A ``DataLoader`` worker builds a whole batch, so the first
+    ``workers`` batches are built side by side and each worker starts its
+    round-2 batch as it hands over its first: the steady window runs from
+    the arrival here of batch ``workers - 1`` (batch 0 without workers)
+    to the end and counts the batches after it. Its head start is what
+    ``epoch_loader``'s copy stages hold between a worker and this loop."""
+    n = len(arrivals)
+    k = max(workers or 0, 1) - 1
+    return dict(samples_per_s=n * batch / (t_end - t0),
+                first_batch_s=arrivals[0] - t0,
+                steady_per_s=(n - 1 - k) * batch / (t_end - arrivals[k]),
+                steady_batches=n - 1 - k, batches=n)
+
+
+def phase_loader_workers(res: dict) -> None:
+    """Loader-fed eval and FS-step rates on the port's synthetic
+    multiview records with ``TPU.LOADER: grain`` at 0, 4 and 8 worker
+    processes beside ``threads``; every eval batch of each route equal to
+    the ``threads`` route's."""
+    import os
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.core import (create_train_state,
+                                             make_train_step)
+    from epipolarpose_tpu_torch.core.function import validate
+    from epipolarpose_tpu_torch.core.steps import (configure_backends,
+                                                   make_eval_step)
+    from epipolarpose_tpu_torch.data import epoch_loader, get_dataset
+    from epipolarpose_tpu_torch.models import get_model
+    dev = torch.device("cuda")
+    ecfg = load_config(ROOT / "experiments/h36m/valid_r50_256_integral.yaml")
+    fcfg = load_config(ROOT / "experiments/h36m/train_fs_r50_256_integral.yaml")
+    configure_backends(fcfg)
+    datasets = {}
+    for key, cfg, train, frames in (("eval", ecfg, False, LOADER_EVAL_FRAMES),
+                                    ("fs", fcfg, True, LOADER_FS_FRAMES)):
+        cfg.DATASET.DATASET = "synthetic_multiview"
+        datasets[key] = get_dataset(
+            cfg, cfg.DATASET.TRAIN_SET if train else cfg.DATASET.TEST_SET,
+            train, num_frames=frames, pose_mode="skeleton", seed=81)
+    ebs, fbs = int(ecfg.TEST.BATCH_SIZE), int(fcfg.TRAIN.BATCH_SIZE)
+    emodel = get_model(ecfg, False, torch.Generator().manual_seed(82))
+    estep = make_eval_step(ecfg, emodel, (), device=dev)
+    fmodel = get_model(fcfg, True, torch.Generator().manual_seed(83))
+    state = create_train_state(fcfg, fmodel, steps_per_epoch=1000,
+                               device=dev)
+    fstep = make_train_step(fcfg, fmodel, device=dev)
+    # cuDNN picks its algorithms before any route is timed
+    warm = datasets["fs"].get_batch(list(range(fbs)), seed=0)
+    state, _ = fstep(state, {k: torch.from_numpy(v).to(dev)
+                             for k, v in warm.items()})
+    estep({k: torch.from_numpy(v).to(dev) for k, v in datasets[
+        "eval"].get_batch(list(range(ebs)), seed=0).items()})
+    torch.cuda.synchronize()
+    routes = [("threads", None)] + [("grain", n) for n in LOADER_WORKERS]
+    rows, reference = {}, None
+    for loader, workers in routes:
+        name = loader if workers is None else f"grain_{workers}"
+        for cfg in (ecfg, fcfg):
+            cfg.TPU.LOADER = loader
+            cfg.TPU.GRAIN_WORKERS = -1 if workers is None else workers
+        kept: list = []
+        eval_at, fs_at = [], []
+        reset_counts()
+        t0 = time.perf_counter()
+        _, perf = validate(ecfg, timed(epoch_loader(
+            datasets["eval"], ebs, 0, is_train=False, device=dev), eval_at,
+            kept), datasets["eval"], estep)
+        torch.cuda.synchronize()
+        eval_end = time.perf_counter()
+        if reference is None:
+            reference = kept
+        else:
+            check(len(kept) == len(reference), f"{name}: {len(kept)} eval "
+                  f"batches, threads {len(reference)}")
+            for got, want in zip(kept, reference):
+                check(sorted(got) == sorted(want)
+                      and all(torch.equal(got[k], want[k]) for k in want),
+                      f"{name}: an eval batch differs from threads'")
+        del kept
+        steps = 0
+        t1 = time.perf_counter()
+        for b in timed(epoch_loader(datasets["fs"], fbs, 0, is_train=True,
+                                    device=dev), fs_at):
+            state, m = fstep(state, b)
+            steps += 1
+        torch.cuda.synchronize()
+        fs_end = time.perf_counter()
+        counts = launch_counts()
+        n_eval = -(-len(datasets["eval"]) // ebs)
+        check(steps == len(datasets["fs"]) // fbs,
+              f"{name}: {steps} FS steps")
+        check(counts["softargmax_fwd"] == n_eval + steps
+              and counts["softargmax_bwd"] == steps,
+              f"{name}: launches {counts}")
+        check(math.isfinite(perf) and math.isfinite(m["loss"].item()),
+              f"{name}: perf {perf}, loss {m['loss']}")
+        rows[name] = dict(
+            eval=loader_rates(eval_at, t0, eval_end, ebs, workers),
+            fs=loader_rates(fs_at, t1, fs_end, fbs, workers),
+            eval_s=eval_end - t0, fs_s=fs_end - t1, workers=workers)
+        res["paths"][f"loader_{name}"] = counts
+    for cfg in (ecfg, fcfg):
+        cfg.TPU.LOADER = "threads"
+    res["loader_workers"] = dict(rows=rows, cpu_count=os.cpu_count())
+    log(f"[loader_workers] {len(datasets['eval'])} eval records (batch "
+        f"{ebs}, flip test) and {len(datasets['fs'])} FS records (batch "
+        f"{fbs}) of the port's synthetic_multiview dataset (1024 px views) "
+        f"through epoch_loader, os.cpu_count() {os.cpu_count()}; samples/s "
+        f"of the whole epoch, seconds to its first batch, samples/s from "
+        f"the loader's second round on (over that many batches): "
+        + "; ".join(f"{k}: " + ", ".join(
+            f"{part} {r['samples_per_s']:.1f}, first batch "
+            f"{r['first_batch_s']:.2f} s, steady {r['steady_per_s']:.1f} "
+            f"({r['steady_batches']} of {r['batches']} batches)"
+            for part, r in (("eval", v["eval"]), ("FS", v["fs"])))
+            for k, v in rows.items())
+        + "; every route's eval batches equal to threads'")
+
+
+def descendants() -> dict[int, str]:
+    """pid -> state and command line of every process descended from
+    this one, from ``/proc``."""
+    import os
+    parent, info = {}, {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            stat = pathlib.Path("/proc", d, "stat").read_text()
+            cmd = pathlib.Path("/proc", d, "cmdline").read_bytes()
+        except OSError:                         # ended while we looked
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        parent[int(d)] = int(fields[1])
+        info[int(d)] = f"{fields[0]} {cmd.replace(b'\0', b' ')[:200]!r}"
+    found, todo = {}, [os.getpid()]
+    while todo:
+        pid = todo.pop()
+        for child, ppid in parent.items():
+            if ppid == pid and child not in found:
+                found[child] = info[child]
+                todo.append(child)
+    return found
+
+
+def wait_for_no_processes(keep: set, seconds: float = 10.0) -> dict:
+    """The descendants outside ``keep`` still there after up to
+    ``seconds``."""
+    end = time.perf_counter() + seconds
+    while True:
+        left = {p: c for p, c in descendants().items() if p not in keep}
+        if not left or time.perf_counter() > end:
+            return left
+        time.sleep(0.1)
+
+
+def phase_processes(res: dict) -> None:
+    """Every process this script started has ended but the worker
+    loader's server and resource tracker; ``stop_worker_server`` ends
+    those two, so nothing outlives the script."""
+    from multiprocessing import forkserver, resource_tracker
+    from epipolarpose_tpu_torch.data.grain_pipeline import stop_worker_server
+    server = forkserver._forkserver._forkserver_pid
+    tracker = resource_tracker._resource_tracker._pid
+    left = wait_for_no_processes({server, tracker})
+    check(not left, f"processes still running: {left}")
+    stop_worker_server()
+    left = wait_for_no_processes(set())
+    check(not left, f"processes still running after stop_worker_server: "
+          f"{left}")
+    res["processes"] = dict(server=server, tracker=tracker)
+    log(f"[processes] none left; the worker server (pid {server}) and its "
+        f"resource tracker (pid {tracker}) stopped")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1902,7 +2494,10 @@ def main() -> int:
               ("eval_data", phase_eval_data), ("ss_data", phase_ss_data),
               ("pose2d_data", phase_pose2d_data),
               ("image_libs", phase_image_libs), ("cli", phase_cli),
-              ("ss_convergence", phase_ss_convergence)]
+              ("ss_convergence", phase_ss_convergence),
+              ("ss_nocam", phase_ss_nocam), ("pseudo_gt", phase_pseudo_gt),
+              ("loader_workers", phase_loader_workers),
+              ("processes", phase_processes)]
     failed = []
     for i, (name, fn) in enumerate(phases, 1):
         if failed and failed[0] == "build":
@@ -1925,6 +2520,9 @@ def main() -> int:
                 f"{time.perf_counter() - t0:.1f} s")
             traceback.print_exc(file=sys.stdout)
             sys.stdout.flush()
+    if "cli_dir" in res:
+        import shutil
+        shutil.rmtree(res["cli_dir"], ignore_errors=True)
     total = time.perf_counter() - t_start
     log(f"total wall time {total:.1f} s (build {res.get('build_s', 0):.1f} s)")
     if failed:
@@ -1981,7 +2579,12 @@ def main() -> int:
                       "pl.pallas_call)", path="ss",
              launches=paths["ss"]["triangulate"],
              launches_by_path=by_path("triangulate"),
-             at_1m_points=res["triangulate_1m"], **res["triangulate"]),
+             at_1m_points=res["triangulate_1m"],
+             at_rig_pair=res["triangulate_rig_pair"],
+             at_rig_views=res["triangulate_rig_views"],
+             at_pseudo_gt_teacher=res["triangulate_pgt_teacher"],
+             at_pseudo_gt_gt_detections=res["triangulate_pgt_gt_detections"],
+             **res["triangulate"]),
     ]
     log(f"ss path: {SS_GROUPS * SS_VIEWS} crops a step; perfect teacher: "
         f"samples/s per window " + ", ".join(
@@ -1994,6 +2597,19 @@ def main() -> int:
         f"{res['ss_data']['samples_per_s']:.1f} samples/s, pose2d "
         f"{res['pose2d_data']['samples_per_s']:.1f} samples/s (one batch "
         f"on the card {res['pose2d_data']['on_card_samples_per_s']:.1f})")
+    nc, lw = res["ss_nocam"], res["loader_workers"]
+    log(f"ss_nocam path: " + ", ".join(f"{t:.2f}" for t in nc["step_ms"])
+        + f" ms a step (calibrated " + ", ".join(
+            f"{t:.2f}" for t in res["ss_step_ms"]) + f"), "
+        f"{nc['syncs_per_step']} host synchronisations a step (calibrated "
+        f"{nc['given_syncs_per_step']}); pseudo-GT CLI " + ", ".join(
+            f"{k} {v['records_per_s']:.1f} records/s" for k, v in
+            res["pseudo_gt"].items()) + f"; loader routes (eval, FS "
+        f"samples/s, {lw['cpu_count']} CPUs): " + ", ".join(
+            f"{k} {v['eval']['samples_per_s']:.1f} / "
+            f"{v['fs']['samples_per_s']:.1f} (steady "
+            f"{v['eval']['steady_per_s']:.1f} / {v['fs']['steady_per_s']:.1f})"
+            for k, v in lw["rows"].items()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

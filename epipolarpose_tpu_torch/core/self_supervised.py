@@ -1,13 +1,17 @@
 """The self-supervised 3D train step: 2D teacher -> triangulate -> student.
 
-Counterpart of the JAX package's ``core/self_supervised.py`` for
-``TPU.SS_CAMERAS: given``. One step of a multi-view batch of G groups of
-V views:
+Counterpart of the JAX package's ``core/self_supervised.py``. One step of
+a multi-view batch of G groups of V views:
 
     frozen 2D teacher on the G*V clean crops (no_grad, eval mode)
       -> argmax + quarter-offset decode -> source pixels
-      -> undistortion -> confidence-weighted batched DLT (``fast``: the
-         CUDA kernel ``epk_triangulate`` on the card)
+      -> ``TPU.SS_CAMERAS: given``: undistortion -> confidence-weighted
+         batched DLT (``fast``: the CUDA kernel ``epk_triangulate`` on the
+         card) with the batch's cameras;
+         ``estimated``: the rig recovered from the detections
+         (``geometry/rig.py``: essential matrices, pose recovery, V - 1
+         two-view triangulations, then one V-view triangulation, all
+         ``fast``), no extrinsics read
       -> reprojection into each view -> integral targets (dual-crop remap
          with its left/right swap when the batch carries ``input_aug``)
       -> the student's train step (soft-argmax kernels, L1, Adam).
@@ -39,6 +43,7 @@ from epipolarpose_tpu_torch.geometry.camera import (Camera,
                                                     project_point_radial,
                                                     undistort_points,
                                                     world_to_camera_frame)
+from epipolarpose_tpu_torch.geometry.rig import pseudo_gt_uncalibrated
 from epipolarpose_tpu_torch.geometry.triangulation import triangulate
 from epipolarpose_tpu_torch.kernels.triangulate import triangulate_fast
 from epipolarpose_tpu_torch.models.pose_resnet import PoseResNet
@@ -217,12 +222,9 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
     versions to compare. ``state.model`` must be ``model`` (moved to
     ``device``).
     """
-    if str(cfg.TPU.SS_CAMERAS) == "estimated":
-        raise NotImplementedError(
-            "TPU.SS_CAMERAS: estimated (calibration-free SS) is not ported "
-            "yet: ROADMAP Queue A item 8")
-    if str(cfg.TPU.SS_CAMERAS) != "given":
-        raise ValueError(f"unknown TPU.SS_CAMERAS: {cfg.TPU.SS_CAMERAS}")
+    cameras = str(cfg.TPU.SS_CAMERAS)
+    if cameras not in ("given", "estimated"):
+        raise ValueError(f"unknown TPU.SS_CAMERAS: {cameras}")
     device = torch.device(device)
     image_size = tuple(int(v) for v in cfg.MODEL.IMAGE_SIZE)
     depth_dim = int(cfg.MODEL.EXTRA.DEPTH_DIM)
@@ -230,6 +232,8 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
     num_joints = int(cfg.MODEL.NUM_JOINTS)
     root_idx = 0
     conf_min = float(cfg.TPU.get("SS_CONF_MIN", 0.05))
+    bone_mm = float(cfg.TPU.get("SS_BONE_LENGTH_MM", 0.0))
+    bones = _h36m_bones(num_joints) if bone_mm > 0 else None
     perm = list(range(num_joints))
     for a, b in flip_pairs:
         if a < num_joints and b < num_joints:
@@ -274,12 +278,32 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
             # 2) triangulate; 3) project into each view
             det = joints_src.reshape(G, V, num_joints, 2)
             conf_gv = conf.reshape(G, V, -1)
-            x_w, res = generate_pseudo_gt(cfg, det, conf_gv, cam, solve)
-            if refiner is not None:
-                root = x_w[:, root_idx:root_idx + 1]
-                x_w = root + refiner(x_w - root)
-            x_cam = world_to_camera_frame(x_w[:, None], cam)   # (G,V,J,3)
-            px, _ = project_point_radial(x_w[:, None], cam)    # (G,V,J,2)
+            if cameras == "estimated":
+                # the rig from the detections; every group shares it, the
+                # intrinsics are group 0's; X in camera 0's frame
+                intr = cam.map(lambda t: t[0])
+                x0, p_est, res = pseudo_gt_uncalibrated(
+                    det, intr, conf=conf_gv.contiguous(), bone_pairs=bones,
+                    bone_length_mm=bone_mm if bone_mm > 0 else None,
+                    solve=solve)
+                if refiner is not None:
+                    root = x0[:, root_idx:root_idx + 1]
+                    x0 = root + refiner(x0 - root)
+                # each view's frame through the estimated [R | t], then
+                # pinhole pixels (no distortion)
+                xh = torch.cat([x0, torch.ones_like(x0[..., :1])], dim=-1)
+                x_cam = (p_est[None, :, None] * xh[:, None, :, None]).sum(-1)
+                z = x_cam[..., 2:3]
+                z = torch.where(z.abs() < 1e-6, torch.full_like(z, 1e-6), z)
+                px = (x_cam[..., :2] / z * intr.f[None, :, None]
+                      + intr.c[None, :, None])
+            else:
+                x_w, res = generate_pseudo_gt(cfg, det, conf_gv, cam, solve)
+                if refiner is not None:
+                    root = x_w[:, root_idx:root_idx + 1]
+                    x_w = root + refiner(x_w - root)
+                x_cam = world_to_camera_frame(x_w[:, None], cam)
+                px, _ = project_point_radial(x_w[:, None], cam)
             px = px.reshape(G * V, num_joints, 2)
             m = get_affine_transform(centers, scales, 0.0, image_size)
             xy_crop = affine_transform(px, m[:, None])

@@ -1,10 +1,14 @@
 """Datasets and loaders: the MPII and H36M readers, the synthetic
-datasets and rig, and the feeding pipeline.
+datasets and rig, the feeding pipeline with its worker-process loader,
+and the offline pseudo-GT merge.
 
 ``get_dataset`` mirrors the reference's ``dataset.<name>(cfg, root,
 image_set, is_train)``; normalization happens in the step, on the card.
 """
 
+from epipolarpose_tpu_torch.data.grain_pipeline import (  # noqa: F401
+    grain_epoch_loader,
+)
 from epipolarpose_tpu_torch.data.h36m import H36MDataset  # noqa: F401
 from epipolarpose_tpu_torch.data.joints_dataset import (  # noqa: F401
     IMAGENET_MEAN,
@@ -17,6 +21,9 @@ from epipolarpose_tpu_torch.data.pipeline import (  # noqa: F401
     device_prefetch,
     epoch_loader,
     host_prefetch,
+)
+from epipolarpose_tpu_torch.data.pseudo_gt import (  # noqa: F401
+    merge_pseudo_gt_into_annot,
 )
 from epipolarpose_tpu_torch.data.synthetic import (  # noqa: F401
     SyntheticMultiviewDataset,
@@ -42,7 +49,7 @@ def get_dataset(cfg, image_set: str, is_train: bool, **kwargs):
     if name == "mpi_inf_3dhp":
         raise NotImplementedError(
             "DATASET.DATASET: mpi_inf_3dhp is not ported yet (ROADMAP "
-            "Queue A item 9)")
+            "Queue A item 4)")
     if name not in _REGISTRY:
         raise ValueError(f"unknown DATASET.DATASET: {name}")
     cls = _REGISTRY[name]

@@ -21,6 +21,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from epipolarpose_tpu_torch.data.grain_pipeline import grain_epoch_loader
 from epipolarpose_tpu_torch.geometry.camera import Camera
 
 
@@ -195,20 +196,28 @@ def epoch_loader(dataset, batch_size: int, epoch: int, is_train: bool = True,
     ``multiview``: the dataset's ``view_batches`` of ``batch_size`` view
     groups (with the dual crop when training); else its ``batches``
     (shuffled and the remainder dropped when training; in order, the
-    remainder padded, otherwise). ``batch_size`` is global; with
+    remainder padded, otherwise), or with ``TPU.LOADER: grain`` in one
+    process the worker processes of
+    :func:`grain_pipeline.grain_epoch_loader` (``TPU.GRAIN_WORKERS``, -1
+    for ``WORKERS - 1``). Multiview and multi-process runs keep their
+    batches: a worker pool's shuffle would change which records a batch
+    holds with the process count. ``batch_size`` is global; with
     ``process_count`` > 1 this process decodes its slice of each batch.
     ``stats``: a dict that gets each stage's figures under ``host`` and
     ``device``.
     """
-    if str(getattr(dataset.cfg.TPU, "LOADER", "threads")) == "grain":
-        raise NotImplementedError(
-            "TPU.LOADER: grain has no counterpart in the PyTorch port "
-            "(ROADMAP Queue A item 9); use threads")
+    loader = str(getattr(dataset.cfg.TPU, "LOADER", "threads"))
     if multiview:
         it = dataset.view_batches(batch_size, seed=epoch, shuffle=is_train,
                                   augment=is_train,
                                   process_index=process_index,
                                   process_count=process_count)
+    elif loader == "grain" and process_count == 1:
+        workers = int(getattr(dataset.cfg.TPU, "GRAIN_WORKERS", -1))
+        if workers < 0:
+            workers = max(int(dataset.cfg.WORKERS) - 1, 0)
+        it = grain_epoch_loader(dataset, batch_size, epoch,
+                                is_train=is_train, worker_count=workers)
     else:
         it = dataset.batches(batch_size, seed=epoch, shuffle=is_train,
                              drop_last=is_train, process_index=process_index,

@@ -1,6 +1,6 @@
 """Geometry in float32 torch: crop affines, the H36M camera model,
-batched DLT triangulation and Procrustes alignment (elementwise
-arithmetic, never TF32)."""
+batched DLT triangulation, Procrustes alignment, epipolar geometry and
+the rig self-calibration (elementwise arithmetic, never TF32)."""
 
 from epipolarpose_tpu_torch.geometry.affine import (  # noqa: F401
     affine_transform,
@@ -22,6 +22,15 @@ from epipolarpose_tpu_torch.geometry.camera import (  # noqa: F401
     undistort_points,
     world_to_camera_frame,
 )
+from epipolarpose_tpu_torch.geometry.epipolar import (  # noqa: F401
+    decompose_essential,
+    essential_from_fundamental,
+    estimate_essential,
+    estimate_fundamental,
+    ransac_fundamental,
+    recover_pose,
+    sampson_distance,
+)
 from epipolarpose_tpu_torch.geometry.procrustes import (  # noqa: F401
     compute_similarity_transform,
     procrustes_align,
@@ -32,4 +41,8 @@ from epipolarpose_tpu_torch.geometry.triangulation import (  # noqa: F401
     triangulate,
     triangulate_dlt,
     triangulate_points,
+)
+from epipolarpose_tpu_torch.geometry.rig import (  # noqa: F401
+    estimate_rig,
+    pseudo_gt_uncalibrated,
 )

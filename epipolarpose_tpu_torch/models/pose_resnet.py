@@ -142,15 +142,28 @@ class Bottleneck(nn.Module):
         return self.relu(y + residual)
 
 
-def _deconv_padding(kernel: int) -> tuple[int, int]:
-    """(padding, output_padding) giving exact 2x upsampling."""
-    if kernel == 4:
-        return 1, 0
-    if kernel == 3:
-        return 1, 1
-    if kernel == 2:
-        return 0, 0
-    raise ValueError(f"unsupported deconv kernel {kernel}")
+class SameDeconv2d(nn.ConvTranspose2d):
+    """Stride-2 ``ConvTranspose2d`` that equals flax's
+    ``ConvTranspose(..., padding="SAME")``: exact 2x upsampling with
+    flax's alignment. k4 is torch padding 1; k2 padding 0; k3 padding 0
+    with the last row and column of the (2H + 1)-sized output dropped
+    (the original PyTorch EpipolarPose's k3, padding 1 with output padding
+    1, is the same grid shifted by one pixel). A subclass, so the weight
+    keeps its reference name ``deconv_layers.N.weight``."""
+
+    _PADDING = {4: (1, 0), 3: (0, 1), 2: (0, 0)}
+
+    def __init__(self, inplanes: int, planes: int, kernel: int,
+                 bias: bool = False):
+        if kernel not in self._PADDING:
+            raise ValueError(f"unsupported deconv kernel {kernel}")
+        pad, crop = self._PADDING[kernel]
+        super().__init__(inplanes, planes, kernel, 2, pad, 0, bias=bias)
+        self.crop = crop
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x)
+        return y[..., :-self.crop, :-self.crop] if self.crop else y
 
 
 class PoseResNet(nn.Module):
@@ -187,9 +200,8 @@ class PoseResNet(nn.Module):
         layers = []
         for i in range(num_deconv_layers):
             k, planes = num_deconv_kernels[i], num_deconv_filters[i]
-            pad, out_pad = _deconv_padding(k)
-            layers += [nn.ConvTranspose2d(inplanes, planes, k, 2, pad,
-                                          out_pad, bias=deconv_with_bias),
+            layers += [SameDeconv2d(inplanes, planes, k,
+                                    bias=deconv_with_bias),
                        _bn(planes), nn.ReLU(inplace=True)]
             inplanes = planes
         self.deconv_layers = nn.Sequential(*layers)

@@ -8,8 +8,9 @@ weights gives the last epoch's ``validate`` perf exactly (same process,
 same data, same weights); the demo's two PNGs decode. The SS route: a 2D
 teacher trained by the CLI, then the SS CLI with that teacher as
 ``MODEL.PRETRAINED`` (its backbone merged into the student, the head
-skipped) and a refiner from ``train_refiner`` as ``TPU.SS_REFINER``.
-Refused: ``--device cuda`` without a card, ``--distributed``,
+skipped) and a refiner from ``train_refiner`` as ``TPU.SS_REFINER``;
+the calibration-free debug config (``TPU.SS_CAMERAS: estimated``)
+through ``train``. Refused: ``--device cuda`` without a card, ``--distributed``,
 ``TPU.FUSED_STEPS > 1``.
 """
 
@@ -146,6 +147,29 @@ def test_ss_route_with_a_trained_teacher_and_refiner(tmp_path):
     moved = (ss["state"].model.conv1.weight.detach()
              - teacher_sd["conv1.weight"]).abs().max().item()
     assert moved < 0.01
+
+
+def test_nocam_config_takes_the_estimated_rig(tmp_path, monkeypatch):
+    """``experiments/debug/synth_smoke_ss_nocam.yaml`` (``SS_CAMERAS:
+    estimated``, a random teacher) through ``scripts.train``: every SS
+    step recovers the rig from the detections, and the run ends with a
+    finite loss and perf."""
+    from epipolarpose_tpu_torch.core import self_supervised as tss
+    calls = []
+    real = tss.pseudo_gt_uncalibrated
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs.get("solve"))
+        return real(*args, **kwargs)
+    monkeypatch.setattr(tss, "pseudo_gt_uncalibrated", counted)
+    with quiet_cli():
+        ss = train.main(["--cfg", str(ROOT / "experiments/debug/"
+                                      "synth_smoke_ss_nocam.yaml"),
+                         "--synthetic", "--samples", "16", "--epochs", "1"]
+                        + _common(tmp_path))
+    assert ss["state"].step == 2             # 4 frames, 2 groups a step
+    assert len(calls) == 2
+    assert np.isfinite(ss["loss"]) and np.isfinite(ss["perf"])
 
 
 def test_device_cuda_without_a_card_raises(tmp_path):

@@ -339,22 +339,42 @@ def same_records(multiview):
 
 
 @pytest.mark.parametrize("mode", ["batches_train", "batches_eval",
-                                  "view_batches", "view_batches_augment"])
+                                  "view_batches", "view_batches_augment",
+                                  "view_batches_augment_teacher_half"])
 def test_synthetic_multiview_batches_match_jax(mode, same_records):
+    """Equal bits, but for the ``SS_TEACHER_SCALE`` 0.5 teacher crop:
+    ``resize_bilinear_u8`` is within one grey level of OpenCV's resize
+    (ROADMAP Queue C), on under 2% of the pixels."""
     jd, td = same_records
+    half = mode.endswith("teacher_half")
+    mode = mode.replace("_teacher_half", "")
     for ds in (jd, td):
         ds.is_train = mode.endswith(("train", "augment"))
-    if mode.startswith("batches"):
-        kw = dict(seed=4, drop_last=False)
-        pairs = zip(jd.batches(5, **kw), td.batches(5, **kw))
-    else:
-        kw = dict(seed=5, augment=mode.endswith("augment"))
-        pairs = zip(jd.view_batches(2, **kw), td.view_batches(2, **kw))
-    n = 0
+        ds.cfg.TPU.SS_TEACHER_SCALE = 0.5 if half else 1.0
+    try:
+        if mode.startswith("batches"):
+            kw = dict(seed=4, drop_last=False)
+            pairs = list(zip(jd.batches(5, **kw), td.batches(5, **kw)))
+        else:
+            kw = dict(seed=5, augment=mode.endswith("augment"))
+            pairs = list(zip(jd.view_batches(2, **kw),
+                             td.view_batches(2, **kw)))
+    finally:
+        for ds in (jd, td):
+            ds.cfg.TPU.SS_TEACHER_SCALE = 1.0
+    off = []
     for a, b in pairs:
+        if half:
+            assert b["input"].shape == a["input"].shape == (2, 4, 32, 32, 3)
+            d = np.abs(b["input"].astype(int) - a["input"])
+            assert d.max() <= 1
+            off.append((d > 0).mean())
+            a = {k: v for k, v in a.items() if k != "input"}
+            b = {k: v for k, v in b.items() if k != "input"}
         _assert_batches_equal(a, b)
-        n += 1
-    assert n == (5 if mode.startswith("batches") else 3)
+    assert len(pairs) == (5 if mode.startswith("batches") else 3)
+    if half:
+        assert max(off) < 0.02, off
     if mode == "view_batches_augment":
         assert b["aug_flip"].any() and not b["aug_flip"].all()
         assert isinstance(b["camera"], th36m.Camera)
@@ -452,7 +472,7 @@ def test_registry():
     ds = get_dataset(tcfg, "valid", False, num_frames=2)
     assert isinstance(ds, tsyn.SyntheticMultiviewDataset) and len(ds) == 8
     tcfg.DATASET.DATASET = "mpi_inf_3dhp"
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         get_dataset(tcfg, "valid", False)
     tcfg.DATASET.DATASET = "nope"
     with pytest.raises(ValueError):

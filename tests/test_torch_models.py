@@ -132,3 +132,39 @@ def test_bf16_forward_keeps_bf16_output():
     with torch.no_grad():
         out = model(torch.zeros((1, 3, 32, 32)))
     assert out.dtype == torch.bfloat16 and out.shape == (1, 4, 8, 8)
+
+
+@pytest.mark.parametrize("kernel", [2, 3, 4])
+def test_deconv_head_matches_flax_at_each_kernel(rng, kernel):
+    """The deconv head at kernel 2, 3 and 4 against flax's ConvTranspose
+    (``padding="SAME"``), weights through the bridge and loaded with
+    ``strict=True``. Same tolerance as the forward test above."""
+    kw = dict(num_joints=3, depth_dim=2, num_deconv_filters=(16, 16, 16),
+              num_deconv_kernels=(kernel,) * 3)
+    jmodel = JaxPoseResNet(num_layers=18, dtype=jnp.float32, **kw)
+    variables = _perturbed_variables(jmodel, rng, size=32)
+    x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    want = np.asarray(jmodel.apply(variables, x, train=False))
+    model = _port_model(18, variables, **kw)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
+    got = got.permute(0, 2, 3, 1).numpy()
+    assert got.shape == want.shape == (2, 8, 8, 6)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+
+
+def test_k3_head_state_dict_round_trips_strict():
+    """A kernel-3 head keeps the reference state-dict names: its own
+    state_dict loads into a fresh model with ``strict=True``."""
+    kw = dict(num_layers=18, num_joints=2, depth_dim=2,
+              num_deconv_filters=(8, 8, 8), num_deconv_kernels=(3, 3, 3),
+              dtype=torch.float32)
+    src = PoseResNet(**kw).init_weights(torch.Generator().manual_seed(0))
+    dst = PoseResNet(**kw)
+    dst.load_state_dict(src.state_dict(), strict=True)
+    assert "deconv_layers.0.weight" in dst.state_dict()
+    x = torch.randn((1, 3, 32, 32), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        torch.testing.assert_close(dst.eval()(x), src.eval()(x), rtol=0,
+                                   atol=0)

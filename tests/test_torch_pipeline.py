@@ -36,6 +36,7 @@ from epipolarpose_tpu_torch.config import load_config
 from epipolarpose_tpu_torch.core import function as tfunction
 from epipolarpose_tpu_torch.core.steps import make_eval_step
 from epipolarpose_tpu_torch.data import get_dataset
+from epipolarpose_tpu_torch.data.grain_pipeline import grain_epoch_loader
 from epipolarpose_tpu_torch.data.pipeline import (device_prefetch,
                                                   epoch_loader, host_prefetch)
 from epipolarpose_tpu_torch.geometry.camera import Camera
@@ -100,10 +101,168 @@ def test_epoch_loader_on_cpu_equals_the_dataset(mode):
 
 
 def test_epoch_loader_refuses_grain():
+    """(The name is historical: the port used to refuse the setting.)
+    ``TPU.LOADER: grain`` now feeds ``epoch_loader`` from the worker
+    loader: an eval epoch gives the ``threads`` loader's bits."""
+    ds = _dataset("synthetic")
+    want = list(ds.batches(8, seed=0, shuffle=False, drop_last=False))
+    ds.cfg.TPU.LOADER = "grain"
+    ds.cfg.TPU.GRAIN_WORKERS = 0
+    got = list(epoch_loader(ds, 8, epoch=0, is_train=False, device="cpu"))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        _assert_equal(g, w)
+
+
+# ------------------------------------------------- the worker-process loader
+def _numpy_batches(batches):
+    return [{k: np.asarray(v) for k, v in b.items()} for b in batches]
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_grain_eval_batches_equal_jax_grain(workers):
+    """Eval: the records in order, the tail padded with the last one, bit
+    for bit the JAX package's grain loader (``worker_count=0``), with the
+    port's loader in this process or in two worker processes."""
+    from epipolarpose_tpu.data.grain_pipeline import (
+        grain_epoch_loader as jax_grain)
+    jds = _dataset("synthetic", jax_load_config, jax_get_dataset)
+    ds = _dataset("synthetic")
+    want = _numpy_batches(jax_grain(jds, 8, 3, is_train=False,
+                                    worker_count=0))
+    got = list(grain_epoch_loader(ds, 8, 3, is_train=False,
+                                  worker_count=workers))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+    np.testing.assert_array_equal(got[-1]["index"],
+                                  [16, 17, 18, 19, 19, 19, 19, 19])
+
+
+_WORKER_RUN = """
+import sys
+from multiprocessing import forkserver, resource_tracker
+from epipolarpose_tpu_torch.config import load_config
+from epipolarpose_tpu_torch.data import get_dataset
+from epipolarpose_tpu_torch.data.grain_pipeline import grain_epoch_loader
+if __name__ == "__main__":
+    cfg = load_config(sys.argv[1])
+    ds = get_dataset(cfg, "valid", False, num_samples=8,
+                     image_shape=(64, 64))
+    assert len(list(grain_epoch_loader(ds, 4, 0, False, 2))) == 2
+    print(forkserver._forkserver._forkserver_pid,
+          resource_tracker._resource_tracker._pid)
+"""
+
+
+def test_grain_workers_leave_no_process_behind(tmp_path):
+    """A process that ran an epoch with workers leaves none of the
+    loader's processes behind when it exits: the ``forkserver`` and its
+    resource tracker are stopped at exit and waited for (left alone, the
+    server outlived its parent by seconds)."""
+    import os
+    import subprocess
+    import sys
+    script = tmp_path / "run.py"
+    script.write_text(_WORKER_RUN)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, str(script), str(DEBUG_3D)],
+                       capture_output=True, text=True, timeout=240, env=env,
+                       cwd=tmp_path)
+    assert r.returncode == 0, r.stderr[-2000:]
+    pids = [int(p) for p in r.stdout.split()]
+    assert len(pids) == 2 and all(p > 0 for p in pids), r.stdout
+    left = [p for p in pids if pathlib.Path(f"/proc/{p}").exists()]
+    assert not left, f"still running after the run exited: {left}"
+
+
+def test_grain_train_samples_equal_jax_per_record():
+    """Train: each side shuffles its own way (grain's index sampler, a
+    torch generator seeded by the epoch) and drops the tail; a record's
+    sample is the same bits wherever it lands, and another epoch draws
+    other augmentations."""
+    from epipolarpose_tpu.data.grain_pipeline import (
+        grain_epoch_loader as jax_grain)
+    jds = _dataset("synthetic", jax_load_config, jax_get_dataset)
+    ds = _dataset("synthetic")
+    for d in (jds, ds):
+        d.is_train = True
+
+    def by_record(batches):
+        out = {}
+        for b in batches:
+            for r, i in enumerate(b["index"]):
+                out[int(i)] = {k: v[r] for k, v in b.items()}
+        return out
+
+    want = by_record(_numpy_batches(jax_grain(jds, 8, 5, is_train=True)))
+    got_batches = list(grain_epoch_loader(ds, 8, 5, is_train=True))
+    assert len(got_batches) == 2 and all(len(b["index"]) == 8
+                                         for b in got_batches)
+    got = by_record(got_batches)
+    assert len(got) == len(want) == 16
+    shared = sorted(set(got) & set(want))
+    assert len(shared) >= 12
+    for i in shared:
+        for k in want[i]:
+            np.testing.assert_array_equal(got[i][k], want[i][k],
+                                          err_msg=f"record {i} {k}")
+    again = list(grain_epoch_loader(ds, 8, 5, is_train=True))
+    other = by_record(grain_epoch_loader(ds, 8, 6, is_train=True))
+    for a, b in zip(again, got_batches):
+        np.testing.assert_array_equal(a["index"], b["index"])
+    i = sorted(set(got) & set(other))[0]
+    assert not np.array_equal(got[i]["input"], other[i]["input"])
+
+
+@pytest.mark.parametrize("grain_workers,workers,want", [(-1, 3, 2),
+                                                        (-1, 0, 0),
+                                                        (4, 3, 4), (0, 8, 0)])
+def test_grain_worker_count_rule(monkeypatch, grain_workers, workers, want):
+    """``TPU.GRAIN_WORKERS`` -1 means ``WORKERS - 1`` (at least 0), as in
+    the JAX ``epoch_loader``."""
+    from epipolarpose_tpu_torch.data import pipeline
+    seen = []
+
+    def fake(dataset, batch_size, epoch, is_train=True, worker_count=0):
+        seen.append(worker_count)
+        return iter(())
+    monkeypatch.setattr(pipeline, "grain_epoch_loader", fake)
     ds = _dataset("synthetic")
     ds.cfg.TPU.LOADER = "grain"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        epoch_loader(ds, 8, epoch=0, device="cpu")
+    ds.cfg.TPU.GRAIN_WORKERS = grain_workers
+    ds.cfg.WORKERS = workers
+    assert list(epoch_loader(ds, 8, 0, device="cpu")) == []
+    assert seen == [want]
+
+
+@pytest.mark.parametrize("route", ["multiview", "two_processes"])
+def test_grain_falls_through_as_in_jax(monkeypatch, route):
+    """Multiview batches and multi-process runs keep the dataset's own
+    batches under ``TPU.LOADER: grain`` (JAX ``pipeline.py:205-223``)."""
+    from epipolarpose_tpu_torch.data import pipeline
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("took the grain route")
+    monkeypatch.setattr(pipeline, "grain_epoch_loader", refuse)
+    if route == "multiview":
+        ds = _dataset("synthetic_multiview")
+        ds.cfg.TPU.LOADER = "grain"
+        got = list(epoch_loader(ds, 3, 2, is_train=False, device="cpu",
+                                multiview=True))
+        want = list(ds.view_batches(3, seed=2, shuffle=False))
+    else:
+        ds = _dataset("synthetic")
+        ds.cfg.TPU.LOADER = "grain"
+        got = list(epoch_loader(ds, 8, 2, is_train=True, device="cpu",
+                                process_index=1, process_count=2))
+        want = list(ds.batches(8, seed=2, shuffle=True, drop_last=True,
+                               process_index=1, process_count=2))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        _assert_equal(g, w)
 
 
 @pytest.mark.parametrize("stage", ["host", "device"])

@@ -213,7 +213,7 @@ def _grad64(model, caught):
     return {n: p.grad.float() for n, p in twin.named_parameters()}
 
 
-def _check_metrics(run, residual_finite=True):
+def _check_metrics(run, residual_finite=True, residual_atol=1e-4):
     for k, (got, want) in enumerate(run["metrics"]):
         assert sorted(got) == sorted(want) == ["loss", "teacher_conf",
                                                "tri_residual"]
@@ -223,7 +223,8 @@ def _check_metrics(run, residual_finite=True):
         np.testing.assert_allclose(got["teacher_conf"], want["teacher_conf"],
                                    rtol=1e-6)
         np.testing.assert_allclose(got["tri_residual"], want["tri_residual"],
-                                   rtol=0, atol=1e-4, equal_nan=True)
+                                   rtol=0, atol=residual_atol,
+                                   equal_nan=True)
         assert np.isfinite(got["tri_residual"]) == residual_finite
 
 
@@ -371,6 +372,162 @@ def test_flip_pairs_change_the_dual_crop_targets():
                                       detect_fn=detect, flip_pairs=pairs)
         losses.append(step(state, batch)[1]["loss"].item())
     assert losses[0] != losses[1]
+
+
+# ------------------------------ calibration-free: SS_CAMERAS estimated
+BONE_MM = 250.0
+
+
+def _estimated_batch(ds, seed):
+    """The dataset's first batch with undistorted cameras (the estimated
+    path assumes ideal pinholes), noise crops, and the detections of the
+    undistorted rig: (batch, (G*V, J, 2) source pixels)."""
+    from epipolarpose_tpu.geometry import project_point_radial
+    batch = _noise_crops(next(ds.view_batches(G, shuffle=False)), seed)
+    batch.pop("joints_3d")
+    cam = batch["camera"]
+    batch["camera"] = cam.replace(k=np.zeros_like(np.asarray(cam.k)),
+                                  p=np.zeros_like(np.asarray(cam.p)))
+    rig = [c.replace(k=np.zeros(3, np.float32), p=np.zeros(2, np.float32))
+           for c in ds.rig]
+    det = np.stack([np.asarray(project_point_radial(
+        ds.records[i].meta["pose_world"][None],
+        rig[int(ds.records[i].meta["camera"])])[0])[0]
+        for g in ds.view_groups[:G] for i in g]).astype(np.float32)
+    return batch, det
+
+
+def _jax_estimated_targets(cfg, batch, det, conf, refine):
+    """JAX's targets of the estimated route, by the JAX package's own
+    functions in the order its step applies them."""
+    from epipolarpose_tpu.geometry import affine_transform, \
+        get_affine_transform
+    from epipolarpose_tpu.geometry.rig import pseudo_gt_uncalibrated
+    from epipolarpose_tpu.ops import generate_integral_target
+    intr = jax.tree.map(lambda x: x[0], batch["camera"])
+    x0, p, _ = pseudo_gt_uncalibrated(
+        jnp.asarray(det.reshape(G, V, J, 2)), intr,
+        conf=jnp.asarray(conf.reshape(G, V, J)),
+        bone_pairs=jss._h36m_bones(J), bone_length_mm=BONE_MM)
+    root = x0[:, :1]
+    x0 = root + refine(x0 - root)
+    xh = jnp.concatenate([x0, jnp.ones_like(x0[..., :1])], -1)
+    xc = jnp.einsum("vij,gnj->gvni", p, xh)
+    px = xc[..., :2] / xc[..., 2:3] * intr.f[None, :, None] \
+        + intr.c[None, :, None]
+    centers = batch["center"].reshape(G * V, 2)
+    scales = batch["scale"].reshape(G * V, 2)
+    m = get_affine_transform(centers, scales, 0.0,
+                             tuple(cfg.MODEL.IMAGE_SIZE))
+    xy = affine_transform(px.reshape(G * V, J, 2), m[:, None])
+    z = xc[..., 2].reshape(G * V, J)
+    target, tw = generate_integral_target(
+        xy, jnp.ones((G * V, J)), tuple(cfg.MODEL.IMAGE_SIZE),
+        depth_bound=float(cfg.MODEL.EXTRA.get("DEPTH_BOUND", 1000.0)),
+        joints_depth=z - z[:, :1])
+    # the bone scale: the unit (0, 1) baseline's length in mm
+    return np.asarray(target), np.asarray(tw), float(
+        jnp.linalg.norm(p[1, :, 3]))
+
+
+@pytest.fixture(scope="module")
+def estimated_run():
+    """The estimated route against JAX: perfect detections of an
+    undistorted rig, confidences in [0.5, 1] (the essential matrices and
+    the last triangulation weigh them), ``SS_BONE_LENGTH_MM`` 250 (the
+    pseudo-GT in mm), a refiner, 3 steps on one batch.
+
+    The port runs with oneDNN off: on this batch oneDNN's float32
+    convolution backward on the CPU puts layer4.0.conv2's gradient 2.6e-2
+    of its largest entry from the float64 one (2.6x the docstring's
+    bound), PyTorch's own CPU convolution 4.7e-6, and JAX's 1.9e-5. The
+    card runs cuDNN, so the CPU library's rounding is no property of the
+    port."""
+    tpu = dict(SS_CAMERAS="estimated", SS_CONF_MIN=-1.0,
+               SS_BONE_LENGTH_MM=BONE_MM)
+    jcfg, tcfg = _configs(**tpu)
+    ds = _dataset(jcfg)
+    batch, det = _estimated_batch(ds, 7)
+    conf = np.random.default_rng(8).uniform(
+        0.5, 1.0, det.shape[:-1]).astype(np.float32)
+    shift = np.array([5.0, -3.0, 2.0], np.float32)
+    jmodel, jstate, model, tstate = _students(jcfg, tcfg, seed=3)
+    jstep = jss.make_ss_train_step(
+        jcfg, jmodel, None, donate=False,
+        detect_fn=jss.make_gt_teacher(det, conf),
+        refiner=lambda p: p * 0.95 + jnp.asarray(shift))
+    tstep = tss.make_ss_train_step(
+        tcfg, model, None, device="cpu",
+        detect_fn=tss.make_gt_teacher(det, conf),
+        refiner=lambda p: p * 0.95 + torch.tensor(shift))
+    caught = {}
+    update = tss.integral_update
+
+    def catch(state, model, x, target, tw, *args):
+        caught.setdefault("target", target.clone())
+        caught.setdefault("tw", tw.clone())
+        return update(state, model, x, target, tw, *args)
+
+    tss.integral_update = catch
+    try:
+        with torch.backends.mkldnn.flags(enabled=False):
+            run = _run(jstep, jstate, tstep, tstate, [batch] * N_STEPS)
+    finally:
+        tss.integral_update = update
+    run["target"] = caught
+    run["jax_target"] = _jax_estimated_targets(
+        jcfg, batch, det, conf, lambda p: p * 0.95 + jnp.asarray(shift))
+    return run
+
+
+def test_estimated_route_matches_jax(estimated_run):
+    """Targets within 1e-4 (normalized crop units and depth over
+    ``DEPTH_BOUND``; both float32), loss, gradients and weights as the
+    other routes (module docstring), and the loss falls as in
+    ``test_ss_step_estimated_cameras``. The residual is that of unit-row
+    systems times the bone scale s (the unit baseline in mm, ~6.4e3 here),
+    so its 1e-4 becomes 1e-4 * s (measured 2.8e-4 apart: float32 rounding
+    of exact detections, 2.2e-3 and 2.5e-3)."""
+    run = estimated_run
+    want, wtw, scale = run["jax_target"]
+    got = run["target"]["target"].numpy()
+    assert got.shape == want.shape == (G * V, J, 3)
+    assert np.abs(want[..., 2]).max() > 1e-2      # depths in mm, not ~0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(run["target"]["tw"].numpy(), wtw)
+    assert 1e3 < scale < 1e5
+    _check_metrics(run, residual_atol=1e-4 * scale)
+    _check_weights(run)
+    losses = [g["loss"] for g, _ in run["metrics"]]
+    assert losses[0] > 0 and losses[-1] < losses[0], losses
+
+
+def test_estimated_route_launches_through_solve():
+    """With a counting ``solve``, one estimated step triangulates V - 1
+    two-view sets of G*J points with a shared P (2, 3, 4), then the G x V
+    x J set with the estimated P (V, 3, 4): four calls, every argument
+    contiguous float32 (what the kernel takes)."""
+    jcfg, tcfg = _configs(SS_CAMERAS="estimated", SS_CONF_MIN=-1.0)
+    ds = _dataset(jcfg)
+    batch, det = _estimated_batch(ds, 9)
+    calls = []
+
+    def solve(pts, p, w):
+        for t in (pts, p, w):
+            assert t is None or (t.dtype == torch.float32
+                                 and t.is_contiguous())
+        calls.append((tuple(pts.shape), tuple(p.shape), w is not None))
+        return tss.triangulate_fast(pts, p, w)
+
+    model = get_pose_net(tcfg, generator=torch.Generator().manual_seed(0))
+    state = create_train_state(tcfg, model, 10, device="cpu")
+    step = tss.make_ss_train_step(tcfg, model, None, device="cpu",
+                                  detect_fn=tss.make_gt_teacher(det),
+                                  solve=solve)
+    _, metrics = step(state, port_batch(batch))
+    assert calls == [((G * J, 2, 1, 2), (2, 3, 4), False)] * (V - 1) + [
+        ((G, V, J, 2), (V, 3, 4), True)]
+    assert metrics["loss"].item() > 0
 
 
 # ----------------------------------------------------- the teacher route
@@ -533,8 +690,15 @@ def test_pseudo_gt_from_gt_detections_recovers_3d():
 
 
 def test_estimated_cameras_are_not_ported():
-    _, tcfg = _configs(SS_CAMERAS="estimated")
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    """(The name is historical: the port used to refuse the estimated
+    rig.) ``estimated`` and ``given`` build a step; any other
+    ``TPU.SS_CAMERAS`` raises."""
+    for cameras in ("estimated", "given"):
+        _, tcfg = _configs(SS_CAMERAS=cameras)
+        assert callable(tss.make_ss_train_step(tcfg, torch.nn.Identity(),
+                                               None, device="cpu"))
+    _, tcfg = _configs(SS_CAMERAS="guessed")
+    with pytest.raises(ValueError, match="SS_CAMERAS"):
         tss.make_ss_train_step(tcfg, torch.nn.Identity(), None,
                                device="cpu")
 
