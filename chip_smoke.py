@@ -106,7 +106,26 @@ card, then drives the port's paths through their entry points:
    whole epoch, the seconds to its first batch and the rate from the
    loader's second round on; every eval batch equal to the ``threads``
    route's, ``os.cpu_count()``;
-18. no process left: every process this script started has ended but
+18. JPEG data: the port's own decoder (``native/jpegdec.cpp``, built by
+   one ``g++`` call; the card's machine has neither libjpeg's headers nor
+   OpenCV) on every fixture of ``tests/data/jpeg`` against the sha256 of
+   libjpeg-turbo's decode in its manifest, the progressive fixture
+   refused with its mode named; ms a decode of the 2048 x 2048, 1920 x
+   1080 and 1000 x 1000 frames, and the rate on 1, 2, 4 and 8 threads;
+   ``demo --image`` on the 2048 x 2048 frame at ResNet-50@256;
+19. the H36M -> MPI-INF-3DHP transfer evaluation through the ``valid``
+   CLI (``experiments/h36m/valid_3dhp_transfer.yaml`` unchanged,
+   ``--dataDir`` at a tree of 2 x 129 frames: 256 records, 4 batches of
+   64) with phase 13's FS weights: ``evaluate`` on perfect predictions
+   (PCK3D 100, AUC above 95, MPJPE under 0.5 mm), the CLI's perf in [0,
+   100], every frame through the port's decoder and none through OpenCV,
+   validation samples/s and the loader's stage shares, one soft-argmax
+   launch a batch;
+20. ``ops/warp.py``: 64 rotation-free 256 x 256 crops of 1000 x 1000
+   frames on the card against the CPU and ``imgproc``'s numpy crops,
+   the separable warp's bits with TF32 allowed and not, card ms beside
+   the host's numpy ms;
+21. no process left: every process this script started has ended but
    the worker loader's ``forkserver`` and its resource tracker, and those
    two end when ``stop_worker_server`` stops them.
 
@@ -145,6 +164,7 @@ PHASE_LIMITS = {"build": 120.0, "softargmax": 30.0, "matmul_stats": 60.0,
                 "pose2d_data": 60.0, "image_libs": 1.0, "cli": 300.0,
                 "ss_convergence": 120.0, "ss_nocam": 150.0,
                 "pseudo_gt": 120.0, "loader_workers": 360.0,
+                "jpeg": 15.0, "mpi3dhp": 30.0, "warp": 15.0,
                 "processes": 30.0}
 
 # H36M left/right joint pairs (the JAX package's data/h36m.py FLIP_PAIRS)
@@ -2008,7 +2028,7 @@ def cli_workflow(res: dict, tmp: pathlib.Path) -> None:
                      restore_s=restore_s, checkpoint_bytes=ckpt_bytes,
                      final_bytes=final_bytes, step_rates=fs_steps,
                      eval_rates=fs_evals, wall_s=paths["cli_fs"]["wall_s"])
-    final = resumed["final"]
+    final = res["cli_fs_final"] = resumed["final"]
     del fs, resumed
 
     # 3. validate the saved weights: in this process, the CLI, a subprocess
@@ -2421,6 +2441,283 @@ def phase_loader_workers(res: dict) -> None:
         + "; every route's eval batches equal to threads'")
 
 
+# ------------------------------------------ JPEG data, 3DHP, the warp
+JPEG_FIXTURES = ROOT / "tests" / "data" / "jpeg"
+# the three frame fixtures: MPI-INF-3DHP studio and outdoor, H36M
+JPEG_FRAMES = ("3dhp_studio_2048x2048.jpg", "3dhp_outdoor_1920x1080.jpg",
+               "h36m_1000x1000.jpg")
+JPEG_REPS, JPEG_THREADS, JPEG_ROUNDS = 10, (1, 2, 4, 8), 16
+# the 3DHP tree: 2 sequences of 129 frames, the last of each invalid: 256
+# records, 4 batches of 64
+MPI3DHP_FRAMES = 129
+WARP_CROPS = 64
+
+
+def jpeg_manifest() -> dict:
+    return json.loads((JPEG_FIXTURES / "manifest.json").read_text())
+
+
+def phase_jpeg(res: dict) -> None:
+    """The port's JPEG decoder on the card's host: every fixture's decode
+    against the sha256 of libjpeg-turbo's (the manifest), the refused mode
+    named, ms a frame at the three dataset sizes, the rate on 1-8
+    threads, then ``demo --image`` on the 2048 x 2048 frame at full
+    width."""
+    import hashlib
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from epipolarpose_tpu_torch.data import fastloader, jpeg
+    from epipolarpose_tpu_torch.scripts import demo
+    t0 = time.perf_counter()
+    check(jpeg.available(), f"JPEG decoder: {jpeg.build_error()}")
+    build_s = time.perf_counter() - t0
+    manifest = jpeg_manifest()
+    refused = {}
+    for name, entry in manifest.items():
+        buf = (JPEG_FIXTURES / name).read_bytes()
+        if entry["mode"].startswith("refused"):
+            try:
+                jpeg.decode(buf)
+            except jpeg.UnsupportedJpeg as e:
+                refused[name] = e.mode
+                check(e.mode in entry["mode"], f"{name} refused as {e.mode}")
+                continue
+            check(False, f"{name} decoded; it should be refused")
+        rgb = jpeg.decode(buf)
+        check(hashlib.sha256(rgb.tobytes()).hexdigest() == entry["rgb_sha256"]
+              and rgb.shape == (entry["height"], entry["width"], 3),
+              f"{name}: the decode differs from libjpeg-turbo's")
+    bufs = [(JPEG_FIXTURES / n).read_bytes() for n in JPEG_FRAMES]
+    ms = {}
+    for name, buf in zip(JPEG_FRAMES, bufs):
+        jpeg.decode(buf)
+        times = []
+        for _ in range(JPEG_REPS):
+            t = time.perf_counter()
+            jpeg.decode(buf)
+            times.append((time.perf_counter() - t) * 1e3)
+        ms[name] = dict(median=sorted(times)[len(times) // 2],
+                        min=min(times), bytes=len(buf))
+    threads = {}
+    work = bufs * JPEG_ROUNDS
+    for n in JPEG_THREADS:
+        with ThreadPoolExecutor(n) as pool:
+            t = time.perf_counter()
+            list(pool.map(jpeg.decode, work))
+            dt = time.perf_counter() - t
+        threads[n] = dict(frames_per_s=len(work) / dt,
+                          mpix_per_s=sum(
+                              manifest[f]["width"] * manifest[f]["height"]
+                              for f in JPEG_FRAMES) * JPEG_ROUNDS / dt / 1e6)
+    for n in JPEG_THREADS:
+        threads[n]["speedup"] = (threads[n]["frames_per_s"]
+                                 / threads[1]["frames_per_s"])
+    check(not fastloader.available(),
+          "the native loader is built here: imread would not take the "
+          "port's decoder")
+    with tempfile.TemporaryDirectory(prefix="epk_demo_") as tmp:
+        jpeg.reset_count()
+        c = res["paths"]["jpeg_demo"] = {}
+        shown = run_cli(demo.main, [
+            "--cfg", str(ROOT / "experiments/h36m/valid_r50_256_integral.yaml"),
+            "--image", str(JPEG_FIXTURES / JPEG_FRAMES[0]), "--out", tmp], c)
+        check(jpeg.decode_count() == 1, f"demo decoded "
+              f"{jpeg.decode_count()} JPEGs with the port's decoder")
+        check(c["softargmax_fwd"] == 1, f"demo launched {c}")
+        check_png(shown["files"][0], (258, 258))
+        check(bool(np.isfinite(shown["pose3d"]).all()), "demo pose")
+    loaded = [m for m in IMAGE_LIBS if m in sys.modules]
+    check(not loaded, f"the JPEG path imported {loaded}")
+    res["jpeg"] = dict(build_s=build_s, ms=ms, threads=threads,
+                       refused=refused, demo_wall_s=c["wall_s"])
+    log(f"[jpeg] {len(manifest) - len(refused)} fixtures decode to "
+        f"libjpeg-turbo's sha256 on this host, "
+        + ", ".join(f"{k} refused ({v})" for k, v in refused.items())
+        + f"; build {build_s:.2f} s; ms a decode (median / min of "
+        f"{JPEG_REPS}): " + ", ".join(
+            f"{k} {v['median']:.2f} / {v['min']:.2f} ({v['bytes']} bytes)"
+            for k, v in ms.items())
+        + f"; the three frames x {JPEG_ROUNDS} on threads: " + ", ".join(
+            f"{n}: {v['frames_per_s']:.1f} frames/s, {v['mpix_per_s']:.1f} "
+            f"Mpix/s (x{v['speedup']:.2f})" for n, v in threads.items())
+        + f" ({os.cpu_count()} CPUs); demo --image {JPEG_FRAMES[0]} at "
+        f"ResNet-50@256 in {c['wall_s']:.2f} s, one decode, one launch")
+
+
+def phase_mpi3dhp(res: dict) -> None:
+    """The H36M -> 3DHP transfer evaluation through the ``valid`` CLI at
+    full width on a 3DHP tree (annotations from
+    ``write_synthetic_3dhp``, the 2048 x 2048 fixture as every TS1 frame
+    and the 1920 x 1080 one as every TS2 frame: the pixels do not match
+    the poses; this checks the route and its rate), with phase 13's FS
+    weights: every frame through the port's decoder, none through
+    OpenCV."""
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import epipolarpose_tpu_torch.data as data_pkg
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.data import fastloader, jpeg
+    from epipolarpose_tpu_torch.data.mpi3dhp import (H36M_TO_3DHP,
+                                                     MPI3DHPDataset,
+                                                     write_synthetic_3dhp)
+    from epipolarpose_tpu_torch.scripts import valid
+    src = ROOT / "experiments/h36m/valid_3dhp_transfer.yaml"
+    cfg = load_config(src)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="epk_3dhp_"))
+    try:
+        tree = tmp / cfg.DATASET.ROOT
+        write_synthetic_3dhp(str(tree), num_frames=MPI3DHP_FRAMES, seed=7)
+        for ts, frame in ((1, JPEG_FRAMES[0]), (2, JPEG_FRAMES[1])):
+            seq = tree / f"TS{ts}" / "imageSequence"
+            for f in range(MPI3DHP_FRAMES):
+                shutil.copyfile(JPEG_FIXTURES / frame,
+                                seq / f"img_{f + 1:06d}.jpg")
+        cfg.DATASET.ROOT = str(tree)
+        ds = MPI3DHPDataset(cfg, str(tree), "test", is_train=False)
+        n = len(ds)
+        check(n == 4 * EVAL_BATCH, f"{n} records")
+        # perfect predictions in the model's H36M order
+        inv = np.argsort(np.asarray(H36M_TO_3DHP))
+        perfect = np.stack([np.concatenate([
+            r.joints, (r.joints_3d[:, 2] - r.joints_3d[ds.root_idx, 2])[
+                :, None]], -1)[inv] for r in ds.records]).astype(np.float32)
+        nv, pck = ds.evaluate(cfg, perfect)
+        check(pck == 100.0 and nv["AUC"] > 95.0 and nv["MPJPE"] < 0.5,
+              f"evaluate on perfect predictions gave {nv}")
+
+        check(not fastloader.available(), "the native loader is built here")
+        stats = {}
+        loader = data_pkg.epoch_loader
+
+        def with_stats(*a, **k):             # the CLI's loader, measured
+            return loader(*a, stats=stats, **k)
+        data_pkg.epoch_loader = with_stats
+        jpeg.reset_count()
+        c = res["paths"]["mpi3dhp"] = {}
+        try:
+            perf = run_cli(valid.main, [
+                "--cfg", str(src), "--dataDir", str(tmp), "--model-file",
+                res["cli_fs_final"], "--modelDir", str(tmp / "out"),
+                "--logDir", str(tmp / "log")], c)
+        finally:
+            data_pkg.epoch_loader = loader
+        decoded = jpeg.decode_count()
+        text = "".join(p.read_text() for p in
+                       (tmp / "out").rglob("*_valid.log"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    m = re.search(r"validate: (\d+) samples in ([\d.]+)s \(([\d.]+) "
+                  r"samples/s\)", text)
+    check(m is not None, "the valid log has no validate line")
+    seen, val_s, rate = int(m.group(1)), float(m.group(2)), float(m.group(3))
+    check(math.isfinite(perf) and 0.0 <= perf <= 100.0,
+          f"3DHP perf {perf}")
+    check(seen == n and decoded == n,
+          f"{seen} samples validated, {decoded} frames through the port's "
+          f"decoder, {n} records")
+    check(c["softargmax_fwd"] == n // EVAL_BATCH and c["softargmax_bwd"]
+          == c["triangulate"] == c["matmul_stats"] == 0,
+          f"3DHP valid launched {c}")
+    loaded = [m for m in IMAGE_LIBS if m in sys.modules]
+    check(not loaded, f"the 3DHP path imported {loaded}")
+    shares = stats_shares(stats, val_s)
+    res["mpi3dhp"] = dict(perf=perf, samples_per_s=rate, validate_s=val_s,
+                          wall_s=c["wall_s"], decoded=decoded,
+                          perfect=nv, shares=shares)
+    log(f"[mpi3dhp] valid_3dhp_transfer.yaml through the valid CLI at "
+        f"ResNet-50@256 (flip test, batch {EVAL_BATCH}) on {n} records of "
+        f"a 3DHP tree (2048 x 2048 and 1920 x 1080 JPEG frames): PCK3D@150 "
+        f"{perf:.3f} with phase 13's FS weights (pixels unrelated to the "
+        f"poses); perfect predictions: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in nv.items())
+        + f"; validation {rate:.1f} samples/s ({val_s:.3f} s; CLI call "
+        f"{c['wall_s']:.2f} s); {decoded} frames through the port's "
+        f"decoder, none through OpenCV; soft-argmax launches "
+        f"{c['softargmax_fwd']}; {format_shares(shares)}")
+
+
+def phase_warp(res: dict) -> None:
+    """``ops/warp.py`` on the card: 64 rotation-free eval crops from 1000 x
+    1000 frames against the same calls on the CPU and against
+    ``imgproc``'s numpy crops (OpenCV's warp); the separable warp's bits
+    with TF32 allowed and not; card ms (CUDA events) beside the host's
+    numpy ms for the same batch."""
+    import numpy as np
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.data import jpeg
+    from epipolarpose_tpu_torch.data.imgproc import (warp_affine_f32,
+                                                     warp_affine_u8)
+    from epipolarpose_tpu_torch.geometry.affine import get_affine_transform_np
+    from epipolarpose_tpu_torch.ops.warp import (warp_affine,
+                                                 warp_affine_separable)
+    cfg = load_config(ROOT / "experiments/h36m/valid_r50_256_integral.yaml")
+    size = tuple(int(v) for v in cfg.MODEL.IMAGE_SIZE)
+    frame = jpeg.decode((JPEG_FIXTURES / JPEG_FRAMES[2]).read_bytes())
+    rng = np.random.default_rng(71)
+    n = WARP_CROPS
+    centers = rng.uniform(300, 700, (n, 2)).astype(np.float32)
+    scales = np.repeat(rng.uniform(1.5, 3.5, (n, 1)), 2, 1).astype(np.float32)
+    M = get_affine_transform_np(centers, scales, np.zeros(n, np.float32),
+                                size)
+    host_f32 = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+        frame.astype(np.float32), (n,) + frame.shape)))
+    card = host_f32.cuda()
+    out, ms = {}, {}
+    for name, fn in (("warp_affine", warp_affine),
+                     ("warp_affine_separable", warp_affine_separable)):
+        got = fn(card, M, size)
+        torch.cuda.synchronize()
+        cpu = fn(host_f32, M, size)
+        d_cpu = (got.cpu() - cpu).abs().max().item()
+        check(d_cpu <= 1e-3, f"{name}: card vs CPU {d_cpu:.3g}")
+        begin, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        begin.record()
+        for _ in range(5):
+            fn(card, M, size)
+        end.record()
+        torch.cuda.synchronize()
+        ms[name] = begin.elapsed_time(end) / 5
+        out[name] = dict(card_vs_cpu=d_cpu, got=got.cpu().numpy())
+    t = time.perf_counter()
+    u8 = np.stack([warp_affine_u8(frame, M[i], size) for i in range(n)])
+    ms["numpy_warp_affine_u8"] = (time.perf_counter() - t) * 1e3
+    f32 = np.stack([warp_affine_f32(frame.astype(np.float32), M[i], size)
+                    for i in range(n)])
+    for name in out:
+        got = out[name].pop("got")
+        out[name]["vs_numpy_f32"] = float(np.abs(got - f32).max())
+        out[name]["vs_numpy_u8"] = float(np.abs(got - u8).max())
+        check(out[name]["vs_numpy_f32"] <= 2e-3
+              and out[name]["vs_numpy_u8"] <= 0.51,
+              f"{name} vs imgproc: {out[name]}")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    runs = []
+    try:
+        for allow in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = allow
+            runs.append(warp_affine_separable(card, M, size))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(torch.equal(runs[0], runs[1]),
+          "the separable warp changed with TF32 allowed")
+    res["warp"] = dict(ms=ms, checks=out)
+    log(f"[warp] {n} rotation-free {size[0]} x {size[1]} crops from "
+        f"{frame.shape[1]} x {frame.shape[0]} float32 frames on the card: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+        + " (card: CUDA events, 5 calls; numpy: the host's warp_affine_u8, "
+        "64 serial calls); card vs CPU and vs imgproc's float32 / uint8 "
+        "crops (limits 1e-3, 2e-3, 0.51 grey levels): " + ", ".join(
+            f"{k} {v['card_vs_cpu']:.3g} / {v['vs_numpy_f32']:.3g} / "
+            f"{v['vs_numpy_u8']:.3g}" for k, v in out.items())
+        + "; separable bits equal with TF32 allowed and not")
+
+
 def descendants() -> dict[int, str]:
     """pid -> state and command line of every process descended from
     this one, from ``/proc``."""
@@ -2497,7 +2794,8 @@ def main() -> int:
               ("ss_convergence", phase_ss_convergence),
               ("ss_nocam", phase_ss_nocam), ("pseudo_gt", phase_pseudo_gt),
               ("loader_workers", phase_loader_workers),
-              ("processes", phase_processes)]
+              ("jpeg", phase_jpeg), ("mpi3dhp", phase_mpi3dhp),
+              ("warp", phase_warp), ("processes", phase_processes)]
     failed = []
     for i, (name, fn) in enumerate(phases, 1):
         if failed and failed[0] == "build":
@@ -2610,6 +2908,13 @@ def main() -> int:
             f"{v['fs']['samples_per_s']:.1f} (steady "
             f"{v['eval']['steady_per_s']:.1f} / {v['fs']['steady_per_s']:.1f})"
             for k, v in lw["rows"].items()))
+    jp, hp, wp = res["jpeg"], res["mpi3dhp"], res["warp"]
+    log(f"jpeg: ms a decode " + ", ".join(
+        f"{k} {v['median']:.2f}" for k, v in jp["ms"].items())
+        + f", 8 threads x{jp['threads'][8]['speedup']:.2f} of one; 3DHP "
+        f"valid {hp['samples_per_s']:.1f} samples/s, PCK3D@150 "
+        f"{hp['perf']:.3f}; warp ms " + ", ".join(
+            f"{k} {v:.3f}" for k, v in wp["ms"].items()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

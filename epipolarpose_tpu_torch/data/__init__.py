@@ -1,6 +1,6 @@
-"""Datasets and loaders: the MPII and H36M readers, the synthetic
-datasets and rig, the feeding pipeline with its worker-process loader,
-and the offline pseudo-GT merge.
+"""Datasets and loaders: the MPII, H36M and MPI-INF-3DHP readers, the
+synthetic datasets and rig, the feeding pipeline with its worker-process
+loader, and the offline pseudo-GT merge.
 
 ``get_dataset`` mirrors the reference's ``dataset.<name>(cfg, root,
 image_set, is_train)``; normalization happens in the step, on the card.
@@ -16,6 +16,7 @@ from epipolarpose_tpu_torch.data.joints_dataset import (  # noqa: F401
     JointsDataset,
     JointsRecord,
 )
+from epipolarpose_tpu_torch.data.mpi3dhp import MPI3DHPDataset  # noqa: F401
 from epipolarpose_tpu_torch.data.mpii import MPIIDataset  # noqa: F401
 from epipolarpose_tpu_torch.data.pipeline import (  # noqa: F401
     device_prefetch,
@@ -38,6 +39,7 @@ from epipolarpose_tpu_torch.data.synthetic import (  # noqa: F401
 _REGISTRY = {
     "mpii": MPIIDataset,
     "h36m": H36MDataset,
+    "mpi_inf_3dhp": MPI3DHPDataset,
     "synthetic": SyntheticPoseDataset,
     "synthetic_multiview": SyntheticMultiviewDataset,
 }
@@ -46,10 +48,6 @@ _REGISTRY = {
 def get_dataset(cfg, image_set: str, is_train: bool, **kwargs):
     """The dataset named by ``cfg.DATASET.DATASET``."""
     name = cfg.DATASET.DATASET
-    if name == "mpi_inf_3dhp":
-        raise NotImplementedError(
-            "DATASET.DATASET: mpi_inf_3dhp is not ported yet (ROADMAP "
-            "Queue A item 4)")
     if name not in _REGISTRY:
         raise ValueError(f"unknown DATASET.DATASET: {name}")
     cls = _REGISTRY[name]

@@ -3,9 +3,9 @@
 The port's counterpart of the JAX package's ``data/fastloader.py``, with
 the same functions and C signatures. It builds its own copy of the
 library from ``native/fastloader.cpp`` with one ``g++`` call into
-``epipolarpose_tpu_torch/_build/fastloader-<key>/`` (``key`` hashes the
-source, the flags and ``g++ --version``) and never writes into
-``native/``. The flags name no ``-march``: the library may be built on
+``epipolarpose_tpu_torch/_build/fastloader-<key>/`` (``data/cxx_library.py``;
+``key`` hashes the source, the flags and ``g++ --version``) and never
+writes into ``native/``. The flags name no ``-march``: the library may be built on
 one host and run on another. Without a compiler or ``jpeglib.h`` the build
 fails, :func:`available` is false and :func:`build_error` says why;
 callers then take the numpy route.
@@ -14,26 +14,16 @@ callers then take the numpy route.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import threading
-import uuid
 
 import numpy as np
 
+from epipolarpose_tpu_torch.data.cxx_library import CxxLibrary
+
 PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 SOURCE = PKG_DIR.parent / "native" / "fastloader.cpp"
-BUILD_DIR = PKG_DIR / "_build"
-LIB_NAME = "libfastloader.so"
 CXX_FLAGS = ("-O3", "-fPIC", "-fopenmp", "-shared", "-Wall")
 LD_FLAGS = ("-ljpeg",)
-
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-_error: str | None = None
 
 _pv = ctypes.POINTER(ctypes.c_void_p)
 _ps = ctypes.POINTER(ctypes.c_size_t)
@@ -52,84 +42,25 @@ SIGNATURES = {
     "decode_warp2_sized_batch_u8": (_i, (_pv, _ps, _i, _pf, _pf, _i, _i, _i,
                                          _i, _pu8, _pu8)),
 }
-
-
-def build_key(cxx_version: str) -> str:
-    """Content hash of the source, the flags and the compiler version."""
-    h = hashlib.sha256()
-    h.update(cxx_version.encode())
-    h.update(" ".join(CXX_FLAGS + LD_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return h.hexdigest()[:24]
-
-
-def build() -> pathlib.Path:
-    """Compile the loader unless a library for this source exists; the
-    path of the library. Raises RuntimeError when ``g++`` fails."""
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found")
-    version = subprocess.run([cxx, "--version"], check=True,
-                             capture_output=True, text=True).stdout
-    out_dir = BUILD_DIR / f"fastloader-{build_key(version)}"
-    lib = out_dir / LIB_NAME
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    # write a temporary file and rename it: concurrent builds need no
-    # lock, and no reader sees a half-written library
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.{uuid.uuid4().hex}.tmp"
-    cmd = [cxx, *CXX_FLAGS, str(SOURCE), *LD_FLAGS, "-o", str(tmp)]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            errors = [ln for ln in res.stderr.splitlines() if "error" in ln]
-            raise RuntimeError(f"g++ failed ({res.returncode}): "
-                               + ("; ".join(errors) or res.stderr.strip()))
-        os.replace(tmp, lib)
-    finally:
-        tmp.unlink(missing_ok=True)
-    return lib
-
-
-def _load() -> ctypes.CDLL:
-    global _lib, _error
-    with _lock:
-        if _lib is not None:
-            return _lib
-        if _error is not None:
-            raise RuntimeError(_error)
-        try:
-            lib = ctypes.CDLL(str(build()))
-        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
-            _error = f"native loader unavailable: {e}"
-            raise RuntimeError(_error) from e
-        for name, (restype, argtypes) in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.restype = restype
-            fn.argtypes = list(argtypes)
-        _lib = lib
-        return lib
+_LIB = CxxLibrary("fastloader", SOURCE, CXX_FLAGS, LD_FLAGS, SIGNATURES,
+                  "native loader")
+_load = _LIB.load
 
 
 def available() -> bool:
     """True when the library is built (or builds now) and loads."""
-    try:
-        _load()
-        return True
-    except RuntimeError:
-        return False
+    return _LIB.available()
 
 
 def build_error() -> str | None:
     """Why the library is unavailable; None when it loaded or was never
     tried."""
-    return _error
+    return _LIB.build_error()
 
 
 def library_path() -> pathlib.Path | None:
     """Path of the loaded library, None when it is not loaded."""
-    return None if _lib is None else pathlib.Path(_lib._name)
+    return _LIB.library_path()
 
 
 def _jpeg_ptrs(jpeg_buffers: list[bytes]):

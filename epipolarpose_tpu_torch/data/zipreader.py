@@ -2,9 +2,12 @@
 
 The port's copy of the JAX package's ``data/zipreader.py``: H36M images
 ship as per-subject zips, read through a per-process handle cache.
-:func:`imread` decodes JPEGs with the port's native loader when it is
-built, and anything else (or any JPEG without it) with OpenCV, imported
-only then: the loader's own paths need no OpenCV.
+:func:`imread` decodes a JPEG with the native loader (libjpeg) where it is
+built, else with the port's own decoder (``data/jpeg.py``), which needs
+neither libjpeg nor OpenCV; both give libjpeg-turbo's bits. OpenCV,
+imported only then, reads what is not a JPEG and the JPEG modes the
+port's decoder refuses (progressive, arithmetic, ...). A JPEG that the
+decoder accepts never reaches OpenCV.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import zipfile
 
 import numpy as np
 
-from epipolarpose_tpu_torch.data import fastloader
+from epipolarpose_tpu_torch.data import fastloader, jpeg
 
 _cache: dict[str, zipfile.ZipFile] = {}
 _lock = threading.Lock()
@@ -61,22 +64,32 @@ def read_file_bytes(path: str) -> bytes:
 def imread(path: str, rgb: bool = False) -> np.ndarray:
     """(H, W, 3) uint8 image from a plain or ``zip@/inner`` path, BGR as
     OpenCV reads it unless ``rgb``. Raises IOError when the image cannot
-    be read and ImportError when neither the native loader (JPEGs) nor
-    OpenCV can decode it."""
+    be read, and ImportError when it needs OpenCV (not a JPEG, or a JPEG
+    mode the port's decoder refuses) and OpenCV is not installed."""
     buf = read_file_bytes(path)
-    if path.endswith(JPEG_SUFFIXES) and fastloader.available():
+    why = "not a JPEG"
+    if path.endswith(JPEG_SUFFIXES):
+        img = None
         try:
-            img = fastloader.decode(buf)
+            if fastloader.available():
+                img = fastloader.decode(buf)
+            elif jpeg.available():
+                img = jpeg.decode(buf)
+            else:
+                why = (f"the native loader ({fastloader.build_error()}) and "
+                       f"the port's decoder ({jpeg.build_error()}) are not "
+                       "built")
+        except jpeg.UnsupportedJpeg as e:
+            why = f"the port's JPEG decoder refuses its mode, {e.mode}"
         except (ValueError, IOError) as e:
             raise IOError(f"failed to read image: {path}: {e}") from e
-        return img if rgb else np.ascontiguousarray(img[..., ::-1])
+        if img is not None:
+            return img if rgb else np.ascontiguousarray(img[..., ::-1])
     try:
         import cv2
     except ImportError as e:
-        raise ImportError(
-            f"cannot decode {path}: the native loader is not built "
-            f"({fastloader.build_error() or 'not a JPEG'}) and OpenCV "
-            "(cv2) is not installed") from e
+        raise ImportError(f"cannot decode {path}: {why}, and OpenCV (cv2) "
+                          "is not installed") from e
     img = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
     if img is None:
         raise IOError(f"failed to read image: {path}")

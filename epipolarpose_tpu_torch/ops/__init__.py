@@ -1,6 +1,6 @@
 """Tensor ops: soft-argmax decode, integral targets, gaussian heatmap
 targets and decode, losses, and the metrics (accuracy, PCK, PCKh, the
-MPJPE family, PSS)."""
+MPJPE family, PSS, 3DHP's PCK3D and AUC)."""
 
 from epipolarpose_tpu_torch.ops.heatmap import (  # noqa: F401
     generate_target,
@@ -19,6 +19,7 @@ from epipolarpose_tpu_torch.ops.losses import (  # noqa: F401
     make_loss,
 )
 from epipolarpose_tpu_torch.ops.metrics import (  # noqa: F401
+    auc3d,
     fit_pss_centers,
     heatmap_accuracy,
     kmeans,
@@ -26,6 +27,7 @@ from epipolarpose_tpu_torch.ops.metrics import (  # noqa: F401
     nmpjpe,
     pa_mpjpe,
     pck,
+    pck3d,
     pckh,
     pss,
 )

@@ -160,3 +160,23 @@ def fit_pss_centers(generator: torch.Generator | None, gt_poses: torch.Tensor,
     """PSS cluster centres: k-means on the embedded GT poses (J, 3)."""
     centers, _ = kmeans(_pose_embed(gt_poses), k, iters, generator=generator)
     return centers
+
+
+def pck3d(pred: torch.Tensor, gt: torch.Tensor,
+          thresh_mm: float = 150.0) -> torch.Tensor:
+    """3D PCK@thresh (the MPI-INF-3DHP transfer protocol), in percent: the
+    share of joints within ``thresh_mm`` of the ground truth. pred/gt:
+    (N, J, 3) root-relative mm."""
+    d = torch.linalg.vector_norm(pred - gt, dim=-1)
+    return 100.0 * (d < thresh_mm).to(torch.float32).mean()
+
+
+def auc3d(pred: torch.Tensor, gt: torch.Tensor, max_thresh_mm: float = 150.0,
+          steps: int = 30) -> torch.Tensor:
+    """Area under the 3D-PCK curve over ``steps`` thresholds in (0,
+    max_thresh] (the 3DHP AUC), in percent."""
+    d = torch.linalg.vector_norm(pred - gt, dim=-1)
+    ts = torch.linspace(max_thresh_mm / steps, max_thresh_mm, steps,
+                        device=d.device)
+    curve = (d[..., None] < ts).to(torch.float32).mean(dim=(0, 1))
+    return 100.0 * curve.mean()

@@ -9,8 +9,9 @@ Read the image (without ``--image``: a synthetic sample, no files needed)
 (soft-argmax decode) -> root-relative 3D joints lifted to camera mm by a
 nominal pinhole (``--focal``, ``--root-depth``) -> the optional refiner
 -> ``pose_2d.png`` (joints on the crop) and ``pose_3d.png`` (the
-skeleton). ``--image`` is decoded by ``data/zipreader.py::imread``: the
-native loader for JPEGs where it is built, else OpenCV.
+skeleton). ``--image`` is decoded by ``data/zipreader.py::imread``: a
+JPEG by the native loader where it is built, else by the port's own
+decoder (no libjpeg, no OpenCV); other formats by OpenCV.
 """
 
 from __future__ import annotations

@@ -6,7 +6,11 @@
 
 Loads ``TEST.MODEL_FILE`` (a ``.pth`` / ``.pth.tar`` file or a
 ``checkpoints`` directory), runs ``validate`` on the test split, logs the
-metric table and ``perf: <value>``.
+metric table and ``perf: <value>``: MPJPE (mm, lower is better) on H36M,
+PCK3D@150 (percent, higher is better) on MPI-INF-3DHP, where
+``experiments/h36m/valid_3dhp_transfer.yaml`` scores an H36M model on the
+3DHP test set (``DATASET.ROOT`` or ``--dataDir`` points at the tree; its
+JPEG frames need no OpenCV).
 """
 
 from __future__ import annotations

@@ -43,6 +43,8 @@ from epipolarpose_tpu_torch.config import load_config
 from epipolarpose_tpu_torch.data import fastloader as tfast
 from epipolarpose_tpu_torch.data import get_dataset
 from epipolarpose_tpu_torch.data import h36m as th36m
+from epipolarpose_tpu_torch.data.mpi3dhp import (MPI3DHPDataset,
+                                                 write_synthetic_3dhp)
 from epipolarpose_tpu_torch.data import mpii as tmpii
 from epipolarpose_tpu_torch.data import synthetic as tsyn
 from epipolarpose_tpu_torch.data import zipreader as tzip
@@ -186,13 +188,21 @@ def test_zipreader_round_trip_matches_jax(tmp_path, rng):
         tzip.split_zip_path(paths[0])
 
 
-def test_imread_needs_the_native_loader_or_cv2(tmp_path, monkeypatch):
-    jpg = tmp_path / "a.jpg"
-    cv2.imwrite(str(jpg), np.full((8, 8, 3), 100, np.uint8))
+def test_imread_decodes_jpegs_without_native_loader_or_cv2(tmp_path,
+                                                          monkeypatch):
+    """A JPEG decodes with neither the native loader nor OpenCV (the
+    port's own decoder, libjpeg-turbo's bits); a PNG without OpenCV raises
+    ImportError naming it."""
+    img = np.random.default_rng(0).integers(0, 256, (8, 8, 3), np.uint8)
+    jpg, png = tmp_path / "a.jpg", tmp_path / "a.png"
+    cv2.imwrite(str(jpg), img)
+    cv2.imwrite(str(png), img)
+    want = cv2.imread(str(jpg), cv2.IMREAD_COLOR)
     monkeypatch.setattr(tfast, "available", lambda: False)
     monkeypatch.setitem(sys.modules, "cv2", None)    # import cv2 fails
+    np.testing.assert_array_equal(tzip.imread(str(jpg)), want)
     with pytest.raises(ImportError, match="OpenCV"):
-        tzip.imread(str(jpg))
+        tzip.imread(str(png))
     monkeypatch.undo()
     bad = tmp_path / "bad.jpg"
     bad.write_bytes(b"\xff\xd8not a jpeg")
@@ -466,14 +476,16 @@ def test_writers_write_what_jax_writes(which, tmp_path):
         assert a == b
 
 
-def test_registry():
+def test_registry(tmp_path):
     _, tcfg = _configs()
     tcfg.DATASET.DATASET = "synthetic_multiview"
     ds = get_dataset(tcfg, "valid", False, num_frames=2)
     assert isinstance(ds, tsyn.SyntheticMultiviewDataset) and len(ds) == 8
     tcfg.DATASET.DATASET = "mpi_inf_3dhp"
-    with pytest.raises(NotImplementedError, match="item 4"):
-        get_dataset(tcfg, "valid", False)
+    tcfg.DATASET.ROOT = str(tmp_path)
+    write_synthetic_3dhp(str(tmp_path), num_frames=3)
+    ds = get_dataset(tcfg, "test", False)
+    assert isinstance(ds, MPI3DHPDataset) and len(ds) == 4
     tcfg.DATASET.DATASET = "nope"
     with pytest.raises(ValueError):
         get_dataset(tcfg, "valid", False)

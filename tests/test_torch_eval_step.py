@@ -202,6 +202,8 @@ LAZY_IMAGE_IMPORTS = {
      "cv2"),
     ("epipolarpose_tpu_torch/data/synthetic.py", "write_synthetic_h36m",
      "cv2"),
+    ("epipolarpose_tpu_torch/data/mpi3dhp.py", "write_synthetic_3dhp",
+     "cv2"),
 }
 
 
