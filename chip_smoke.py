@@ -125,13 +125,34 @@ card, then drives the port's paths through their entry points:
    frames on the card against the CPU and ``imgproc``'s numpy crops,
    the separable warp's bits with TF32 allowed and not, card ms beside
    the host's numpy ms;
-21. no process left: every process this script started has ended but
+21. ``TPU.REMAT`` at ResNet-152@384 (``train_fs_r152_384_integral.yaml``:
+   batch 24, bf16, Adam): one step without and one with from the same
+   weights and batch (the loss and every BN buffer equal, the gradients
+   held to a float64 evaluation), ms a step, peak memory and the
+   device's busy time a step (a profiler trace) each way; in float32
+   with deterministic cuDNN the same bits each way; the
+   soft-argmax kernels against their plain versions at (24, 17*64, 96,
+   96);
+22. data parallelism at that config: two ranks sharing the card over
+   ``gloo`` (``python3 chip_smoke.py --ddp-rank <dir>``, 24 crops each)
+   against one process of 48 for 2 steps in float32 with TF32 off and
+   REMAT on (the ranks equal bit for bit; the losses and BN buffers
+   against the one process, the gradients no further from a float64
+   evaluation than the one process's), then their bf16 step timed
+   beside phase 21's; the ``train`` and ``valid`` CLIs with
+   ``--distributed`` under ``torch.distributed.run`` (one ``nccl`` rank)
+   against the same runs without it (cuDNN deterministic: the same loss,
+   perf, weights and predictions); two ``nccl`` ranks where the machine
+   has two cards;
+23. no process left: every process this script started has ended but
    the worker loader's ``forkserver`` and its resource tracker, and those
-   two end when ``stop_worker_server`` stops them.
+   two end when ``stop_worker_server`` stops them; phase 22's rank
+   processes are gone.
 
 Kernel launch counters are set to 0 just before each path and read just
-after it. Each phase checks its own time limit. Any failed phase makes the
-script exit 1 without a result; without a CUDA card it exits 1 at once.
+after it (phase 22's rank processes report their own). Each phase checks
+its own time limit. Any failed phase makes the script exit 1 without a
+result; without a CUDA card it exits 1 at once.
 On success the line before the last is the kernels' JSON record and the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -165,7 +186,7 @@ PHASE_LIMITS = {"build": 120.0, "softargmax": 30.0, "matmul_stats": 60.0,
                 "ss_convergence": 120.0, "ss_nocam": 150.0,
                 "pseudo_gt": 120.0, "loader_workers": 360.0,
                 "jpeg": 15.0, "mpi3dhp": 30.0, "warp": 15.0,
-                "processes": 30.0}
+                "remat": 150.0, "ddp": 420.0, "processes": 30.0}
 
 # H36M left/right joint pairs (the JAX package's data/h36m.py FLIP_PAIRS)
 H36M_FLIP_PAIRS = ((1, 4), (2, 5), (3, 6), (11, 14), (12, 15), (13, 16))
@@ -2718,6 +2739,526 @@ def phase_warp(res: dict) -> None:
         + "; separable bits equal with TF32 allowed and not")
 
 
+R152_CONFIG = "h36m/train_fs_r152_384_integral.yaml"
+# the remat phase: each mode's first step compared, then REMAT_TIMED
+# steps timed after REMAT_WARMUP, then REMAT_TRACED traced; the ddp
+# phase: DDP_RANKS ranks of R152_BATCH crops against one process of
+# their global batch for DDP_STEPS steps, then DDP_TIMED bf16 steps
+# timed after DDP_WARMUP
+R152_BATCH, REMAT_WARMUP, REMAT_TIMED, REMAT_TRACED = 24, 2, 5, 2
+DDP_RANKS, DDP_STEPS, DDP_WARMUP, DDP_TIMED = 2, 2, 2, 5
+# the CLIs at r152@384 with and without --distributed: 48 records, two
+# train steps of 24 and two eval batches
+DDP_CLI_SAMPLES = 48
+# where phases 21 and 22 run their models and ranks (a CPU rehearsal of
+# their control flow sets "cpu")
+DEVICE = "cuda"
+R152_SIZE = 384
+
+
+def r152_config(**tpu):
+    """``train_fs_r152_384_integral.yaml`` with ``TPU`` overrides."""
+    from epipolarpose_tpu_torch.config import load_config
+    cfg = load_config(ROOT / "experiments" / R152_CONFIG)
+    for k, v in tpu.items():
+        cfg.TPU[k] = v
+    return cfg
+
+
+def r152_weights(cfg) -> dict:
+    """ResNet-152@384 weights from a seed, the head re-drawn so that the
+    joints decode apart and gradients reach the backbone (on the CPU:
+    the same bits in every process)."""
+    from epipolarpose_tpu_torch.models import get_model
+    model = get_model(cfg, True, torch.Generator().manual_seed(21))
+    redraw_head(model, seed=22)
+    return model.state_dict()
+
+
+def r152_batch(n: int) -> dict:
+    """A seeded train batch of ``n`` crops at 384 on the card (the same
+    bits in every process on the card)."""
+    from epipolarpose_tpu_torch.tools.profile_step import seeded_train_batch
+    return seeded_train_batch(n, R152_SIZE, 17, 1000.0,
+                              torch.Generator(DEVICE).manual_seed(23),
+                              DEVICE)
+
+
+def grads_cpu(model) -> dict:
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+def state_cpu(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def worst_share(got: dict, want: dict, names=None) -> tuple[float, str]:
+    """Largest gap over the tensors, each relative to its largest entry."""
+    gaps = {k: ((got[k].double() - want[k].double()).abs().max()
+                / want[k].double().abs().max().clamp_min(1e-30)).item()
+            for k in (names or want)}
+    name = max(gaps, key=gaps.get)
+    return gaps[name], name
+
+
+def rel_l2(got: dict, want: dict) -> float:
+    """||got - want|| / ||want|| over every tensor of ``want`` at once."""
+    num = sum(float((got[k].double() - v.double()).square().sum())
+              for k, v in want.items())
+    den = sum(float(v.double().square().sum()) for v in want.values())
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def r152_grads_f64(cfg, weights, batch) -> dict:
+    """The gradients of one FS step of ``cfg`` on ``batch`` with the model
+    in float64 (REMAT on for memory: it changes no value), on the host:
+    the oracle a float32 or bf16 step is held to."""
+    import warnings
+    from epipolarpose_tpu_torch.core.steps import normalize_images
+    from epipolarpose_tpu_torch.kernels.softargmax import (
+        softmax_integral_plain)
+    from epipolarpose_tpu_torch.models import get_model
+    from epipolarpose_tpu_torch.ops.integral import generate_integral_target
+    from epipolarpose_tpu_torch.ops.losses import integral_l1_loss
+    model = get_model(cfg, True)
+    model.load_state_dict(weights, strict=True)
+    model.to(DEVICE).double().train()
+    model.dtype, model.remat = torch.float64, True
+    x = normalize_images(batch["input"]).permute(0, 3, 1, 2).double()
+    z = batch["joints_3d"][..., 2]
+    target, tw = generate_integral_target(
+        batch["joints"].float(), batch["joints_vis"],
+        tuple(float(v) for v in cfg.MODEL.IMAGE_SIZE),
+        depth_bound=float(cfg.MODEL.EXTRA.DEPTH_BOUND),
+        joints_depth=(z - z[:, :1]).float())
+    with warnings.catch_warnings():       # autocast has no float64
+        warnings.simplefilter("ignore", UserWarning)
+        vol = model(x.contiguous())
+    coords = softmax_integral_plain(vol, int(cfg.MODEL.NUM_JOINTS),
+                                    int(cfg.MODEL.EXTRA.DEPTH_DIM))
+    integral_l1_loss(coords, target.double(), tw.double()).backward()
+    out = grads_cpu(model)
+    del model, vol, coords, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def traced_steps(step, state, batch, n: int) -> dict:
+    """``n`` calls of ``step`` under ``torch.profiler``: the device's busy
+    ms a step and idle share (``tools/trace_summary.py``)."""
+    import tempfile
+    from epipolarpose_tpu_torch.tools.trace_summary import summarize
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            step(state, batch)
+        torch.cuda.synchronize()
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        summary = summarize(f.name, 3)
+    return {"busy_ms": summary["device_busy_ms"] / n,
+            "idle_share": summary["idle_share"]}
+
+
+def r152_steps(cfg, weights, batch, steps: int, wrap=None,
+               timed: int = 0, warmup: int = 0, trace: int = 0) -> dict:
+    """``steps`` FS steps of ``cfg`` from ``weights`` on ``batch`` through
+    ``make_train_step`` (the forward through ``wrap(model)`` when given):
+    the losses, step 1's gradients and the state after it and after the
+    last, on the host; then ``warmup`` more steps and ``timed`` steps
+    timed (ms a step, peak GB of those), then ``trace`` steps traced
+    (the device's busy ms a step and idle share)."""
+    from epipolarpose_tpu_torch.core import (create_train_state,
+                                             make_train_step)
+    from epipolarpose_tpu_torch.models import get_model
+    model = get_model(cfg, True)
+    model.load_state_dict(weights, strict=True)
+    model.to(DEVICE)
+    state = create_train_state(cfg, model, steps_per_epoch=1000,
+                               device=DEVICE)
+    step = make_train_step(cfg, wrap(model) if wrap else model, DEVICE)
+    out = {"loss": []}
+    for k in range(steps):
+        _, metrics = step(state, batch)
+        out["loss"].append(metrics["loss"].item())
+        if k == 0:
+            out["grads"], out["state_1"] = grads_cpu(model), state_cpu(model)
+    out["state"] = state_cpu(model)
+    if timed:
+        for _ in range(warmup):
+            step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            step(state, batch)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3 / timed
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if trace:
+        out.update(traced_steps(step, state, batch, trace))
+    del step, state, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_remat(res: dict) -> None:
+    """``TPU.REMAT`` at ResNet-152@384 (batch 24, bf16, Adam): one step
+    without and one with, from the same weights on the same batch (the
+    loss and BN buffers equal, the gradients no further from a float64
+    evaluation than bf16's own distance allows), ms a step and peak
+    memory each way; the same step in float32 with deterministic cuDNN
+    gives the same bits each way; the soft-argmax kernels against their
+    plain versions at this config's shape (24, 17*64, 96, 96)."""
+    from epipolarpose_tpu_torch.core.steps import configure_backends
+    from epipolarpose_tpu_torch.kernels import softargmax as ksa
+    cfg = r152_config()
+    check(cfg.TRAIN.BATCH_SIZE == R152_BATCH and not cfg.TPU.REMAT
+          and cfg.MODEL.IMAGE_SIZE == [R152_SIZE] * 2
+          and cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+          and cfg.TRAIN.OPTIMIZER == "adam", "unexpected r152 config")
+    configure_backends(cfg)
+    weights = r152_weights(cfg)
+    batch = r152_batch(R152_BATCH)
+    torch.cuda.empty_cache()
+    reset_counts()
+    runs = {remat: r152_steps(r152_config(REMAT=remat), weights, batch, 1,
+                              timed=REMAT_TIMED, warmup=REMAT_WARMUP,
+                              trace=REMAT_TRACED)
+            for remat in (False, True)}
+    res["paths"]["remat"] = launch_counts()
+    steps = 2 * (1 + REMAT_WARMUP + REMAT_TIMED + REMAT_TRACED)
+    fwd, bwd = ksa.softmax_integral.launches, ksa.softmax_integral_bwd.launches
+    exact = r152_grads_f64(cfg, weights, batch)
+    # float32, TF32 off, cuDNN deterministic: the recomputed blocks
+    # repeat the forward's arithmetic, so one step gives the same bits
+    f32 = {}
+    for remat in (False, True):
+        c32 = r152_config(COMPUTE_DTYPE="float32", REMAT=remat)
+        c32.CUDNN.BENCHMARK, c32.CUDNN.DETERMINISTIC = False, True
+        configure_backends(c32)
+        f32[remat] = r152_steps(c32, weights, batch, 1)
+    configure_backends(cfg)
+    same32 = [k for k, v in f32[False]["grads"].items()
+              if not torch.equal(v, f32[True]["grads"][k])]
+    same32 += [k for k, v in f32[False]["state_1"].items()
+               if not torch.equal(v, f32[True]["state_1"][k])]
+    log(f"[remat] float32, TF32 off, deterministic cuDNN, one step each "
+        f"way: loss {f32[False]['loss'][0]:.6f} / {f32[True]['loss'][0]:.6f}"
+        f", gradients and state that differ: {len(same32)} "
+        f"{same32[:3]}")
+    check(f32[False]["loss"] == f32[True]["loss"] and not same32,
+          "REMAT changed the float32 step")
+    del f32
+    check(fwd == steps and bwd == steps, f"soft-argmax kernels launched "
+          f"{fwd} / {bwd} times in {steps} steps")
+    off, on = runs[False], runs[True]
+    dloss = abs(on["loss"][0] - off["loss"][0])
+    # in bf16 with cuDNN's autotuned algorithms the recomputation may
+    # round otherwise, and this random network's backward amplifies any
+    # rounding (bf16 lands far from a float64 evaluation): the gradient
+    # with REMAT must be no further from float64 than twice the one
+    # without; the exact check is the float32 one above
+    gap = rel_l2(on["grads"], off["grads"])
+    floor, on_exact = (rel_l2(off["grads"], exact),
+                       rel_l2(on["grads"], exact))
+    worst, name = worst_share(on["grads"], off["grads"])
+    limit = 2 * floor
+    moved = [k for k, v in off["state_1"].items()
+             if not torch.equal(on["state_1"][k], v)
+             and ("running" in k or "num_batches" in k)]
+    log(f"[remat] ResNet-152@384 batch {R152_BATCH} bf16 Adam, one step "
+        f"each way: loss {off['loss'][0]:.6f} / {on['loss'][0]:.6f} (|d| "
+        f"{dloss:.3g}, limit 1e-3 x loss); gradients |d| / |g| {gap:.3g} "
+        f"between the two, worst tensor {name} at {worst:.3g} of its "
+        f"largest entry; from a float64 evaluation {floor:.3g} without, "
+        f"{on_exact:.3g} with (limit {limit:.3g}, twice without); BN "
+        f"buffers that differ: {len(moved)}")
+    check(math.isfinite(off["loss"][0]) and dloss <= 1e-3 * off["loss"][0],
+          "REMAT changed the loss")
+    check(on_exact <= limit, "REMAT moved the gradients away from float64")
+    check(not moved, f"REMAT changed BN buffers: {moved[:3]}")
+    res["remat"] = {str(k): dict(ms=v["ms"], peak_gb=v["peak_gb"],
+                                 loss=v["loss"][0], busy_ms=v["busy_ms"],
+                                 idle_share=v["idle_share"])
+                    for k, v in runs.items()}
+    res["remat"].update(grad_gap=gap, grad_f64_without=floor,
+                        grad_f64_with=on_exact, worst=worst)
+    log(f"[remat] ms a step (mean of {REMAT_TIMED} after "
+        f"{1 + REMAT_WARMUP}): without {off['ms']:.2f}, with {on['ms']:.2f} "
+        f"(x{on['ms'] / off['ms']:.3f}); peak memory {off['peak_gb']:.2f} "
+        f"GB / {on['peak_gb']:.2f} GB; the device busy {off['busy_ms']:.2f}"
+        f" / {on['busy_ms']:.2f} ms a step, idle {off['idle_share']:.1%} / "
+        f"{on['idle_share']:.1%} ({REMAT_TRACED} steps traced); {fwd} "
+        f"forward and {bwd} backward soft-argmax launches")
+    del runs, weights, batch
+    torch.cuda.empty_cache()
+    train_kernels_vs_plain(res, R152_BATCH, 17, 64, 96, 96, path="r152")
+
+
+def ddp_rank(directory: str) -> int:
+    """One rank of phase ``ddp``'s two processes on the one card (``gloo``:
+    ``nccl`` refuses two ranks on one device): its slice of the float32
+    check's global batch, then the timed bf16 steps; writes
+    ``rank<r>.pt`` into ``directory``."""
+    from epipolarpose_tpu_torch.core.steps import configure_backends
+    from epipolarpose_tpu_torch.data.joints_dataset import host_shard_indices
+    from epipolarpose_tpu_torch.parallel import (init_distributed,
+                                                 pod_sync, process_index,
+                                                 wrap_model)
+    import numpy as np
+    directory = pathlib.Path(directory)
+    init_distributed(DEVICE, init_method=f"file://{directory}/rendezvous",
+                     backend="gloo")
+    rank = process_index()
+    cfg = r152_config(COMPUTE_DTYPE="float32", REMAT=True)
+    configure_backends(cfg)
+    weights = r152_weights(cfg)
+    mine = torch.as_tensor(host_shard_indices(
+        np.arange(2 * R152_BATCH), rank, DDP_RANKS), device=DEVICE)
+    batch = {k: v[mine] for k, v in r152_batch(2 * R152_BATCH).items()}
+    reset_counts()
+    out = r152_steps(cfg, weights, batch, DDP_STEPS, wrap_model)
+    cfg16 = r152_config()
+    configure_backends(cfg16)
+    pod_sync("timing")
+    timed = r152_steps(cfg16, weights, batch, 1, wrap_model,
+                       timed=DDP_TIMED, warmup=DDP_WARMUP)
+    out.update(ms=timed["ms"], peak_gb=timed["peak_gb"],
+               counts=launch_counts())
+    torch.save(out, directory / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_ddp(res: dict) -> None:
+    """Data parallelism at ResNet-152@384: two ranks sharing the card over
+    ``gloo`` against one process on their global batch (float32, TF32 off,
+    ``TPU.REMAT`` on for memory), then their bf16 step timed; the
+    ``train`` and ``valid`` CLIs with ``--distributed`` under
+    ``torch.distributed.run`` (one ``nccl`` rank) against the same runs
+    without it; two ``nccl`` ranks where the machine has two cards."""
+    import shutil
+    import tempfile
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="epk_ddp_"))
+    try:
+        res["ddp"] = {}
+        ddp_ranks_on_one_card(res, tmp)
+        ddp_clis(res, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ddp_ranks_on_one_card(res: dict, tmp: pathlib.Path) -> None:
+    import os
+    from epipolarpose_tpu_torch.core.steps import configure_backends
+    cfg = r152_config(COMPUTE_DTYPE="float32", REMAT=True)
+    configure_backends(cfg)
+    weights = r152_weights(cfg)
+    batch = r152_batch(DDP_RANKS * R152_BATCH)
+    torch.cuda.empty_cache()
+    reset_counts()
+    one = r152_steps(cfg, weights, batch, DDP_STEPS)
+    res["paths"]["ddp"] = launch_counts()
+    exact = r152_grads_f64(cfg, weights, batch)
+    del batch, weights
+    torch.cuda.empty_cache()
+    env = dict(os.environ, WORLD_SIZE=str(DDP_RANKS), LOCAL_RANK="0")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-rank",
+         str(tmp)], env=dict(env, RANK=str(r)), cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(DDP_RANKS)]
+    res["ddp_pids"] = [p.pid for p in procs]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0,
+              f"rank {r} exited {p.returncode}:\n{logs[r][-3000:]}")
+    a, b = (torch.load(tmp / f"rank{r}.pt", weights_only=False)
+            for r in range(DDP_RANKS))
+    differ = [k for k, v in a["state"].items()
+              if not torch.equal(v, b["state"][k])]
+    check(a["loss"] == b["loss"] and not differ,
+          f"the ranks differ: losses {a['loss']} / {b['loss']}, "
+          f"{differ[:3]}")
+    dloss = abs(a["loss"][0] - one["loss"][0]) / abs(one["loss"][0])
+    dloss2 = abs(a["loss"][-1] - one["loss"][-1]) / abs(one["loss"][-1])
+    # float32 gradients of this random network are themselves far from a
+    # float64 evaluation (torch's batch norm and the global one round
+    # differently, and the backward amplifies it): the two ranks' must be
+    # no further from it than twice the one process's; a fault of the
+    # mean over ranks is O(1) off
+    ggap = rel_l2(a["grads"], one["grads"])
+    one_exact, two_exact = (rel_l2(one["grads"], exact),
+                            rel_l2(a["grads"], exact))
+    glimit = 2 * one_exact
+    gworst, gname = worst_share(a["grads"], one["grads"])
+    bufs = [k for k in one["state_1"] if "running" in k]
+    bgap, bname = worst_share(a["state_1"], one["state_1"], bufs)
+    pmax = max((a["state"][k] - one["state"][k]).abs().max().item()
+               for k in one["grads"])
+    lr = float(cfg.TRAIN.LR)
+    counts = {k: a["counts"][k] + b["counts"][k] for k in a["counts"]}
+    res["paths"]["ddp_ranks"] = counts
+    log(f"[ddp] ResNet-152@384 float32 (TF32 off, REMAT on), {DDP_RANKS} "
+        f"ranks x {R152_BATCH} on one card over gloo vs one process x "
+        f"{DDP_RANKS * R152_BATCH}, {DDP_STEPS} steps: losses "
+        + ", ".join(f"{x:.6f}/{y:.6f}" for x, y in zip(a["loss"],
+                                                       one["loss"]))
+        + f" (relative gap {dloss:.3g} at step 1, limit 1e-5; {dloss2:.3g}"
+        f" at step {DDP_STEPS}, limit 1e-3: the weights moved apart by "
+        f"Adam's sign on those gradients); step-1 gradients |d| / |g| "
+        f"{ggap:.3g} between them (worst tensor {gname} at {gworst:.3g} of "
+        f"its largest entry), from a float64 evaluation one process "
+        f"{one_exact:.3g}, two ranks {two_exact:.3g} (limit {glimit:.3g}, "
+        f"twice the one process's); BN buffers after "
+        f"step 1 worst {bname} at {bgap:.3g} of its largest entry (limit "
+        f"1e-4); parameters after step {DDP_STEPS} max |d| {pmax:.3g} "
+        f"({2 * lr * DDP_STEPS:g} is two Adam steps of lr each way: the "
+        f"sign of near-zero gradients); the ranks equal bit for "
+        f"bit; launches {counts['softargmax_fwd']} forward, "
+        f"{counts['softargmax_bwd']} backward on the ranks")
+    check(dloss <= 1e-5 and dloss2 <= 1e-3,
+          "two ranks' losses differ from one process's")
+    check(two_exact <= glimit,
+          "two ranks' gradients are further from float64 than one's")
+    check(bgap <= 1e-4, "two ranks' BN buffers differ from one process's")
+    want = DDP_RANKS * (DDP_STEPS + 1 + DDP_WARMUP + DDP_TIMED)
+    check(counts["softargmax_fwd"] == want
+          and counts["softargmax_bwd"] == want,
+          f"rank launches {counts}, expected {want} each")
+    single = res["remat"]["False"]
+    res["ddp"]["gloo_one_card"] = dict(
+        loss_gap=dloss, loss_gap_last=dloss2, grad_gap=ggap,
+        grad_f64_one=one_exact, grad_f64_two=two_exact, buffer_gap=bgap,
+        param_max=pmax,
+        ms=[a["ms"], b["ms"]], peak_gb=[a["peak_gb"], b["peak_gb"]],
+        one_rank_ms=single["ms"])
+    log(f"[ddp] bf16 step of {R152_BATCH} crops a rank: two ranks sharing "
+        f"the card over gloo {a['ms']:.2f} / {b['ms']:.2f} ms (peak "
+        f"{a['peak_gb']:.2f} GB a rank) against one process "
+        f"{single['ms']:.2f} ms (phase remat): x{a['ms'] / single['ms']:.3f}"
+        f" of one rank's step, {a['ms'] - 2 * single['ms']:.2f} ms over "
+        f"two such steps")
+
+
+def torchrun(module: str, argv: list, nproc: int, timeout: float = 300):
+    """``python -m torch.distributed.run --standalone`` of a CLI module;
+    returns the completed process."""
+    return subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc), "-m", module] + argv,
+        capture_output=True, text=True, cwd=ROOT, timeout=timeout)
+
+
+def ddp_clis(res: dict, tmp: pathlib.Path) -> None:
+    import re
+
+    import numpy as np
+    from epipolarpose_tpu_torch.scripts import train as train_cli, valid
+    paths = res["paths"]
+    yaml_path = cli_yaml(tmp / "ddp_r152.yaml", R152_CONFIG, PRINT_FREQ=1,
+                         CUDNN={"BENCHMARK": False, "DETERMINISTIC": True})
+    common = ["--cfg", yaml_path, "--synthetic", "--samples",
+              str(DDP_CLI_SAMPLES), "--device", DEVICE]
+
+    def dirs(name):
+        return ["--modelDir", str(tmp / name), "--logDir",
+                str(tmp / name / "log")]
+
+    def run_dir(name) -> pathlib.Path:
+        found = sorted((tmp / name).glob("*/*/ddp_r152"))
+        check(len(found) == 1, f"no single run directory under {name}")
+        return found[0]
+
+    c = paths["ddp_cli_train"] = {}
+    plain = run_cli(train_cli.main, common + ["--epochs", "1"]
+                    + dirs("plain"), c)
+    steps = DDP_CLI_SAMPLES // R152_BATCH
+    check(plain["state"].step == steps and c["softargmax_bwd"] == steps,
+          f"train ran {plain['state'].step} steps, launches {c}")
+    t0 = time.perf_counter()
+    r = torchrun("epipolarpose_tpu_torch.scripts.train",
+                 common + ["--epochs", "1", "--distributed"] + dirs("ddp"), 1)
+    train_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"train --distributed rc {r.returncode}: "
+          f"{r.stderr[-3000:]}")
+    text = r.stdout + r.stderr
+    check("1 process(es)" in text, "the run did not log its processes")
+    found = re.findall(r"epoch 0: loss ([-\d.]+) perf ([-\d.]+)", text)
+    check(bool(found), "train --distributed logged no epoch line")
+    ddp_ckpt = run_dir("ddp") / "checkpoints"
+    plain_ckpt = pathlib.Path(plain["output_dir"]) / "checkpoints"
+
+    def load(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    wd, wp = (load(d / "final_state.pth.tar")["state_dict"]
+              for d in (ddp_ckpt, plain_ckpt))
+    wmax = max((wd[k].double() - v.double()).abs().max().item()
+               for k, v in wp.items())
+    pd, pp = (load(d / f"{steps}.pth.tar")["perf"]
+              for d in (ddp_ckpt, plain_ckpt))
+    log(f"[ddp] train CLI at r152@384, {DDP_CLI_SAMPLES} records, "
+        f"{steps} steps, with --distributed (one nccl rank, "
+        f"{train_s:.1f} s) and without: loss {found[0][0]} / "
+        f"{plain['loss']:.5f}, perf {pd!r} / {pp!r}, final weights max "
+        f"|d| {wmax:.3g}")
+    check(found[0][0] == f"{plain['loss']:.5f}"
+          and abs(pd - pp) <= 1e-5 * abs(pp) and wmax <= 1e-6,
+          "train with --distributed differs from the run without")
+
+    c = paths["ddp_cli_valid"] = {}
+    vfile = str(plain_ckpt / "final_state.pth.tar")
+    vplain = run_cli(valid.main, common + ["--model-file", vfile]
+                     + dirs("vplain"), c)
+    r = torchrun("epipolarpose_tpu_torch.scripts.valid",
+                 common + ["--model-file", vfile, "--distributed"]
+                 + dirs("vddp"), 1)
+    check(r.returncode == 0, f"valid --distributed rc {r.returncode}: "
+          f"{r.stderr[-3000:]}")
+    vfound = re.findall(r"perf: ([-\d.]+)", r.stdout + r.stderr)
+    check(bool(vfound), "valid --distributed logged no perf")
+    preds = [np.load(run_dir(d) / "pred.npz")["preds"]
+             for d in ("vddp", "vplain")]
+    dpred = float(np.abs(preds[0] - preds[1]).max())
+    log(f"[ddp] valid CLI: perf {vfound[-1]} (--distributed) / "
+        f"{vplain:.6f}; predictions max |d| {dpred:.3g}; "
+        f"{c['softargmax_fwd']} forward launches in process")
+    check(vfound[-1] == f"{vplain:.6f}" and dpred <= 1e-4,
+          "valid with --distributed differs from the run without")
+    res["ddp"]["cli"] = dict(train_loss=plain["loss"], train_perf=pp,
+                             weights_max_diff=wmax, valid_perf=vplain,
+                             preds_max_diff=dpred)
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        res["ddp"]["nccl_two_ranks"] = f"not run: {cards} card"
+        log(f"[ddp] two nccl ranks: not run ({cards} card on this machine)")
+        return
+    r = torchrun("epipolarpose_tpu_torch.scripts.train",
+                 common + ["--epochs", "1", "--distributed"] + dirs("nccl2"),
+                 2)
+    check(r.returncode == 0, f"two nccl ranks rc {r.returncode}: "
+          f"{r.stderr[-3000:]}")
+    found = re.findall(r"epoch 0: loss ([-\d.]+) perf ([-\d.]+)",
+                       r.stdout + r.stderr)
+    check(bool(found) and math.isfinite(float(found[0][0])),
+          "two nccl ranks logged no finite loss")
+    res["ddp"]["nccl_two_ranks"] = dict(loss=float(found[0][0]),
+                                        perf=float(found[0][1]))
+    log(f"[ddp] two nccl ranks on two cards ({DDP_CLI_SAMPLES} records, "
+        f"global batch {2 * R152_BATCH}): loss {found[0][0]} perf "
+        f"{found[0][1]}")
+
+
 def descendants() -> dict[int, str]:
     """pid -> state and command line of every process descended from
     this one, from ``/proc``."""
@@ -2765,13 +3306,18 @@ def phase_processes(res: dict) -> None:
     tracker = resource_tracker._resource_tracker._pid
     left = wait_for_no_processes({server, tracker})
     check(not left, f"processes still running: {left}")
+    ranks = res.get("ddp_pids", [])
+    alive = [pid for pid in ranks if pathlib.Path(f"/proc/{pid}").exists()]
+    check(bool(ranks) and not alive, f"phase ddp's rank processes "
+          f"{ranks}: still there {alive}")
     stop_worker_server()
     left = wait_for_no_processes(set())
     check(not left, f"processes still running after stop_worker_server: "
           f"{left}")
     res["processes"] = dict(server=server, tracker=tracker)
-    log(f"[processes] none left; the worker server (pid {server}) and its "
-        f"resource tracker (pid {tracker}) stopped")
+    log(f"[processes] none left, phase ddp's ranks (pids {ranks}) "
+        f"among them; the worker server (pid {server}) and its resource "
+        f"tracker (pid {tracker}) stopped")
 
 
 def main() -> int:
@@ -2795,7 +3341,8 @@ def main() -> int:
               ("ss_nocam", phase_ss_nocam), ("pseudo_gt", phase_pseudo_gt),
               ("loader_workers", phase_loader_workers),
               ("jpeg", phase_jpeg), ("mpi3dhp", phase_mpi3dhp),
-              ("warp", phase_warp), ("processes", phase_processes)]
+              ("warp", phase_warp), ("remat", phase_remat),
+              ("ddp", phase_ddp), ("processes", phase_processes)]
     failed = []
     for i, (name, fn) in enumerate(phases, 1):
         if failed and failed[0] == "build":
@@ -2861,6 +3408,16 @@ def main() -> int:
              launches=paths["ss"]["softargmax_bwd"],
              launches_by_path=by_path("softargmax_bwd"),
              **res["softargmax_bwd_ss"]),
+        dict(name="softargmax_fwd_stats_r152", route="cuda", source=sa,
+             replaces=pallas.format(98, ""), path="remat",
+             launches=paths["remat"]["softargmax_fwd"],
+             launches_by_path=by_path("softargmax_fwd"),
+             **res["softargmax_fwd_stats_r152"]),
+        dict(name="softargmax_bwd_r152", route="cuda", source=sa,
+             replaces=pallas.format(174, " backward, _bwd"), path="remat",
+             launches=paths["remat"]["softargmax_bwd"],
+             launches_by_path=by_path("softargmax_bwd"),
+             **res["softargmax_bwd_r152"]),
         dict(name="matmul_stats", route="cuda",
              source="epipolarpose_tpu_torch/csrc/matmul_stats.cu",
              replaces="tools/profile_step.py:152", path="tool",
@@ -2915,6 +3472,13 @@ def main() -> int:
         f"valid {hp['samples_per_s']:.1f} samples/s, PCK3D@150 "
         f"{hp['perf']:.3f}; warp ms " + ", ".join(
             f"{k} {v:.3f}" for k, v in wp["ms"].items()))
+    rm, dp = res["remat"], res["ddp"]
+    log(f"r152@384 batch {R152_BATCH} bf16: ms a step {rm['False']['ms']:.2f}"
+        f" / {rm['True']['ms']:.2f} with REMAT, peak GB "
+        f"{rm['False']['peak_gb']:.2f} / {rm['True']['peak_gb']:.2f}; two "
+        f"gloo ranks on one card " + ", ".join(
+            f"{t:.2f}" for t in dp["gloo_one_card"]["ms"]) + " ms a step; "
+        f"two nccl ranks: {dp['nccl_two_ranks']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2923,4 +3487,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:
+        sys.exit(ddp_rank(sys.argv[2]))
     sys.exit(main())

@@ -2,9 +2,11 @@
 
 Same schema as the JAX package's config, so every ``experiments/**/*.yaml``
 file loads here unchanged: unknown keys raise, nested mappings merge
-recursively. ``TPU.*`` keys are accepted; on the GPU only
-``TPU.COMPUTE_DTYPE`` (the forward's autocast dtype) and ``TPU.REMAT``
-(not ported yet: it raises) have a meaning, the rest are no-ops.
+recursively. ``TPU.*`` keys are accepted; on the GPU among others
+``TPU.COMPUTE_DTYPE`` (the forward's autocast dtype), ``TPU.REMAT``
+(each backbone block recomputed in the backward) and ``TPU.MESH``
+(``DATA``: -1 or the number of processes; ``MODEL > 1`` raises) have a
+meaning; the TPU's compiler settings are no-ops.
 ``CUDNN.*`` sets ``torch.backends.cudnn`` as the original PyTorch code did.
 """
 

@@ -17,7 +17,8 @@ library, so the port writes the reference PyTorch layout instead:
 written here. Files hold tensors and plain containers only, so
 ``torch.load(..., weights_only=True)`` reads them; each is written to a
 temporary file and renamed into place, so a killed run never leaves a
-truncated newest file.
+truncated newest file. Under data parallelism the first process alone
+writes, and every process restores, after a barrier, the same file.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import math
 import os
 
 import torch
+
+from epipolarpose_tpu_torch.parallel.mesh import pod_sync, process_index
 
 logger = logging.getLogger(__name__)
 
@@ -136,7 +139,8 @@ class CheckpointManager:
     ``best_mode``: ``"max"`` for PCKh-style perf, ``"min"`` for MPJPE, as
     the dataset's metric direction says. Saves are synchronous, so
     :meth:`wait` and :meth:`close` do nothing; they keep the JAX
-    manager's calls.
+    manager's calls. Only the first process makes the directories and
+    writes.
     """
 
     def __init__(self, directory: str, max_to_keep: int = 3,
@@ -145,7 +149,10 @@ class CheckpointManager:
             raise ValueError(f"best_mode must be max or min: {best_mode!r}")
         self.directory = os.path.abspath(directory)
         self.best_dir = os.path.join(self.directory, "best")
-        os.makedirs(self.best_dir, exist_ok=True)
+        self.writes = process_index() == 0
+        if self.writes:
+            os.makedirs(self.best_dir, exist_ok=True)
+        pod_sync("checkpoint_dirs")
         self.max_to_keep = int(max_to_keep)
         self._best_mode = best_mode
         self._best_perf: float | None = None
@@ -175,6 +182,8 @@ class CheckpointManager:
             "scheduler": _plain(state.scheduler.state_dict()),
             "step": int(state.step), "epoch": int(epoch),
             "perf": float(perf)}
+        if not self.writes:
+            return
         atomic_save(payload, self._path(self.directory, step))
         for old in _steps(self.directory)[:-self.max_to_keep]:
             os.remove(self._path(self.directory, old))
@@ -189,7 +198,9 @@ class CheckpointManager:
         """Load the newest latest save (or ``step``'s) into ``state``: the
         model, the optimizer's moments and rate, the schedule's position
         and the step count. Returns (state, epoch + 1), or (state, 0)
-        when there is nothing to restore."""
+        when there is nothing to restore. Every process waits at a
+        barrier first, so it reads what the first process wrote."""
+        pod_sync("checkpoint_restore")
         steps = _steps(self.directory)
         if step is None and not steps:
             return state, 0
@@ -213,9 +224,11 @@ class CheckpointManager:
 
     def save_final(self, state) -> str:
         """The model's weights alone, ``final_state.pth.tar``; returns its
-        path."""
+        path (on every process, once the first has written it)."""
         path = os.path.join(self.directory, f"final_state{SUFFIX}")
-        atomic_save({"state_dict": state.model.state_dict()}, path)
+        if self.writes:
+            atomic_save({"state_dict": state.model.state_dict()}, path)
+        pod_sync("checkpoint_final")
         return path
 
     def wait(self) -> None:

@@ -1,11 +1,13 @@
 """Epoch loops: the reference ``train`` and ``validate`` shapes.
 
 Counterpart of the JAX package's ``core/function.py`` (``AverageMeter``,
-``train``, ``validate``) for one process and one batch per step
-(``TPU.FUSED_STEPS`` has no counterpart here). ``train`` waits for the
-card only when it logs; ``validate`` gathers predictions on the host and
-hands them to ``dataset.evaluate``. A ``writer`` is anything with
-tensorboard's ``add_scalar(tag, value, step)``.
+``train``, ``validate``) for one batch per step (``TPU.FUSED_STEPS`` has
+no counterpart here). ``train`` waits for the card only when it logs;
+``validate`` gathers predictions on the host (from every process under
+data parallelism) and hands them to ``dataset.evaluate``. A ``writer`` is
+anything with tensorboard's ``add_scalar(tag, value, step)``. Under data
+parallelism every process runs the loops and only the first writes
+files and scalars.
 """
 
 from __future__ import annotations
@@ -16,6 +18,10 @@ import time
 
 import numpy as np
 import torch
+
+from epipolarpose_tpu_torch.parallel.mesh import (process_allgather,
+                                                  process_count,
+                                                  process_index)
 
 logger = logging.getLogger(__name__)
 
@@ -50,9 +56,12 @@ def train(cfg, loader, state, train_step, epoch: int, writer=None,
     accuracy, when the step gives one), writes them to ``writer``
     (``add_scalar`` at the optimizer step), and with ``DEBUG.DEBUG`` dumps
     the batch's images for a single-view batch into ``output_dir``: the
-    only points where it waits for the card. Returns (state, average of
-    the logged losses).
+    only points where it waits for the card. The loss is the step's, a
+    mean over the processes; samples/s counts the global batch. Returns
+    (state, average of the logged losses).
     """
+    if process_index() != 0:
+        writer = output_dir = None
     batch_time, data_time = AverageMeter(), AverageMeter()
     losses, accs = AverageMeter(), AverageMeter()
     end = time.time()
@@ -60,7 +69,7 @@ def train(cfg, loader, state, train_step, epoch: int, writer=None,
     for i, batch in enumerate(loader):
         data_time.update(time.time() - end)
         state, metrics = train_step(state, batch)
-        n = int(batch["input"].shape[0])
+        n = int(batch["input"].shape[0]) * process_count()
         if i % int(cfg.PRINT_FREQ) == 0:
             if (cfg.DEBUG.DEBUG and output_dir is not None
                     and batch["input"].ndim == 4):
@@ -100,8 +109,14 @@ def validate(cfg, loader, dataset, eval_step, output_dir=None, writer=None,
 
     ``loader`` is any iterable of batches; ``dataset`` has ``__len__`` and
     ``evaluate(cfg, preds, output_dir)``. The perf goes to ``writer`` at
-    ``step``. Returns (name_values, perf).
+    ``step``. Under data parallelism each process's loader holds its slice
+    of every global batch: the predictions and boxes of every process are
+    gathered back into the global order, and every process evaluates
+    them (the first alone with ``output_dir`` and ``writer``). Returns
+    (name_values, perf).
     """
+    if process_index() != 0:
+        writer = output_dir = None
     all_preds, all_boxes = [], []
     n_seen = 0
     t0 = time.perf_counter()
@@ -113,18 +128,31 @@ def validate(cfg, loader, dataset, eval_step, output_dir=None, writer=None,
             [c, s, np.prod(s * 200, axis=-1, keepdims=True)], axis=-1))
         n_seen += preds.shape[0]
     total = time.perf_counter() - t0
-    preds = np.concatenate(all_preds)[:len(dataset)]
+    preds = _gather_batches(np.concatenate(all_preds), len(all_preds))
+    boxes = _gather_batches(np.concatenate(all_boxes), len(all_boxes))
+    n_seen *= process_count()
+    preds, boxes = preds[:len(dataset)], boxes[:len(dataset)]
     logger.info(f"validate: {n_seen} samples in {total:.3f}s "
                 f"({n_seen / max(total, 1e-9):.1f} samples/s)")
     if output_dir:
         np.savez(os.path.join(output_dir, "pred.npz"), preds=preds,
-                 boxes=np.concatenate(all_boxes)[:len(dataset)])
+                 boxes=boxes)
     name_values, perf = dataset.evaluate(cfg, preds, output_dir)
     if isinstance(name_values, dict):
         _print_name_value(name_values, cfg.MODEL.NAME)
     if writer is not None:
         writer.add_scalar("valid/perf", float(perf), int(step))
     return name_values, perf
+
+
+def _gather_batches(local: np.ndarray, n_batches: int) -> np.ndarray:
+    """Rows of ``n_batches`` batches, each process holding its contiguous
+    slice of every global batch, -> the global batches' rows in order."""
+    rows = process_allgather(local)
+    if process_count() == 1:
+        return rows
+    rows = rows.reshape((process_count(), n_batches, -1) + local.shape[1:])
+    return rows.swapaxes(0, 1).reshape((-1,) + local.shape[1:])
 
 
 def _print_name_value(name_value: dict, full_arch_name: str):

@@ -52,6 +52,9 @@ from epipolarpose_tpu_torch.ops.heatmap import (get_max_preds,
                                                 post_process_preds)
 from epipolarpose_tpu_torch.ops.integral import (generate_integral_target,
                                                  softmax_integral)
+from epipolarpose_tpu_torch.parallel.mesh import (mean_over_processes,
+                                                  process_allgather,
+                                                  process_index, unwrap)
 
 
 class Teacher(nn.Module):
@@ -220,7 +223,14 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
     poses to refined ones, under ``no_grad``. ``decode`` and ``solve``
     default to the kernels on the card; a caller may pass the plain
     versions to compare. ``state.model`` must be ``model`` (moved to
-    ``device``).
+    ``device``), or under data parallelism the module inside ``model``,
+    ``parallel.wrap_model``'s DDP wrapper, which runs the student's
+    forward. Each process then takes its own groups through the teacher,
+    the triangulation and the student; the ``estimated`` rig is fitted to
+    the detections of every process's groups, with global group 0's
+    intrinsics, as the JAX step fits it to the sharded batch, and each
+    process keeps its own groups' pseudo-GT. The metrics are means over
+    the processes.
     """
     cameras = str(cfg.TPU.SS_CAMERAS)
     if cameras not in ("given", "estimated"):
@@ -238,13 +248,13 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
     for a, b in flip_pairs:
         if a < num_joints and b < num_joints:
             perm[a], perm[b] = perm[b], perm[a]
-    model = model.to(device)
+    net = unwrap(model).to(device)
 
     def to_device(a) -> torch.Tensor:
         return torch.as_tensor(a).to(device, non_blocking=True)
 
     def step(state, batch):
-        if state.model is not model:
+        if state.model is not net:
             raise ValueError("the train state holds another model than the "
                              "one this step was built for")
         G, V = batch["input"].shape[:2]
@@ -279,13 +289,18 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
             det = joints_src.reshape(G, V, num_joints, 2)
             conf_gv = conf.reshape(G, V, -1)
             if cameras == "estimated":
-                # the rig from the detections; every group shares it, the
-                # intrinsics are group 0's; X in camera 0's frame
-                intr = cam.map(lambda t: t[0])
+                # the rig from the detections of the global batch; every
+                # group shares it, the intrinsics are global group 0's; X
+                # in camera 0's frame; this process keeps its own groups
+                intr = cam.map(lambda t: process_allgather(t[:1])[0])
                 x0, p_est, res = pseudo_gt_uncalibrated(
-                    det, intr, conf=conf_gv.contiguous(), bone_pairs=bones,
+                    process_allgather(det), intr,
+                    conf=process_allgather(conf_gv).contiguous(),
+                    bone_pairs=bones,
                     bone_length_mm=bone_mm if bone_mm > 0 else None,
                     solve=solve)
+                mine = slice(process_index() * G, (process_index() + 1) * G)
+                x0, res = x0[mine], res[mine]
                 if refiner is not None:
                     root = x0[:, root_idx:root_idx + 1]
                     x0 = root + refiner(x0 - root)
@@ -337,7 +352,8 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
         # 4) the student's update
         loss = integral_update(state, model, imgs, target, tw, num_joints,
                                depth_dim, decode)
-        return state, {"loss": loss, "tri_residual": res.mean(),
-                       "teacher_conf": conf.mean()}
+        return state, mean_over_processes(
+            {"loss": loss, "tri_residual": res.mean(),
+             "teacher_conf": conf.mean()})
 
     return step

@@ -28,6 +28,7 @@ from epipolarpose_tpu_torch.ops.integral import (generate_integral_target,
 from epipolarpose_tpu_torch.ops.losses import (integral_l1_loss,
                                                joints_mse_loss)
 from epipolarpose_tpu_torch.ops.metrics import heatmap_accuracy
+from epipolarpose_tpu_torch.parallel.mesh import mean_over_processes, unwrap
 
 # ImageNet mean/std (torchvision Normalize constants of the reference)
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -88,7 +89,9 @@ def integral_update(state, model: torch.nn.Module, x: torch.Tensor,
                     decode: Callable = softmax_integral) -> torch.Tensor:
     """One optimizer step of the integral model on NCHW images ``x``: the
     forward in train mode, ``decode``, the L1 loss, the backward and the
-    update. Returns the loss, detached."""
+    update. ``model`` runs the forward: under data parallelism the DDP
+    wrapper of ``state.model``, whose hooks average the gradients. Returns
+    the loss, detached."""
     model.train()
     coords = decode(model(x), num_joints, depth_dim)
     loss = integral_l1_loss(coords, target, tw)
@@ -105,7 +108,10 @@ def make_train_step(cfg, model: torch.nn.Module,
     ``model`` itself (its optimizer holds that model's parameters; any
     other model, a copy included, raises): the forward in train mode (BN
     on batch statistics, which it updates), the loss, the backward,
-    ``optimizer.step()`` and ``scheduler.step()``.
+    ``optimizer.step()`` and ``scheduler.step()``. Under data parallelism
+    ``model`` is ``parallel.wrap_model``'s DDP wrapper: the forward runs
+    through it and ``state.model`` is the module inside; each process
+    steps on its slice of the global batch.
 
     - ``integral``: the soft-argmax (``decode``: the CUDA kernels on the
       card, with their backward) and the integral L1 loss; metrics
@@ -114,8 +120,8 @@ def make_train_step(cfg, model: torch.nn.Module,
       ``{"loss", "acc"}``, ``acc`` the heatmap accuracy of this step's
       forward.
 
-    The metrics stay on the device: nothing waits for the card. ``model``
-    is moved to ``device``.
+    The metrics are means over the processes and stay on the device:
+    nothing waits for the card. ``model`` is moved to ``device``.
     """
     target_type = _check_target_type(cfg)
     device = torch.device(device)
@@ -127,13 +133,13 @@ def make_train_step(cfg, model: torch.nn.Module,
     num_joints = int(cfg.MODEL.NUM_JOINTS)
     use_tw = bool(cfg.LOSS.USE_TARGET_WEIGHT)
     root_idx = 0
-    model = model.to(device)
+    net = unwrap(model).to(device)
 
     def to_device(a) -> torch.Tensor:
         return torch.as_tensor(a).to(device, non_blocking=True)
 
     def step(state, batch):
-        if state.model is not model:
+        if state.model is not net:
             raise ValueError("the train state holds another model than the "
                              "one this step was built for")
         x = normalize_images(to_device(batch["input"]))
@@ -149,7 +155,8 @@ def make_train_step(cfg, model: torch.nn.Module,
             optimizer_step(state, loss)
             with torch.no_grad():
                 acc = heatmap_accuracy(out.detach(), target)[1]
-            return state, {"loss": loss.detach(), "acc": acc}
+            return state, mean_over_processes({"loss": loss.detach(),
+                                               "acc": acc})
         depth = None
         if "joints_3d" in batch:
             depth = _root_relative_depth(
@@ -160,7 +167,7 @@ def make_train_step(cfg, model: torch.nn.Module,
         loss = integral_update(state, model, x, target,
                                tw if use_tw else None, num_joints, depth_dim,
                                decode)
-        return state, {"loss": loss}
+        return state, mean_over_processes({"loss": loss})
 
     return step
 

@@ -20,6 +20,21 @@ emits bf16, as the JAX model's bf16 BatchNorm does. The output keeps the
 compute dtype: the (N, J*D, H, W) volume is 0.57 GB in bf16 at batch 64 of
 the flagship head, and the soft-argmax kernel reads it as it is.
 
+``TPU.REMAT`` (``remat=True``) is the JAX package's ``nn.remat`` over
+each backbone block: the block's forward runs under
+``torch.utils.checkpoint`` and is run again in the backward instead of
+keeping its activations. The stem, the deconv head and ``final_layer``
+are not wrapped. The second forward updates no batch-norm buffer (JAX
+drops the recomputed ``batch_stats``), so the buffers after a step are
+the same with and without it.
+
+Under data parallelism the train step's model has
+:class:`GlobalBatchNorm2d` in place of :class:`BatchNorm2d`
+(``parallel.wrap_model``): statistics over the global batch, as flax's
+BatchNorm gives a batch sharded over a mesh (flax computes the variance
+as E[x^2] - E[x]^2; the port combines centred sums, which do not
+cancel).
+
 Weight init follows the JAX package: backbone convs truncated-normal
 He init over fan-out, deconvs and the final conv normal(std=0.001), BN
 scale 1 and shift 0, running mean 0 and variance 1. It draws from a
@@ -30,11 +45,17 @@ package's numbers.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from epipolarpose_tpu_torch.parallel.mesh import (all_reduce_sum,
+                                                  process_allgather,
+                                                  process_count)
 
 # layers per stage for each depth
 RESNET_SPEC = {
@@ -87,6 +108,79 @@ class FlaxRunningVar:
 class BatchNorm2d(FlaxRunningVar, nn.BatchNorm2d):
     """``nn.BatchNorm2d`` with flax's running variance
     (:class:`FlaxRunningVar`)."""
+
+
+class _GlobalBatchNormFn(torch.autograd.Function):
+    """Train-mode batch norm over the batches of every process. Forward:
+    each process's per-channel count, mean and centred sum of squares
+    (two passes over its slice), gathered in one collective and combined
+    by Chan et al.'s pairwise rule, so the global variance does not cancel
+    in float32 as E[x^2] - E[x]^2 does where a channel's mean is large
+    against its spread; every process combines the same numbers in the
+    same order, so all hold the same statistics. Backward: one all-reduce
+    of (sum dy, sum dy * xhat); the gradient of ``x`` is that of the sum of
+    every process's loss, so DDP's mean of the parameter gradients is the
+    gradient of the global mean loss. Returns (y, mean, biased
+    variance)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, c] + [1] * (x.dim() - 2)
+        xf = x.float()
+        n_local = xf.numel() // c
+        mean_local = xf.mean(dims)
+        m2_local = (xf - mean_local.view(shape)).square().sum(dims)
+        parts = process_allgather(torch.cat([
+            mean_local, m2_local,
+            torch.full((1,), n_local, dtype=torch.float32,
+                       device=x.device)])[None])
+        means, m2s, counts = parts[:, :c], parts[:, c:2 * c], parts[:, -1:]
+        n = counts.sum()
+        mean = (means * counts).sum(0) / n
+        m2 = (m2s + counts * (means - mean).square()).sum(0)
+        var = m2 / n
+        invstd = torch.rsqrt(var + eps)
+        scale = (weight * invstd).view(shape)
+        y = (xf - mean.view(shape)) * scale + bias.view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, c] + [1] * (x.dim() - 2)
+        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        dyf = dy.float()
+        sum_dy, sum_dy_xhat = dyf.sum(dims), (dyf * xhat).sum(dims)
+        g = all_reduce_sum(torch.cat([sum_dy, sum_dy_xhat])) / n
+        dx = (dyf - g[:c].view(shape) - xhat * g[c:].view(shape)) \
+            * (weight * invstd).view(shape)
+        return dx.to(x.dtype), sum_dy_xhat, sum_dy, None
+
+
+class GlobalBatchNorm2d(BatchNorm2d):
+    """:class:`BatchNorm2d` whose train-mode statistics cover the global
+    batch of every process (:class:`_GlobalBatchNormFn`); the running
+    buffers get flax's update, biased variance and the global count,
+    written in place, so they agree on every process. With one process,
+    or in eval mode, it is :class:`BatchNorm2d`. Same state-dict names."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or process_count() == 1:
+            return super().forward(x)
+        y, mean, var = _GlobalBatchNormFn.apply(x, self.weight, self.bias,
+                                                self.eps)
+        if self.track_running_stats:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+        return y
 
 
 def _bn(c: int) -> BatchNorm2d:
@@ -166,22 +260,47 @@ class SameDeconv2d(nn.ConvTranspose2d):
         return y[..., :-self.crop, :-self.crop] if self.crop else y
 
 
+@contextlib.contextmanager
+def _buffers_kept(block: nn.Module):
+    """The recomputing forward of a checkpointed block: its batch norms run
+    as in the forward (the same saved tensors) with momentum 0, so each
+    running buffer keeps its value, and the step count is put back."""
+    kept = [(m, m.momentum, m.num_batches_tracked.clone())
+            for m in block.modules()
+            if isinstance(m, nn.BatchNorm2d) and m.track_running_stats]
+    for m, _, _ in kept:
+        m.momentum = 0.0
+    try:
+        yield
+    finally:
+        for m, momentum, count in kept:
+            m.momentum = momentum
+            m.num_batches_tracked.copy_(count)
+
+
+def _remat_contexts(block: nn.Module):
+    return contextlib.nullcontext(), _buffers_kept(block)
+
+
 class PoseResNet(nn.Module):
     """Backbone + deconv head + final conv. Input (N, 3, H, W) float;
-    output (N, NUM_JOINTS * DEPTH_DIM, H/4, W/4) in ``dtype``."""
+    output (N, NUM_JOINTS * DEPTH_DIM, H/4, W/4) in ``dtype``. With
+    ``remat`` each backbone block is recomputed in the backward (module
+    docstring)."""
 
     def __init__(self, num_layers: int = 50, num_joints: int = 16,
                  depth_dim: int = 1, num_deconv_layers: int = 3,
                  num_deconv_filters: Sequence[int] = (256, 256, 256),
                  num_deconv_kernels: Sequence[int] = (4, 4, 4),
                  final_conv_kernel: int = 1, deconv_with_bias: bool = False,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, remat: bool = False):
         super().__init__()
         block_name, stages = RESNET_SPEC[num_layers]
         block = BasicBlock if block_name == "basic" else Bottleneck
         self.num_joints = num_joints
         self.depth_dim = depth_dim
         self.dtype = dtype
+        self.remat = remat
 
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = _bn(64)
@@ -214,9 +333,23 @@ class PoseResNet(nn.Module):
                 if self.dtype != torch.float32 else contextlib.nullcontext())
         with cast:
             x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-            x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+            for layer in (self.layer1, self.layer2, self.layer3,
+                          self.layer4):
+                x = self._stage(layer, x)
             x = self.final_layer(self.deconv_layers(x))
         return x.to(self.dtype)
+
+    def _stage(self, layer: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return layer(x)
+        for block in layer:
+            # non-reentrant: DDP's gradient hooks and autocast hold; no RNG
+            # in a block, so its state is not saved
+            x = checkpoint(block, x, use_reentrant=False,
+                           preserve_rng_state=False,
+                           context_fn=functools.partial(_remat_contexts,
+                                                        block))
+        return x
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator | None = None
@@ -244,9 +377,6 @@ def get_pose_net(cfg, is_train: bool = True,
     module's ``train()``/``eval()`` mode. The model is built on the CPU;
     move it with ``.to(device)``.
     """
-    if cfg.TPU.REMAT:
-        raise NotImplementedError("TPU.REMAT (activation checkpointing) is "
-                                  "not ported yet")
     extra = cfg.MODEL.EXTRA
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     model = PoseResNet(
@@ -259,5 +389,6 @@ def get_pose_net(cfg, is_train: bool = True,
         final_conv_kernel=int(extra.FINAL_CONV_KERNEL),
         deconv_with_bias=bool(extra.DECONV_WITH_BIAS),
         dtype=dtypes[cfg.TPU.COMPUTE_DTYPE],
+        remat=bool(cfg.TPU.REMAT),
     )
     return model.init_weights(generator)

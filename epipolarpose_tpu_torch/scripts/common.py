@@ -1,9 +1,16 @@
-"""What the port's CLIs share: the device argument, the ``--synthetic``
-dataset rules, and the flags refused in the port."""
+"""What the port's CLIs share: the device argument and ``--distributed``,
+the ``--synthetic`` dataset rules, and the settings refused in the
+port."""
 
 from __future__ import annotations
 
+import logging
+
 import torch
+
+from epipolarpose_tpu_torch.parallel.mesh import (init_distributed,
+                                                  make_mesh,
+                                                  refuse_model_axis)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -43,13 +50,39 @@ def dataset_kwargs(cfg, samples: int) -> dict:
     return {}
 
 
-def refuse_unported(cfg, distributed: bool = False) -> None:
-    """Raise on what the port does not run: multi-process training and
-    fused steps."""
+def setup_processes(cfg, device: torch.device, distributed: bool
+                    ) -> tuple[torch.device, int]:
+    """``--distributed``: join the process group ``torch.distributed.run``
+    launched, one process per card (:func:`parallel.init_distributed`).
+    Returns (this process's device, the data axis's size: the number of
+    processes). Without it one process runs on one card (see
+    :func:`log_processes`)."""
     if distributed:
-        raise NotImplementedError(
-            "--distributed: multi-GPU training with torch DDP is not ported "
-            "yet (ROADMAP Queue A item 9)")
+        device = init_distributed(device)
+    return device, make_mesh(cfg)
+
+
+def log_processes(logger: logging.Logger, device: torch.device,
+                  world: int, distributed: bool) -> None:
+    """Log the device and the number of processes. Unlike the JAX package,
+    which spreads one process over every local chip, a run without
+    ``--distributed`` uses one card: the count it leaves unused is
+    logged."""
+    name = (f" ({torch.cuda.get_device_name(device)})"
+            if device.type == "cuda" else "")
+    logger.info(f"device: {device}{name}; {world} process(es)")
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    if not distributed and cards > 1:
+        logger.warning(
+            f"one process on one card: {cards - 1} cards left unused; "
+            "launch with python -m torch.distributed.run --nproc-per-node "
+            "<cards> ... --distributed to use them")
+
+
+def refuse_unported(cfg) -> None:
+    """Raise on what the port does not run: fused steps and a model axis
+    of the mesh."""
+    refuse_model_axis(cfg)
     if int(cfg.TPU.FUSED_STEPS) > 1:
         raise NotImplementedError(
             "TPU.FUSED_STEPS > 1 has no counterpart in the PyTorch port "

@@ -3,6 +3,8 @@
     python -m epipolarpose_tpu_torch.scripts.train --cfg experiments/h36m/train_fs_r50_256_integral.yaml
     python -m epipolarpose_tpu_torch.scripts.train --cfg ... --synthetic --epochs 2   # data-free
     python -m epipolarpose_tpu_torch.scripts.train --cfg ... --device cpu             # the CPU
+    python -m torch.distributed.run --nproc-per-node 8 \
+        -m epipolarpose_tpu_torch.scripts.train --cfg ... --distributed       # 8 cards
 
 The flow: config -> logger and metric writer -> model -> datasets ->
 optimizer and schedule (its boundaries in optimizer steps: view groups for
@@ -11,6 +13,14 @@ in the dataset's metric direction -> ``TRAIN.RESUME`` -> the SS step
 (teacher from ``MODEL.PRETRAINED``, refiner from ``TPU.SS_REFINER``) or
 the fully supervised / 2D step -> each epoch ``epoch_loader`` ->
 ``train`` -> ``validate`` -> a checkpoint -> the final weights.
+
+``--distributed`` runs one process per card under
+``torch.distributed.run``, as the JAX script runs one per host: the
+global batch is ``TRAIN.BATCH_SIZE`` (and ``TEST.BATCH_SIZE``) times the
+number of processes, the schedule counts global batches, each process
+decodes its slice of every batch, the model trains through
+``parallel.wrap_model`` (batch norm over the global batch, DDP), and the
+first process writes the logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -24,8 +34,10 @@ import torch
 
 from epipolarpose_tpu_torch.config import load_config, update_dir
 from epipolarpose_tpu_torch.scripts.common import (dataset_kwargs,
+                                                   log_processes,
                                                    refuse_unported,
                                                    resolve_device,
+                                                   setup_processes,
                                                    use_synthetic)
 
 
@@ -45,9 +57,10 @@ def parse_args(argv=None):
     p.add_argument("--profile", action="store_true",
                    help="write a torch.profiler Chrome trace of the first "
                         "epoch, from its third step, into the log "
-                        "directory")
+                        "directory (the first process's)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-GPU training (not ported: refused)")
+                   help="one process per card under torch.distributed.run "
+                        "(nccl; gloo with --device cpu)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; needs a card) or cpu")
     return p.parse_args(argv)
@@ -66,8 +79,9 @@ def main(argv=None) -> dict:
         cfg.TRAIN.END_EPOCH = args.epochs
     if args.synthetic:
         use_synthetic(cfg, train=True)
-    refuse_unported(cfg, args.distributed)
-    device = resolve_device(args.device)
+    refuse_unported(cfg)
+    device, world = setup_processes(cfg, resolve_device(args.device),
+                                    args.distributed)
 
     from epipolarpose_tpu_torch.core import (create_train_state,
                                              make_eval_step, make_train_step,
@@ -80,12 +94,11 @@ def main(argv=None) -> dict:
     from epipolarpose_tpu_torch.core.steps import configure_backends
     from epipolarpose_tpu_torch.data import epoch_loader, get_dataset
     from epipolarpose_tpu_torch.models import get_model
+    from epipolarpose_tpu_torch.parallel import process_index, wrap_model
 
     configure_backends(cfg)
     logger, output_dir, tb_dir = create_logger(cfg, args.cfg, "train")
-    logger.info(f"device: {device}"
-                + (f" ({torch.cuda.get_device_name(device)})"
-                   if device.type == "cuda" else ""))
+    log_processes(logger, device, world, args.distributed)
     writer = create_metric_writer(tb_dir)
 
     model = get_model(cfg, True,
@@ -94,7 +107,8 @@ def main(argv=None) -> dict:
     train_ds = get_dataset(cfg, cfg.DATASET.TRAIN_SET, True, **kw)
     valid_ds = get_dataset(cfg, cfg.DATASET.TEST_SET, False, **kw)
 
-    batch_size = int(cfg.TRAIN.BATCH_SIZE)
+    # global batches: the JAX script's BATCH_SIZE x the mesh's data axis
+    batch_size = int(cfg.TRAIN.BATCH_SIZE) * world
     self_supervised = cfg.DATASET.LABEL_SOURCE == "triangulated"
     # the schedule counts optimizer steps: one a view group batch for SS
     epoch_units = (len(train_ds.view_groups) if self_supervised
@@ -115,6 +129,7 @@ def main(argv=None) -> dict:
         logger.info(f"resumed at epoch {begin_epoch}, step {state.step}")
 
     flip_pairs = getattr(train_ds, "flip_pairs", ())
+    net = wrap_model(model) if args.distributed else model
     if self_supervised:
         from epipolarpose_tpu_torch.core.self_supervised import (
             load_refiner, load_teacher, make_ss_train_step)
@@ -123,27 +138,29 @@ def main(argv=None) -> dict:
         if cfg.TPU.SS_REFINER:
             refiner = load_refiner(cfg, cfg.TPU.SS_REFINER, device)
             logger.info(f"refining pseudo-GT with {cfg.TPU.SS_REFINER}")
-        tstep = make_ss_train_step(cfg, model, teacher, device=device,
+        tstep = make_ss_train_step(cfg, net, teacher, device=device,
                                    flip_pairs=flip_pairs, refiner=refiner)
     else:
-        tstep = make_train_step(cfg, model, device=device)
+        tstep = make_train_step(cfg, net, device=device)
     estep = make_eval_step(cfg, model, flip_pairs, device=device)
 
     best_perf = -np.inf if higher_better else np.inf
     perf = avg_loss = None
+    shard = dict(process_index=process_index(), process_count=world)
     for epoch in range(begin_epoch, int(cfg.TRAIN.END_EPOCH)):
         loader = epoch_loader(train_ds, batch_size, epoch,
                               multiview=self_supervised,
-                              prefetch=int(cfg.TPU.PREFETCH), device=device)
-        if args.profile and epoch == begin_epoch:
+                              prefetch=int(cfg.TPU.PREFETCH), device=device,
+                              **shard)
+        if args.profile and epoch == begin_epoch and process_index() == 0:
             state, avg_loss = _profiled(cfg, loader, state, tstep, epoch,
                                         writer, output_dir, tb_dir, device,
                                         logger)
         else:
             state, avg_loss = train(cfg, loader, state, tstep, epoch, writer,
                                     output_dir)
-        vloader = epoch_loader(valid_ds, int(cfg.TEST.BATCH_SIZE), epoch,
-                               is_train=False, device=device)
+        vloader = epoch_loader(valid_ds, int(cfg.TEST.BATCH_SIZE) * world,
+                               epoch, is_train=False, device=device, **shard)
         _, perf = validate(cfg, vloader, valid_ds, estep, output_dir, writer,
                            state.step)
         best_perf = (max if higher_better else min)(best_perf, perf)
@@ -156,6 +173,8 @@ def main(argv=None) -> dict:
     ckpt.close()
     if writer is not None:
         writer.close()
+    if args.distributed:
+        torch.distributed.destroy_process_group()
     logger.info("done")
     return {"state": state, "loss": avg_loss, "perf": perf,
             "best_perf": best_perf,

@@ -3,6 +3,8 @@
     python -m epipolarpose_tpu_torch.scripts.valid --cfg experiments/h36m/valid_r50_256_integral.yaml \
         --model-file output/.../checkpoints/final_state.pth.tar
     python -m epipolarpose_tpu_torch.scripts.valid --cfg ... --synthetic   # data-free
+    python -m torch.distributed.run --nproc-per-node 8 \
+        -m epipolarpose_tpu_torch.scripts.valid --cfg ... --distributed   # 8 cards
 
 Loads ``TEST.MODEL_FILE`` (a ``.pth`` / ``.pth.tar`` file or a
 ``checkpoints`` directory), runs ``validate`` on the test split, logs the
@@ -10,7 +12,9 @@ metric table and ``perf: <value>``: MPJPE (mm, lower is better) on H36M,
 PCK3D@150 (percent, higher is better) on MPI-INF-3DHP, where
 ``experiments/h36m/valid_3dhp_transfer.yaml`` scores an H36M model on the
 3DHP test set (``DATASET.ROOT`` or ``--dataDir`` points at the tree; its
-JPEG frames need no OpenCV).
+JPEG frames need no OpenCV). ``--distributed``: one process per card,
+the global batch ``TEST.BATCH_SIZE`` times the number of processes, each
+process's slice of every batch gathered back before ``evaluate``.
 """
 
 from __future__ import annotations
@@ -21,8 +25,10 @@ import torch
 
 from epipolarpose_tpu_torch.config import load_config, update_dir
 from epipolarpose_tpu_torch.scripts.common import (dataset_kwargs,
+                                                   log_processes,
                                                    refuse_unported,
                                                    resolve_device,
+                                                   setup_processes,
                                                    use_synthetic)
 
 
@@ -37,7 +43,8 @@ def parse_args(argv=None):
     p.add_argument("--logDir", type=str, default=None)
     p.add_argument("--dataDir", type=str, default=None)
     p.add_argument("--distributed", action="store_true",
-                   help="multi-GPU evaluation (not ported: refused)")
+                   help="one process per card under torch.distributed.run "
+                        "(nccl; gloo with --device cpu)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; needs a card) or cpu")
     return p.parse_args(argv)
@@ -52,8 +59,9 @@ def main(argv=None) -> float:
         cfg.TEST.MODEL_FILE = args.model_file
     if args.synthetic:
         use_synthetic(cfg, train=False)
-    refuse_unported(cfg, args.distributed)
-    device = resolve_device(args.device)
+    refuse_unported(cfg)
+    device, world = setup_processes(cfg, resolve_device(args.device),
+                                    args.distributed)
 
     from epipolarpose_tpu_torch.core import make_eval_step, validate
     from epipolarpose_tpu_torch.core.checkpoint import load_model_variables
@@ -61,9 +69,11 @@ def main(argv=None) -> float:
     from epipolarpose_tpu_torch.core.steps import configure_backends
     from epipolarpose_tpu_torch.data import epoch_loader, get_dataset
     from epipolarpose_tpu_torch.models import get_model
+    from epipolarpose_tpu_torch.parallel import process_index
 
     configure_backends(cfg)
     logger, output_dir, _ = create_logger(cfg, args.cfg, "valid")
+    log_processes(logger, device, world, args.distributed)
     model = get_model(cfg, False, torch.Generator().manual_seed(0))
     if cfg.TEST.MODEL_FILE:
         load_model_variables(model, cfg.TEST.MODEL_FILE)
@@ -72,10 +82,13 @@ def main(argv=None) -> float:
                      **dataset_kwargs(cfg, args.samples))
     estep = make_eval_step(cfg, model, getattr(ds, "flip_pairs", ()),
                            device=device)
-    loader = epoch_loader(ds, int(cfg.TEST.BATCH_SIZE), 0, is_train=False,
-                          device=device)
+    loader = epoch_loader(ds, int(cfg.TEST.BATCH_SIZE) * world, 0,
+                          is_train=False, device=device,
+                          process_index=process_index(), process_count=world)
     _, perf = validate(cfg, loader, ds, estep, output_dir=output_dir)
     logger.info(f"perf: {perf:.6f}")
+    if args.distributed:
+        torch.distributed.destroy_process_group()
     return perf
 
 

@@ -10,11 +10,17 @@ teacher trained by the CLI, then the SS CLI with that teacher as
 ``MODEL.PRETRAINED`` (its backbone merged into the student, the head
 skipped) and a refiner from ``train_refiner`` as ``TPU.SS_REFINER``;
 the calibration-free debug config (``TPU.SS_CAMERAS: estimated``)
-through ``train``. Refused: ``--device cuda`` without a card, ``--distributed``,
-``TPU.FUSED_STEPS > 1``.
+through ``train``. ``train --distributed --device cpu`` in two ``gloo``
+processes under ``torch.distributed.run`` against one process on the same
+global batch. Refused: ``--device cuda`` without a card,
+``TPU.MESH.MODEL > 1``, ``TPU.FUSED_STEPS > 1``.
 """
 
+import json
+import os
 import pathlib
+import subprocess
+import sys
 
 import cv2
 import numpy as np
@@ -28,6 +34,7 @@ from epipolarpose_tpu_torch.config import get_model_name, load_config
 from epipolarpose_tpu_torch.core import function
 from epipolarpose_tpu_torch.core.logger import (create_logger,
                                                 create_metric_writer)
+from epipolarpose_tpu_torch.models import get_pose_net
 from epipolarpose_tpu_torch.scripts import demo, train, train_refiner, valid
 from epipolarpose_tpu_torch.utils.vis import read_png
 from test_torch_checkpoint import quiet_cli
@@ -183,12 +190,13 @@ def test_device_cuda_without_a_card_raises(tmp_path):
 
 
 def test_unported_flags_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="DDP"):
-        train.main(["--cfg", str(DEBUG_3D), "--distributed", "--device",
-                    "cpu"])
-    with pytest.raises(NotImplementedError, match="DDP"):
-        valid.main(["--cfg", str(DEBUG_3D), "--distributed", "--device",
-                    "cpu"])
+    """A model axis of the mesh and fused steps are refused by name, by
+    both CLIs, before any process group is joined."""
+    model_axis = _yaml(tmp_path / "mesh.yaml", TPU={"MESH": {"MODEL": 2}})
+    for cli in (train, valid):
+        with pytest.raises(NotImplementedError, match="MESH.MODEL.*item 14"):
+            cli.main(["--cfg", model_axis, "--distributed", "--device",
+                      "cpu"])
     fused = _yaml(tmp_path / "fused.yaml", TPU={"FUSED_STEPS": 2})
     with pytest.raises(NotImplementedError, match="FUSED_STEPS"):
         train.main(["--cfg", fused, "--device", "cpu"])
@@ -292,3 +300,62 @@ def test_profile_writes_a_trace_from_the_third_step(tmp_path):
     assert len(traces) == 1
     log = next((tmp_path / "out").rglob("prof_*_train.log")).read_text()
     assert "profiler trace of steps 3-4 written to" in log
+
+
+RUNNER = """
+import json, os, sys
+sys.modules["tensorboard"] = None      # no metric writer: no TensorFlow
+from epipolarpose_tpu_torch.scripts import train
+out = train.main(sys.argv[2:])
+with open(os.path.join(sys.argv[1], f"rank{os.environ['RANK']}.json"),
+          "w") as f:
+    json.dump({"loss": out["loss"], "perf": out["perf"],
+               "steps": out["state"].step, "final": out["final"]}, f)
+"""
+
+
+def test_distributed_train_under_torch_distributed_run(tmp_path):
+    """``train --distributed --device cpu`` in two processes started by
+    ``torch.distributed.run`` (8 crops a process, 2 steps) against one
+    process with the global batch of 16 (``TRAIN`` and ``TEST``): the
+    same step count (the schedule counts global batches), the first
+    step's loss relative 1e-5 (batch norm over the global batch), the
+    perf after both steps relative 1e-4 (Adam's sign noise on near-zero
+    gradients moves the second step's weights apart, ROADMAP Queue C),
+    one final checkpoint that loads ``strict=True`` into a plain model
+    and gives the same perf through ``valid``."""
+    per_rank = _yaml(tmp_path / "ddp.yaml", PRINT_FREQ=2,
+                     TRAIN={"BATCH_SIZE": 8}, TEST={"BATCH_SIZE": 8})
+    one = _yaml(tmp_path / "one.yaml", PRINT_FREQ=2,
+                TRAIN={"BATCH_SIZE": 16}, TEST={"BATCH_SIZE": 16})
+    args = ["--cfg", per_rank, "--synthetic", "--samples", "32", "--epochs",
+            "1", "--device", "cpu", "--modelDir", str(tmp_path / "out"),
+            "--logDir", str(tmp_path / "log"), "--distributed"]
+    runner = tmp_path / "runner.py"
+    runner.write_text(RUNNER)
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", str(runner), str(tmp_path)] + args,
+        env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    ranks = [json.loads((tmp_path / f"rank{r}.json").read_text())
+             for r in range(2)]
+    assert ranks[0] == ranks[1]
+    with quiet_cli():
+        want = train.main(["--cfg", one, "--synthetic", "--samples", "32",
+                           "--epochs", "1"] + _common(tmp_path / "one"))
+    got = ranks[0]
+    assert got["steps"] == want["state"].step == 2
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+    np.testing.assert_allclose(got["perf"], want["perf"], rtol=1e-4)
+    net = get_pose_net(load_config(one))
+    sd = torch.load(got["final"], map_location="cpu", weights_only=True)
+    net.load_state_dict(sd["state_dict"], strict=True)
+    logs = list(pathlib.Path(got["final"]).parents[1].glob("ddp_*_train.log"))
+    assert len(logs) == 1 and "2 process(es)" in logs[0].read_text()
+    with quiet_cli():
+        perf = valid.main(["--cfg", per_rank, "--synthetic", "--samples",
+                           "32", "--model-file", got["final"]]
+                          + _common(tmp_path / "valid"))
+    assert perf == pytest.approx(got["perf"], rel=1e-6)

@@ -114,10 +114,18 @@ def test_port_keys_are_the_jax_export_keys():
 
 
 def test_remat_and_unknown_model_raise():
+    """``TPU.REMAT`` builds the remat model (the name is historical: the
+    port used to refuse it) with the same state-dict names and, in eval
+    mode, the same output; an unknown ``MODEL.NAME`` raises."""
     cfg = load_config(DEBUG_3D)
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    plain = get_pose_net(cfg, generator=torch.Generator().manual_seed(0))
     cfg.TPU.REMAT = True
-    with pytest.raises(NotImplementedError):
-        get_pose_net(cfg)
+    remat = get_pose_net(cfg, generator=torch.Generator().manual_seed(0))
+    assert remat.remat and not plain.remat
+    assert list(remat.state_dict()) == list(plain.state_dict())
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(remat.eval()(x), plain.eval()(x))
     cfg.TPU.REMAT = False
     cfg.MODEL.NAME = "nope"
     with pytest.raises(ValueError):
