@@ -22,7 +22,7 @@ card, then drives the port's paths through their entry points:
 5. the H36M 3D train path (``experiments/h36m/train_fs_r50_256_integral.yaml``:
    ResNet-50 at 256x256, 17 joints, DEPTH_DIM 64, batch 32, bf16, Adam)
    via ``create_train_state`` -> ``make_train_step`` -> ``train``, three
-   timed calls of 40 steps each on one seeded batch; then train, eval,
+   timed calls of 20 steps each on one seeded batch; then train, eval,
    train on that one model (the eval preds against a fresh eval-mode copy,
    no buffer moved by the eval); then the soft-argmax forward (with its
    saved statistics) and backward kernels against their plain versions at
@@ -38,7 +38,7 @@ card, then drives the port's paths through their entry points:
    10^6 points (with TF32 allowed and not), timed beside the launch floor
    and with its registers from the build's report, the soft-argmax kernels at
    (128, 17*64, 64, 64), the perfect teacher (pseudo-GT within 1 mm,
-   3 warm-up steps and 2 timed windows of 20 steps through
+   3 warm-up steps and 2 timed windows of 10 steps through
    ``make_ss_train_step``), a random bf16 ResNet-50 teacher for 3 steps
    (its weights and buffers unchanged), and one step through the kernels
    against the same step through the plain versions;
@@ -102,7 +102,7 @@ card, then drives the port's paths through their entry points:
    batch against its plain version and float64 oracles; records/s of
    the batch loop and of the whole call, and launches;
 17. loader-fed eval and FS-step rates with ``TPU.LOADER: grain`` at 0, 4
-   and 8 worker processes beside ``threads`` over 32 batches each: the
+   and 8 worker processes beside ``threads`` over 16 batches each: the
    whole epoch, the seconds to its first batch and the rate from the
    loader's second round on; every eval batch equal to the ``threads``
    route's, ``os.cpu_count()``;
@@ -144,7 +144,29 @@ card, then drives the port's paths through their entry points:
    against the same runs without it (cuDNN deterministic: the same loss,
    perf, weights and predictions); two ``nccl`` ranks where the machine
    has two cards;
-23. no process left: every process this script started has ended but
+23. ``TPU.FUSED_STEPS``: K steps a call as one CUDA-graph replay. The
+   soft-argmax kernels launched from a graph's replays against their
+   plain versions at (32, 17*64, 64, 64), and the triangulation kernel's
+   replay against its eager launch at 544 points, one launch each a
+   replay; then each fused run against an eager loop of unfused steps
+   from the same weights and batches (cuDNN deterministic): the flagship
+   FS step (``train_fs_r50_256_integral.yaml``, batch 32, bf16) at K 4
+   over 9 batches (the first super-batch the warm-up, then a graph of 4
+   and one of 1) within the JAX package's fused-test bounds (losses
+   relative 1e-5, parameters 3e-3), and in float32 at K 2 the same bits
+   (losses, weights, BN buffers, Adam's moments); the SS step (32 groups
+   x 4 views, noisy detections in the batch) at K 2 with ``given`` and
+   ``estimated`` cameras (the latter's graph split around its 5 cuSOLVER
+   calls a step), and with the random bf16 teacher inside the graph;
+   ResNet-152@384 with REMAT at K 2; each call launching K x (its
+   launches a step) of each kernel; samples/s through ``train`` at K 1
+   and 4, ms a step of the SS and REMAT steps each way, capture seconds,
+   and traces of 2 replays beside 2 x K unfused steps (the device's busy
+   time and idle share); ``scripts.valid`` at K 4 against K 1 (576
+   records: the same predictions), and ``scripts.train --distributed``
+   on one ``nccl`` rank at K 2 (DDP's 11 eager warm-up steps, then
+   graphs) against the same run in process;
+24. no process left: every process this script started has ended but
    the worker loader's ``forkserver`` and its resource tracker, and those
    two end when ``stop_worker_server`` stops them; phase 22's rank
    processes are gone.
@@ -186,16 +208,17 @@ PHASE_LIMITS = {"build": 120.0, "softargmax": 30.0, "matmul_stats": 60.0,
                 "ss_convergence": 120.0, "ss_nocam": 150.0,
                 "pseudo_gt": 120.0, "loader_workers": 360.0,
                 "jpeg": 15.0, "mpi3dhp": 30.0, "warp": 15.0,
-                "remat": 150.0, "ddp": 420.0, "processes": 30.0}
+                "remat": 150.0, "ddp": 420.0, "fused": 300.0,
+                "processes": 30.0}
 
 # H36M left/right joint pairs (the JAX package's data/h36m.py FLIP_PAIRS)
 H36M_FLIP_PAIRS = ((1, 4), (2, 5), (3, 6), (11, 14), (12, 15), (13, 16))
 EVAL_BATCH, EVAL_BATCHES = 64, 3
 # the train path: warm-up steps, then TRAIN_WINDOWS calls of train() of
 # TRAIN_STEPS steps each, each timed on its own (about 1.3 s a window)
-TRAIN_BATCH, TRAIN_STEPS, TRAIN_WINDOWS, TRAIN_WARMUP = 32, 40, 3, 3
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_WINDOWS, TRAIN_WARMUP = 32, 20, 3, 3
 # the SS path: groups x views, warm-up steps, timed windows of steps
-SS_GROUPS, SS_VIEWS, SS_WARMUP, SS_WINDOWS, SS_STEPS = 32, 4, 3, 2, 20
+SS_GROUPS, SS_VIEWS, SS_WARMUP, SS_WINDOWS, SS_STEPS = 32, 4, 3, 2, 10
 # the triangulation kernel's large check: frames x joints, 4 views
 TRI_FRAMES = 65536
 POSE2D_BATCH, POSE2D_STEPS = 32, 3
@@ -217,9 +240,10 @@ CONV_FRAMES, CONV_STEPS, CONV_EVAL_EVERY = 2, 96, 24
 # config's 32, so its triangulation launches at the SS step's shape
 PGT_SAMPLES, PGT_GROUPS = 512, SS_GROUPS
 # the worker-process loader: frames x 4 views of the eval and FS datasets
-# (32 eval batches of 64 and 32 FS batches of 32: a DataLoader worker
-# builds whole batches, so 8 workers take 4 rounds an epoch), worker counts
-LOADER_EVAL_FRAMES, LOADER_FS_FRAMES = 512, 256
+# (16 eval batches of 64 and 16 FS batches of 32: a DataLoader worker
+# builds whole batches, so 8 workers take 2 rounds an epoch; 32 each
+# before the fused phase needed the time), worker counts
+LOADER_EVAL_FRAMES, LOADER_FS_FRAMES = 256, 128
 LOADER_WORKERS = (0, 4, 8)
 # image libraries the card's machine does not have
 IMAGE_LIBS = ("cv2", "PIL", "torchvision", "matplotlib")
@@ -2745,8 +2769,8 @@ R152_CONFIG = "h36m/train_fs_r152_384_integral.yaml"
 # phase: DDP_RANKS ranks of R152_BATCH crops against one process of
 # their global batch for DDP_STEPS steps, then DDP_TIMED bf16 steps
 # timed after DDP_WARMUP
-R152_BATCH, REMAT_WARMUP, REMAT_TIMED, REMAT_TRACED = 24, 2, 5, 2
-DDP_RANKS, DDP_STEPS, DDP_WARMUP, DDP_TIMED = 2, 2, 2, 5
+R152_BATCH, REMAT_WARMUP, REMAT_TIMED, REMAT_TRACED = 24, 2, 3, 2
+DDP_RANKS, DDP_STEPS, DDP_WARMUP, DDP_TIMED = 2, 2, 2, 3
 # the CLIs at r152@384 with and without --distributed: 48 records, two
 # train steps of 24 and two eval batches
 DDP_CLI_SAMPLES = 48
@@ -2765,14 +2789,20 @@ def r152_config(**tpu):
     return cfg
 
 
+_R152_WEIGHTS: dict = {}
+
+
 def r152_weights(cfg) -> dict:
     """ResNet-152@384 weights from a seed, the head re-drawn so that the
     joints decode apart and gradients reach the backbone (on the CPU:
-    the same bits in every process)."""
+    the same bits in every process). Made once a process (its 7-8 s CPU
+    init): ``TPU.COMPUTE_DTYPE`` and ``TPU.REMAT`` change no weight."""
     from epipolarpose_tpu_torch.models import get_model
-    model = get_model(cfg, True, torch.Generator().manual_seed(21))
-    redraw_head(model, seed=22)
-    return model.state_dict()
+    if not _R152_WEIGHTS:
+        model = get_model(cfg, True, torch.Generator().manual_seed(21))
+        redraw_head(model, seed=22)
+        _R152_WEIGHTS.update(model.state_dict())
+    return _R152_WEIGHTS
 
 
 def r152_batch(n: int) -> dict:
@@ -2820,7 +2850,8 @@ def r152_grads_f64(cfg, weights, batch) -> dict:
     from epipolarpose_tpu_torch.models import get_model
     from epipolarpose_tpu_torch.ops.integral import generate_integral_target
     from epipolarpose_tpu_torch.ops.losses import integral_l1_loss
-    model = get_model(cfg, True)
+    with torch.device(DEVICE):     # its own init on the card: discarded
+        model = get_model(cfg, True)
     model.load_state_dict(weights, strict=True)
     model.to(DEVICE).double().train()
     model.dtype, model.remat = torch.float64, True
@@ -2872,9 +2903,9 @@ def r152_steps(cfg, weights, batch, steps: int, wrap=None,
     from epipolarpose_tpu_torch.core import (create_train_state,
                                              make_train_step)
     from epipolarpose_tpu_torch.models import get_model
-    model = get_model(cfg, True)
+    with torch.device(DEVICE):     # its own init on the card: discarded
+        model = get_model(cfg, True)
     model.load_state_dict(weights, strict=True)
-    model.to(DEVICE)
     state = create_train_state(cfg, model, steps_per_epoch=1000,
                                device=DEVICE)
     step = make_train_step(cfg, wrap(model) if wrap else model, DEVICE)
@@ -3014,7 +3045,8 @@ def ddp_rank(directory: str) -> int:
     rank = process_index()
     cfg = r152_config(COMPUTE_DTYPE="float32", REMAT=True)
     configure_backends(cfg)
-    weights = r152_weights(cfg)
+    # the first process's r152_weights, written before the ranks start
+    weights = torch.load(directory / "weights.pt", weights_only=True)
     mine = torch.as_tensor(host_shard_indices(
         np.arange(2 * R152_BATCH), rank, DDP_RANKS), device=DEVICE)
     batch = {k: v[mine] for k, v in r152_batch(2 * R152_BATCH).items()}
@@ -3059,9 +3091,13 @@ def ddp_ranks_on_one_card(res: dict, tmp: pathlib.Path) -> None:
     batch = r152_batch(DDP_RANKS * R152_BATCH)
     torch.cuda.empty_cache()
     reset_counts()
+    t0 = time.perf_counter()
     one = r152_steps(cfg, weights, batch, DDP_STEPS)
     res["paths"]["ddp"] = launch_counts()
+    t1 = time.perf_counter()
     exact = r152_grads_f64(cfg, weights, batch)
+    t2 = time.perf_counter()
+    torch.save(weights, tmp / "weights.pt")
     del batch, weights
     torch.cuda.empty_cache()
     env = dict(os.environ, WORLD_SIZE=str(DDP_RANKS), LOCAL_RANK="0")
@@ -3081,6 +3117,9 @@ def ddp_ranks_on_one_card(res: dict, tmp: pathlib.Path) -> None:
     for r, p in enumerate(procs):
         check(p.returncode == 0,
               f"rank {r} exited {p.returncode}:\n{logs[r][-3000:]}")
+    log(f"[ddp] seconds: one process's {DDP_STEPS} steps {t1 - t0:.1f}, "
+        f"the float64 gradients {t2 - t1:.1f}, the two rank processes "
+        f"{time.perf_counter() - t2:.1f}")
     a, b = (torch.load(tmp / f"rank{r}.pt", weights_only=False)
             for r in range(DDP_RANKS))
     differ = [k for k, v in a["state"].items()
@@ -3259,6 +3298,525 @@ def ddp_clis(res: dict, tmp: pathlib.Path) -> None:
         f"{found[0][1]}")
 
 
+# the fused phase: K and the batches of its checks (two super-batches and
+# a tail of one at K 4); its timed windows of super-batches
+FUSED_K, FUSED_BATCHES, FUSED_SS_K, FUSED_SS_BATCHES = 4, 9, 2, 5
+FUSED_TIMED, FUSED_TRACED = 10, 2
+# scripts.train --distributed at K 2: DDP's 11 eager warm-up steps (6
+# super-batches), then a graph (14 batches of 32 synthetic records of the
+# FS config)
+FUSED_DDP_SAMPLES = 448
+
+
+def deterministic(on: bool) -> None:
+    """cuDNN's deterministic algorithms, and no autotuning, or the
+    config's own settings back (``configure_backends`` keeps TF32 off)."""
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = not on
+
+
+def fused_pair(build, template, batches: list, k: int) -> dict:
+    """The same steps two ways from the same weights, each on a copy of
+    the model ``template``: an eager loop of unfused steps
+    (``build(template, 1)``), then the fused step (``build(template,
+    k)``) over the batches stacked k at a time (a ragged
+    tail as it is). Per step losses, the final model and optimizer state
+    on the host, and for the fused run each call's kernel launches and
+    the graphs' figures. The launch counters are 0 before the fused run:
+    ``launch_counts()`` after it is that path's."""
+    from epipolarpose_tpu_torch.data import stack_batches
+    out = {}
+    for name, kk in (("eager", 1), ("fused", k)):
+        model, state, step = build(template, kk)
+        losses, calls = [], []
+        if kk == 1:
+            groups = [b for b in batches]
+        else:
+            groups = list(stack_batches(iter(batches), kk))
+            reset_counts()
+        for b in groups:
+            before = launch_counts()
+            state, metrics = step(state, b)
+            loss = metrics["loss"].reshape(-1)
+            losses.append(loss)
+            if kk > 1:
+                after = launch_counts()
+                calls.append({c: after[c] - before[c] for c in after})
+        torch.cuda.synchronize()
+        run = {"loss": torch.cat(losses).float().cpu(),
+               "state": state_cpu(model), "step": state.step,
+               "moments": {i: {n: v.detach().cpu().clone()
+                               for n, v in st.items()}
+                           for i, st in
+                           state.optimizer.state_dict()["state"].items()}}
+        if kk > 1:
+            run.update(calls=calls, counts=launch_counts(),
+                       graphs=len(step.graphs), replays=step.replays,
+                       capture_s=step.capture_s, host_ops=step.host_ops,
+                       sizes=[int(g["input"].shape[0]) for g in groups])
+        out[name] = run
+        del model, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_pair(pair: dict, tag: str, exact: bool) -> dict:
+    """The fused run against the eager loop: ``exact`` (float32, TF32 off,
+    deterministic cuDNN) the same bits in the losses, the weights and BN
+    buffers and Adam's moments; else (bf16) the bounds of the JAX
+    package's ``test_fused_matches_k_single_steps``: losses relative
+    1e-5, parameters within 3e-3."""
+    e, f = pair["eager"], pair["fused"]
+    check(e["step"] == f["step"] == len(e["loss"]) == len(f["loss"]),
+          f"[{tag}] step counts {e['step']} / {f['step']}")
+    check(bool(torch.isfinite(f["loss"]).all()), f"[{tag}] loss not finite")
+    loss_rel = ((f["loss"] - e["loss"]).abs()
+                / e["loss"].abs().clamp_min(1e-30)).max().item()
+    gaps = {k: (f["state"][k].double() - v.double()).abs().max().item()
+            for k, v in e["state"].items()}
+    worst = max(gaps, key=gaps.get)
+    moment_same = all(torch.equal(v, f["moments"][i][n])
+                      for i, st in e["moments"].items()
+                      for n, v in st.items())
+    log(f"[fused] {tag}: {len(f['loss'])} steps in calls of "
+        f"{f['sizes']}, {f['graphs']} graphs, {f['host_ops']} host ops, "
+        f"capture {f['capture_s']:.2f} s; against the eager loop: losses "
+        f"{loss_rel:.3g} relative, weights and buffers max |d| "
+        f"{gaps[worst]:.3g} ({worst}), Adam's moments "
+        f"{'equal' if moment_same else 'differ'}")
+    if exact:
+        check(loss_rel == 0.0 and gaps[worst] == 0.0 and moment_same,
+              f"[{tag}] float32 fused run is not the eager loop's bits")
+    else:
+        params = [k for k in e["state"] if "running" not in k
+                  and "num_batches" not in k]
+        check(loss_rel <= 1e-5, f"[{tag}] losses {loss_rel:.3g} apart")
+        check(max(gaps[k] for k in params) <= 3e-3,
+              f"[{tag}] parameters {gaps[worst]:.3g} apart")
+    return {"loss_rel": loss_rel, "max_abs_diff": gaps[worst],
+            "moments_equal": moment_same, "graphs": f["graphs"],
+            "host_ops": f["host_ops"], "capture_s": f["capture_s"]}
+
+
+def check_calls(pair: dict, tag: str, per_step: dict) -> None:
+    """Each fused call launched K x (launches a step) of each kernel."""
+    f = pair["fused"]
+    for size, calls in zip(f["sizes"], f["calls"]):
+        for name, n in per_step.items():
+            check(calls[name] == size * n,
+                  f"[{tag}] a call of {size} steps launched {calls[name]} "
+                  f"{name}, not {size} x {n}")
+
+
+def graph_kernels_vs_plain(res: dict) -> None:
+    """The soft-argmax forward (with statistics) and backward kernels and
+    the triangulation kernel launched from a CUDA graph's replay, against
+    their plain versions on the same inputs (the limits of the train and
+    ss phases), and their launch counts a replay."""
+    from epipolarpose_tpu_torch.graphs import StepGraph
+    from epipolarpose_tpu_torch.kernels import softargmax as ksa
+    from epipolarpose_tpu_torch.kernels import triangulate as ktri
+    dev = torch.device("cuda")
+    n, j, d, h = TRAIN_BATCH, 17, 64, 64
+    vol = spread_volume(n, j, d, h, h, seed=81, dtype=torch.bfloat16)
+    grad = torch.randn((n, j, 3), generator=torch.Generator(dev)
+                       .manual_seed(82), device=dev)
+    gmax = grad.abs().max().item()
+    ksa.softmax_integral_fwd(vol, j, d)          # warm-up, outside
+    graph = StepGraph()
+    reset_counts()
+
+    def run():
+        coords, stats = ksa.softmax_integral_fwd(vol, j, d)
+        return coords, stats, ksa.softmax_integral_bwd(vol, stats, grad)
+    coords, stats, dl = graph.capture(run)
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["softargmax_fwd"] == 3 and counts["softargmax_bwd"] == 3,
+          f"graph launches {counts}: not one each for the capture's run "
+          f"and each of 2 replays")
+    ref_stats = ksa.softmax_integral_stats_plain(vol, j, d)
+    fwd_err = (coords - ksa.softmax_integral_plain(vol, j, d)).abs().max()
+    size = torch.tensor([h, h, d], device=dev, dtype=torch.float32)
+    lse_err = (stats[..., 0] - ref_stats[..., 0]).abs().max().item()
+    e_err = ((stats[..., 1:] - ref_stats[..., 1:]).abs() / size).max().item()
+    want = ksa.softmax_integral_bwd_plain(vol, stats, grad)
+    ratio = ((dl.float() - want.float()).abs()
+             / (bf16_spacing(want) + 1e-6 * gmax)).max().item()
+    check(fwd_err.item() <= 1e-4 and lse_err <= 1e-3 and e_err <= 1e-4,
+          "soft-argmax forward in a graph disagrees with the plain version")
+    check(ratio <= 1.0, "soft-argmax backward in a graph disagrees")
+    del graph, coords, stats, dl
+
+    # the triangulation kernel at the SS step's 544 points (the rig of
+    # phase 6, noisy detections): a replay gives the eager launch's bits
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.geometry.camera import undistort_points
+    cfg = load_config(ROOT / "experiments/h36m/train_ss_r50_256_integral.yaml")
+    _, _, px = ss_rig_batch(cfg, SS_GROUPS, SS_VIEWS, seed=83)
+    cam = ss_rig_batch(cfg, SS_GROUPS, SS_VIEWS, seed=83)[0]["camera"]
+    det, w = noisy_detections(px, seed=84)
+    pts = undistort_points(det, cam).contiguous()
+    P = cam.P.contiguous()
+    xe, re_ = ktri.triangulate_fast(pts, P, w)
+    graph = StepGraph()
+    reset_counts()
+    x, r = graph.capture(lambda: ktri.triangulate_fast(pts, P, w))
+    graph.replay()
+    torch.cuda.synchronize()
+    tri_n = launch_counts()["triangulate"]
+    tri_same = torch.equal(x, xe) and torch.equal(r, re_)
+    tri_err = (x - ktri.triangulate_fast_plain(pts, P, w)[0]).abs().max()
+    tri_err = tri_err.item()
+    check(tri_n == 2, f"triangulation launches in a graph: {tri_n}, not 2")
+    check(tri_same, "triangulation from a graph differs from its eager "
+          "launch")
+    res["fused_in_graph"] = dict(
+        softargmax_fwd_max_abs_err=fwd_err.item(), lse_err=lse_err,
+        e_err=e_err, softargmax_bwd_share_of_limit=ratio,
+        triangulate_same_bits_as_eager=tri_same,
+        triangulate_max_abs_err_plain_mm=tri_err, launches_per_replay=dict(
+            softargmax_fwd=1, softargmax_bwd=1, triangulate=1))
+    log(f"[fused] kernels from a graph's replays vs plain: soft-argmax "
+        f"forward {fwd_err.item():.3g} (limit 1e-4), lse {lse_err:.3g}, "
+        f"E {e_err:.3g}; backward at {ratio:.3g} of its limit; "
+        f"triangulation the eager launch's bits ({tri_err:.3g} mm from "
+        f"plain); one launch each a replay")
+
+
+def fused_fs(res: dict) -> None:
+    """The flagship FS step at K 4: the checks (bf16 and float32) and the
+    timed windows through ``train`` at K 1 and K 4, with traces."""
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.core import (create_train_state,
+                                             make_train_step, train)
+    from epipolarpose_tpu_torch.core.steps import configure_backends
+    from epipolarpose_tpu_torch.data import stack_batches
+    from epipolarpose_tpu_torch.models import get_model
+    from epipolarpose_tpu_torch.tools.profile_step import seeded_train_batch
+
+    cfg = load_config(ROOT / "experiments/h36m/train_fs_r50_256_integral.yaml")
+    size, joints = int(cfg.MODEL.IMAGE_SIZE[0]), int(cfg.MODEL.NUM_JOINTS)
+    g = torch.Generator("cuda").manual_seed(91)
+    batches = [seeded_train_batch(TRAIN_BATCH, size, joints, 1000.0, g,
+                                  "cuda") for _ in range(FUSED_BATCHES)]
+    paths = res["paths"]
+
+    def template_of(c):
+        m = get_model(c, True, torch.Generator().manual_seed(92))
+        redraw_head(m, seed=93)
+        return m
+
+    def builder(c):
+        def build(template, k):
+            model = copy.deepcopy(template)
+            state = create_train_state(c, model, steps_per_epoch=1000,
+                                       device="cuda")
+            return model, state, make_train_step(c, model, "cuda",
+                                                 fused_steps=k)
+        return build
+
+    configure_backends(cfg)
+    deterministic(True)
+    template = template_of(cfg)
+    pair = fused_pair(builder(cfg), template, batches, FUSED_K)
+    paths["fused_fs"] = pair["fused"]["counts"]
+    out = {"bf16": check_pair(pair, "FS r50@256 bf16 K 4", exact=False)}
+    check_calls(pair, "FS", {"softargmax_fwd": 1, "softargmax_bwd": 1})
+    f32 = load_config(ROOT / "experiments/h36m/train_fs_r50_256_integral.yaml")
+    f32.TPU.COMPUTE_DTYPE = "float32"
+    template.dtype = torch.float32       # the same weights, in float32
+    pair = fused_pair(builder(f32), template, batches[:5], 2)
+    template.dtype = torch.bfloat16
+    out["f32"] = check_pair(pair, "FS r50@256 float32 K 2", exact=True)
+    del pair
+
+    # timed: train() at K 1 and K 4 with the config's cuDNN settings
+    configure_backends(cfg)
+    rates = {}
+    for k in (1, FUSED_K):
+        model, state, step = builder(cfg)(template, k)
+        feed = (batches[:1] if k == 1 else
+                [next(stack_batches(iter(batches[:k]), k))])
+        steps = FUSED_TIMED * FUSED_K
+        for _ in range(2):                    # warm-up, then the capture
+            state, _ = step(state, feed[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = train(cfg, feed * (steps // k), state, step, 0)
+        torch.cuda.synchronize()
+        rates[k] = TRAIN_BATCH * steps / (time.perf_counter() - t0)
+        trace = traced_steps(step, state, feed[0], FUSED_TRACED * FUSED_K // k)
+        rates[f"trace_{k}"] = dict(busy_ms_a_step=trace["busy_ms"] / k,
+                                   idle_share=trace["idle_share"])
+        if k > 1:
+            rates["capture_s"] = step.capture_s
+        del model, state, step
+        torch.cuda.empty_cache()
+    out["samples_per_s"] = {1: rates[1], FUSED_K: rates[FUSED_K]}
+    out["trace"] = {1: rates["trace_1"], FUSED_K: rates[f"trace_{FUSED_K}"]}
+    out["capture_s"] = rates["capture_s"]
+    log(f"[fused] FS r50@256 batch {TRAIN_BATCH} through train(): "
+        f"{rates[1]:.1f} samples/s at K 1, {rates[FUSED_K]:.1f} at K "
+        f"{FUSED_K} (capture {rates['capture_s']:.2f} s); device busy "
+        f"{rates['trace_1']['busy_ms_a_step']:.2f} / "
+        f"{rates[f'trace_{FUSED_K}']['busy_ms_a_step']:.2f} ms a step, idle "
+        f"{rates['trace_1']['idle_share']:.1%} / "
+        f"{rates[f'trace_{FUSED_K}']['idle_share']:.1%} (2 x {FUSED_K} "
+        f"unfused steps / 2 replays)")
+    res["fused"]["fs"] = out
+
+
+def fused_ss(res: dict) -> None:
+    """The SS step at K 2, ``given`` and ``estimated`` cameras, 32 groups
+    x 4 views, noisy detections in the batch; then the given route with
+    the random bf16 teacher in the graph; timed steps each way."""
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.core import create_train_state
+    from epipolarpose_tpu_torch.core import self_supervised as tss
+    from epipolarpose_tpu_torch.core.steps import configure_backends
+    from epipolarpose_tpu_torch.data import stack_batches
+    from epipolarpose_tpu_torch.models import get_model
+
+    paths = res["paths"]
+
+    def builder(c, teacher):
+        def build(template, k):
+            model = copy.deepcopy(template)
+            state = create_train_state(c, model, steps_per_epoch=1000,
+                                       device="cuda")
+            return model, state, tss.make_ss_train_step(
+                c, model, teacher, device="cuda", fused_steps=k,
+                flip_pairs=H36M_FLIP_PAIRS)
+        return build
+
+    for cameras in ("given", "estimated"):
+        cfg = load_config(ROOT / "experiments/h36m/"
+                          "train_ss_r50_256_integral.yaml")
+        cfg.TPU.SS_CAMERAS = cameras
+        configure_backends(cfg)
+        deterministic(True)
+        batches = []
+        for i in range(FUSED_SS_BATCHES):
+            b, _, px = ss_rig_batch(cfg, SS_GROUPS, SS_VIEWS, seed=100 + i,
+                                    distortion=cameras == "given")
+            det, conf = noisy_detections(px, seed=120 + i, corrupt=False)
+            b.update(det_src=det, det_conf=conf)
+            batches.append(b)
+        if cameras == "given":
+            template = get_model(cfg, True, torch.Generator().manual_seed(95))
+        build = builder(cfg, None)
+        pair = fused_pair(build, template, batches, FUSED_SS_K)
+        paths[f"fused_ss_{cameras}"] = pair["fused"]["counts"]
+        tag = f"SS {cameras} 32x4 bf16 K {FUSED_SS_K}"
+        out = check_pair(pair, tag, exact=False)
+        check_calls(pair, tag, {"softargmax_fwd": 1, "softargmax_bwd": 1,
+                                "triangulate": 1 if cameras == "given"
+                                else 4})
+        host_ops = pair["fused"]["host_ops"]
+        # estimated: 5 cuSOLVER calls a step run between graph segments
+        want_ops = 0 if cameras == "given" else 5 * (FUSED_SS_K + 1)
+        check(host_ops == want_ops, f"[{tag}] {host_ops} host ops in the "
+              f"graphs, not {want_ops}")
+        configure_backends(cfg)
+        # timed: 4 replays against 8 eager steps
+        times = {}
+        for k in (1, FUSED_SS_K):
+            model, state, step = build(template, k)
+            feed = (batches[0] if k == 1 else
+                    next(stack_batches(iter(batches[:k]), k)))
+            for _ in range(2):
+                state, _ = step(state, feed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(8 // k):
+                state, _ = step(state, feed)
+            torch.cuda.synchronize()
+            times[k] = (time.perf_counter() - t0) * 1e3 / 8
+            del model, state, step
+            torch.cuda.empty_cache()
+        out["ms_a_step"] = times
+        log(f"[fused] {tag}: {times[1]:.2f} ms a step eager, "
+            f"{times[FUSED_SS_K]:.2f} fused")
+        res["fused"][f"ss_{cameras}"] = out
+
+    # the frozen teacher's forward inside the graph (random bf16 weights:
+    # every joint under SS_CONF_MIN, so the loss is 0 both ways)
+    cfg = load_config(ROOT / "experiments/h36m/train_ss_r50_256_integral.yaml")
+    configure_backends(cfg)
+    deterministic(True)
+    teacher = tss.load_teacher(cfg, "cuda", torch.Generator().manual_seed(96))
+    batches = [ss_rig_batch(cfg, SS_GROUPS, SS_VIEWS, seed=130 + i)[0]
+               for i in range(3)]
+    pair = fused_pair(builder(cfg, teacher), template, batches, FUSED_SS_K)
+    paths["fused_ss_teacher"] = pair["fused"]["counts"]
+    out = check_pair(pair, "SS given, random teacher in the graph",
+                     exact=False)
+    check_calls(pair, "SS teacher", {"teacher_decode": 1,
+                                     "softargmax_fwd": 1})
+    res["fused"]["ss_teacher"] = out
+    configure_backends(cfg)
+
+
+def fused_remat(res: dict) -> None:
+    """ResNet-152@384 with REMAT at K 2 (batch 24): the checks, then 4
+    replays against 8 eager steps and a trace of 2 replays."""
+    cfg = r152_config(REMAT=True)
+    from epipolarpose_tpu_torch.core import (create_train_state,
+                                             make_train_step)
+    from epipolarpose_tpu_torch.core.steps import configure_backends
+    from epipolarpose_tpu_torch.data import stack_batches
+    from epipolarpose_tpu_torch.models import get_model
+    from epipolarpose_tpu_torch.tools.profile_step import seeded_train_batch
+    configure_backends(cfg)
+    deterministic(True)
+    with torch.device("cuda"):     # its own init on the card: discarded
+        template = get_model(cfg, True)
+    template.load_state_dict(r152_weights(cfg), strict=True)
+    g = torch.Generator("cuda").manual_seed(97)
+    batches = [seeded_train_batch(R152_BATCH, R152_SIZE, 17, 1000.0, g,
+                                  "cuda") for _ in range(FUSED_SS_BATCHES)]
+
+    def build(t, k):
+        model = copy.deepcopy(t)
+        state = create_train_state(cfg, model, steps_per_epoch=1000,
+                                   device="cuda")
+        return model, state, make_train_step(cfg, model, "cuda",
+                                             fused_steps=k)
+    pair = fused_pair(build, template, batches, FUSED_SS_K)
+    res["paths"]["fused_remat"] = pair["fused"]["counts"]
+    out = check_pair(pair, "r152@384 REMAT bf16 K 2", exact=False)
+    check_calls(pair, "REMAT", {"softargmax_fwd": 1, "softargmax_bwd": 1})
+    configure_backends(cfg)
+    for k in (1, FUSED_SS_K):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()    # the graph's pool included
+        model, state, step = build(template, k)
+        feed = (batches[0] if k == 1 else
+                next(stack_batches(iter(batches[:k]), k)))
+        for _ in range(2):
+            state, _ = step(state, feed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(8 // k):
+            state, _ = step(state, feed)
+        torch.cuda.synchronize()
+        out[f"ms_a_step_{k}"] = (time.perf_counter() - t0) * 1e3 / 8
+        out[f"peak_gb_{k}"] = torch.cuda.max_memory_allocated() / 1e9
+        trace = traced_steps(step, state, feed, FUSED_TRACED * FUSED_SS_K // k)
+        out[f"busy_ms_{k}"] = trace["busy_ms"] / k
+        out[f"idle_share_{k}"] = trace["idle_share"]
+        del model, state, step
+        torch.cuda.empty_cache()
+    log(f"[fused] r152@384 REMAT batch {R152_BATCH}: "
+        f"{out['ms_a_step_1']:.2f} ms a step eager, "
+        f"{out[f'ms_a_step_{FUSED_SS_K}']:.2f} fused; peak "
+        f"{out['peak_gb_1']:.2f} / {out[f'peak_gb_{FUSED_SS_K}']:.2f} GB; "
+        f"device busy {out['busy_ms_1']:.2f} / "
+        f"{out[f'busy_ms_{FUSED_SS_K}']:.2f} ms a step, idle "
+        f"{out['idle_share_1']:.1%} / {out[f'idle_share_{FUSED_SS_K}']:.1%}")
+    res["fused"]["remat"] = out
+
+
+def fused_clis(res: dict, tmp: pathlib.Path) -> None:
+    """``scripts.valid`` at K 4 against K 1 (the same predictions), and
+    ``scripts.train --distributed`` on one ``nccl`` rank at K 2 against
+    the same run in process (the same loss, perf and weights)."""
+    import re
+
+    import numpy as np
+    from epipolarpose_tpu_torch.scripts import train as train_cli, valid
+    paths = res["paths"]
+    out = {}
+    runs = {}
+    for k in (1, FUSED_K):
+        y = cli_yaml(tmp / f"valid_k{k}.yaml", "h36m/valid_r50_256_integral"
+                     ".yaml", TPU={"FUSED_STEPS": k},
+                     CUDNN={"BENCHMARK": False, "DETERMINISTIC": True})
+        c = paths["fused_valid" if k > 1 else "fused_valid_eager"] = {}
+        perf = run_cli(valid.main, ["--cfg", y, "--synthetic", "--samples",
+                                    str(EVAL_BATCH * FUSED_BATCHES),
+                                    "--modelDir", str(tmp / f"v{k}"),
+                                    "--logDir", str(tmp / f"v{k}" / "log")],
+                       c)
+        found = sorted((tmp / f"v{k}").glob("*/*/*/pred.npz"))
+        check(len(found) == 1, f"no single pred.npz under v{k}")
+        runs[k] = (perf, np.load(found[0])["preds"], c)
+    dpred = float(np.abs(runs[1][1] - runs[FUSED_K][1]).max())
+    c = runs[FUSED_K][2]
+    log(f"[fused] valid CLI, {EVAL_BATCH * FUSED_BATCHES} records in "
+        f"batches of {EVAL_BATCH} at K {FUSED_K} / 1: perf "
+        f"{runs[FUSED_K][0]:.6f} / {runs[1][0]:.6f}, predictions max |d| "
+        f"{dpred:.3g}; {c['softargmax_fwd']} forward launches, "
+        f"{c['wall_s']:.1f} s / {runs[1][2]['wall_s']:.1f} s")
+    check(runs[FUSED_K][1].shape == runs[1][1].shape and dpred <= 1e-4
+          and abs(runs[FUSED_K][0] - runs[1][0]) <= 1e-5 * abs(runs[1][0]),
+          "fused valid differs from the unfused run")
+    check(c["softargmax_fwd"] == FUSED_BATCHES,
+          f"fused valid launched {c['softargmax_fwd']} forwards")
+    out["valid"] = dict(perf=runs[FUSED_K][0], preds_max_diff=dpred)
+
+    y = cli_yaml(tmp / "ddp_fused.yaml", "h36m/train_fs_r50_256_integral"
+                 ".yaml", TPU={"FUSED_STEPS": FUSED_SS_K}, PRINT_FREQ=1,
+                 CUDNN={"BENCHMARK": False, "DETERMINISTIC": True})
+    common = ["--cfg", y, "--synthetic", "--samples",
+              str(FUSED_DDP_SAMPLES), "--epochs", "1"]
+    c = paths["fused_cli_train"] = {}
+    plain = run_cli(train_cli.main, common + [
+        "--modelDir", str(tmp / "tp"), "--logDir", str(tmp / "tp" / "log")],
+        c)
+    steps = FUSED_DDP_SAMPLES // TRAIN_BATCH
+    check(plain["state"].step == steps and c["softargmax_bwd"] == steps,
+          f"fused train CLI ran {plain['state'].step} steps, launches {c}")
+    r = torchrun("epipolarpose_tpu_torch.scripts.train", common + [
+        "--distributed", "--modelDir", str(tmp / "td"), "--logDir",
+        str(tmp / "td" / "log")], 1)
+    check(r.returncode == 0, f"fused train --distributed rc {r.returncode}: "
+          f"{r.stderr[-3000:]}")
+    text = r.stdout + r.stderr
+    found = re.findall(r"epoch 0: loss ([-\d.]+) perf ([-\d.]+)", text)
+    check(bool(found), "fused train --distributed logged no epoch line")
+    wd = torch.load(sorted((tmp / "td").glob(
+        "*/*/*/checkpoints/final_state.pth.tar"))[0], map_location="cpu",
+        weights_only=True)["state_dict"]
+    wp = torch.load(pathlib.Path(plain["output_dir"]) / "checkpoints" /
+                    "final_state.pth.tar", map_location="cpu",
+                    weights_only=True)["state_dict"]
+    wmax = max((wd[k].double() - v.double()).abs().max().item()
+               for k, v in wp.items())
+    log(f"[fused] train CLI at K {FUSED_SS_K}, {FUSED_DDP_SAMPLES} records, "
+        f"{steps} steps, with --distributed (one nccl rank, DDP: 11 eager "
+        f"steps, then graphs) and without: loss {found[0][0]} / "
+        f"{plain['loss']:.5f}, perf {found[0][1]} / {plain['perf']:.3f}, "
+        f"final weights max |d| {wmax:.3g}")
+    check(abs(float(found[0][0]) - plain["loss"]) <= 1e-5 * abs(plain["loss"])
+          + 1e-5 and wmax <= 3e-3,
+          "fused train with --distributed differs from the run without")
+    out["ddp_cli"] = dict(loss=plain["loss"], ddp_loss=float(found[0][0]),
+                          weights_max_diff=wmax)
+    res["fused"]["clis"] = out
+
+
+def phase_fused(res: dict) -> None:
+    """``TPU.FUSED_STEPS``: K steps a call as one CUDA-graph replay, held
+    against the eager loop (module docstring, phase 24)."""
+    import shutil
+    import tempfile
+    res["fused"] = {}
+    graph_kernels_vs_plain(res)
+    fused_fs(res)
+    fused_ss(res)
+    fused_remat(res)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_fused_"))
+    try:
+        fused_clis(res, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        deterministic(False)
+
+
 def descendants() -> dict[int, str]:
     """pid -> state and command line of every process descended from
     this one, from ``/proc``."""
@@ -3342,7 +3900,8 @@ def main() -> int:
               ("loader_workers", phase_loader_workers),
               ("jpeg", phase_jpeg), ("mpi3dhp", phase_mpi3dhp),
               ("warp", phase_warp), ("remat", phase_remat),
-              ("ddp", phase_ddp), ("processes", phase_processes)]
+              ("ddp", phase_ddp), ("fused", phase_fused),
+              ("processes", phase_processes)]
     failed = []
     for i, (name, fn) in enumerate(phases, 1):
         if failed and failed[0] == "build":
@@ -3383,6 +3942,8 @@ def main() -> int:
         return {path: counts[counter] for path, counts in paths.items()}
 
     sa = "epipolarpose_tpu_torch/csrc/softargmax.cu"
+    # the kernels launched from CUDA-graph replays (phase fused)
+    in_graph = res["fused_in_graph"]
     kernels = [
         dict(name="softargmax_fwd", route="cuda", source=sa,
              replaces=pallas.format(98, ""), path="eval",
@@ -3392,12 +3953,12 @@ def main() -> int:
              replaces=pallas.format(98, ""), path="train",
              launches=res["train_launches"][0],
              launches_by_path=by_path("softargmax_fwd"),
-             **res["softargmax_fwd_stats"]),
+             in_graph=in_graph, **res["softargmax_fwd_stats"]),
         dict(name="softargmax_bwd", route="cuda", source=sa,
              replaces=pallas.format(174, " backward, _bwd"), path="train",
              launches=res["train_launches"][1],
              launches_by_path=by_path("softargmax_bwd"),
-             **res["softargmax_bwd"]),
+             in_graph=in_graph, **res["softargmax_bwd"]),
         dict(name="softargmax_fwd_stats_ss", route="cuda", source=sa,
              replaces=pallas.format(98, ""), path="ss",
              launches=paths["ss"]["softargmax_fwd"],
@@ -3439,7 +4000,7 @@ def main() -> int:
              at_rig_views=res["triangulate_rig_views"],
              at_pseudo_gt_teacher=res["triangulate_pgt_teacher"],
              at_pseudo_gt_gt_detections=res["triangulate_pgt_gt_detections"],
-             **res["triangulate"]),
+             in_graph=in_graph, **res["triangulate"]),
     ]
     log(f"ss path: {SS_GROUPS * SS_VIEWS} crops a step; perfect teacher: "
         f"samples/s per window " + ", ".join(
@@ -3479,6 +4040,18 @@ def main() -> int:
         f"gloo ranks on one card " + ", ".join(
             f"{t:.2f}" for t in dp["gloo_one_card"]["ms"]) + " ms a step; "
         f"two nccl ranks: {dp['nccl_two_ranks']}")
+    fu = res["fused"]
+    log(f"fused (TPU.FUSED_STEPS): FS batch {TRAIN_BATCH} "
+        f"{fu['fs']['samples_per_s'][1]:.1f} samples/s at K 1, "
+        f"{fu['fs']['samples_per_s'][FUSED_K]:.1f} at K {FUSED_K}, device "
+        f"idle {fu['fs']['trace'][1]['idle_share']:.1%} / "
+        f"{fu['fs']['trace'][FUSED_K]['idle_share']:.1%}; SS given / "
+        f"estimated ms a step eager " + ", ".join(
+            f"{fu[f'ss_{c}']['ms_a_step'][1]:.2f} / fused "
+            f"{fu[f'ss_{c}']['ms_a_step'][FUSED_SS_K]:.2f}"
+            for c in ("given", "estimated"))
+        + f"; r152@384 REMAT {fu['remat']['ms_a_step_1']:.2f} / "
+        f"{fu['remat'][f'ms_a_step_{FUSED_SS_K}']:.2f} ms a step")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,9 @@ keeps as its own copy. Layout mirrors the reference package:
              triangulation, reprojection, the student's step); the
              checkpoints (reference ``.pth.tar`` files), the run's logger,
              and the refinement unit's training.
+- graphs:    CUDA graphs of whole steps (capture once, replay per
+             super-batch; ``host_op`` for the ops that read back to the
+             host) behind ``TPU.FUSED_STEPS``.
 - kernels:   hand-written CUDA kernels (``csrc/*.cu``: soft-argmax forward
              and backward, matmul + BN statistics, triangulation) built with
              ``nvcc`` into one shared library bound through ``ctypes``;
@@ -38,8 +41,9 @@ keeps as its own copy. Layout mirrors the reference package:
 - tools:     ``profile_step --step`` (the train step and its parts),
              ``--conv1x1`` (the 1x1-conv matmul+stats bench),
              ``bench_triangulate``, ``ss_convergence`` (the SS loop's MPJPE
-             curve) and ``trace_summary`` (a profiler trace's top kernels
-             and idle share).
+             curve), ``trace_summary`` (a profiler trace's top kernels
+             and idle share) and ``time_eager_step`` (ms a step of the
+             unfused train step, for A/B runs of two checkouts).
 
 Entry points take a ``device`` argument that defaults to ``"cuda"``; the
 CPU runs only when the caller asks for it.

@@ -4,9 +4,11 @@ Same schema as the JAX package's config, so every ``experiments/**/*.yaml``
 file loads here unchanged: unknown keys raise, nested mappings merge
 recursively. ``TPU.*`` keys are accepted; on the GPU among others
 ``TPU.COMPUTE_DTYPE`` (the forward's autocast dtype), ``TPU.REMAT``
-(each backbone block recomputed in the backward) and ``TPU.MESH``
-(``DATA``: -1 or the number of processes; ``MODEL > 1`` raises) have a
-meaning; the TPU's compiler settings are no-ops.
+(each backbone block recomputed in the backward), ``TPU.FUSED_STEPS``
+(K steps a call of the train and eval steps, one CUDA-graph replay on the
+card) and ``TPU.MESH`` (``DATA``: -1 or the number of processes;
+``MODEL > 1`` raises) have a meaning; the TPU's compiler settings are
+no-ops.
 ``CUDNN.*`` sets ``torch.backends.cudnn`` as the original PyTorch code did.
 """
 

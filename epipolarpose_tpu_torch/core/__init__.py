@@ -35,11 +35,14 @@ from epipolarpose_tpu_torch.core.self_supervised import (  # noqa: F401
     teacher_detect,
 )
 from epipolarpose_tpu_torch.core.steps import (  # noqa: F401
+    FusedSteps,
+    fuse_steps,
     make_eval_step,
     make_train_step,
     normalize_images,
 )
 from epipolarpose_tpu_torch.core.train_state import (  # noqa: F401
+    MultiStepSchedule,
     TrainState,
     create_train_state,
     make_lr_schedule,

@@ -1,13 +1,14 @@
 """Epoch loops: the reference ``train`` and ``validate`` shapes.
 
 Counterpart of the JAX package's ``core/function.py`` (``AverageMeter``,
-``train``, ``validate``) for one batch per step (``TPU.FUSED_STEPS`` has
-no counterpart here). ``train`` waits for the card only when it logs;
-``validate`` gathers predictions on the host (from every process under
-data parallelism) and hands them to ``dataset.evaluate``. A ``writer`` is
-anything with tensorboard's ``add_scalar(tag, value, step)``. Under data
-parallelism every process runs the loops and only the first writes
-files and scalars.
+``train``, ``validate``). A loader yields batches, or with
+``TPU.FUSED_STEPS = K > 1`` K-stacked super-batches for a fused step,
+whose metrics and predictions carry a leading (K,) axis. ``train`` waits
+for the card only when it logs; ``validate`` gathers predictions on the
+host (from every process under data parallelism) and hands them to
+``dataset.evaluate``. A ``writer`` is anything with tensorboard's
+``add_scalar(tag, value, step)``. Under data parallelism every process
+runs the loops and only the first writes files and scalars.
 """
 
 from __future__ import annotations
@@ -49,6 +50,11 @@ def _host(a) -> np.ndarray:
     return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
 
+def _mean(a) -> float:
+    """A metric's value: a fused step's (K,) metrics averaged."""
+    return float(np.mean(_host(a)))
+
+
 def train(cfg, loader, state, train_step, epoch: int, writer=None,
           output_dir=None):
     """One training epoch of ``train_step`` over ``loader`` (any iterable
@@ -57,8 +63,13 @@ def train(cfg, loader, state, train_step, epoch: int, writer=None,
     (``add_scalar`` at the optimizer step), and with ``DEBUG.DEBUG`` dumps
     the batch's images for a single-view batch into ``output_dir``: the
     only points where it waits for the card. The loss is the step's, a
-    mean over the processes; samples/s counts the global batch. Returns
-    (state, average of the logged losses).
+    mean over the processes; samples/s counts the global batch.
+
+    A fused step is told by the rank of its metrics, not their size: a
+    tail super-batch of one stacked batch has (1,) metrics and still
+    counts its ``input.shape[1]`` samples. Its logged loss is the mean
+    over the K steps, weighted by K_tail x B samples; the DEBUG dump takes
+    its first inner batch. Returns (state, average of the logged losses).
     """
     if process_index() != 0:
         writer = output_dir = None
@@ -69,20 +80,25 @@ def train(cfg, loader, state, train_step, epoch: int, writer=None,
     for i, batch in enumerate(loader):
         data_time.update(time.time() - end)
         state, metrics = train_step(state, batch)
+        fused = np.ndim(metrics["loss"]) >= 1
         n = int(batch["input"].shape[0]) * process_count()
+        if fused:
+            n *= int(batch["input"].shape[1])
         if i % int(cfg.PRINT_FREQ) == 0:
+            first = {k: batch[k][0] if fused else batch[k]
+                     for k in ("input", "joints", "joints_vis")
+                     if k in batch}
             if (cfg.DEBUG.DEBUG and output_dir is not None
-                    and batch["input"].ndim == 4):
+                    and first["input"].ndim == 4):
                 from epipolarpose_tpu_torch.utils.vis import save_debug_images
-                dbg = {k: _host(batch[k])
-                       for k in ("input", "joints", "joints_vis")}
+                dbg = {k: _host(v) for k, v in first.items()}
                 save_debug_images(cfg, dbg, None, None, None,
                                   f"{output_dir}/train_{epoch}_{i}")
-            loss_v = float(metrics["loss"])          # waits for the card
+            loss_v = _mean(metrics["loss"])          # waits for the card
             losses.update(loss_v, n)
             acc_v = None
             if "acc" in metrics:
-                acc_v = float(metrics["acc"])
+                acc_v = _mean(metrics["acc"])
                 accs.update(acc_v, n)
             batch_time.update(time.time() - end)
             speed = n / max(batch_time.val, 1e-9)
@@ -99,7 +115,7 @@ def train(cfg, loader, state, train_step, epoch: int, writer=None,
                     writer.add_scalar("train/acc", acc_v, int(state.step))
         end = time.time()
     if metrics is not None and losses.count == 0:
-        losses.update(float(metrics["loss"]))
+        losses.update(_mean(metrics["loss"]))
     return state, losses.avg
 
 
@@ -112,24 +128,31 @@ def validate(cfg, loader, dataset, eval_step, output_dir=None, writer=None,
     ``step``. Under data parallelism each process's loader holds its slice
     of every global batch: the predictions and boxes of every process are
     gathered back into the global order, and every process evaluates
-    them (the first alone with ``output_dir`` and ``writer``). Returns
-    (name_values, perf).
+    them (the first alone with ``output_dir`` and ``writer``). A fused
+    eval step's (K, B, J, C) predictions and their (K, B, 2) centres and
+    scales are flattened to K x B rows. Returns (name_values, perf).
     """
     if process_index() != 0:
         writer = output_dir = None
     all_preds, all_boxes = [], []
-    n_seen = 0
+    n_seen = n_batches = 0
     t0 = time.perf_counter()
     for batch in loader:
         preds = eval_step(batch)["preds"].cpu().numpy()  # waits for the card
         c, s = _host(batch["center"]), _host(batch["scale"])
+        if preds.ndim == 4:      # a fused super-batch: (K, B, J, C)
+            n_batches += preds.shape[0]
+            preds = preds.reshape((-1,) + preds.shape[2:])
+            c, s = c.reshape(-1, c.shape[-1]), s.reshape(-1, s.shape[-1])
+        else:
+            n_batches += 1
         all_preds.append(preds)
         all_boxes.append(np.concatenate(
             [c, s, np.prod(s * 200, axis=-1, keepdims=True)], axis=-1))
         n_seen += preds.shape[0]
     total = time.perf_counter() - t0
-    preds = _gather_batches(np.concatenate(all_preds), len(all_preds))
-    boxes = _gather_batches(np.concatenate(all_boxes), len(all_boxes))
+    preds = _gather_batches(np.concatenate(all_preds), n_batches)
+    boxes = _gather_batches(np.concatenate(all_boxes), n_batches)
     n_seen *= process_count()
     preds, boxes = preds[:len(dataset)], boxes[:len(dataset)]
     logger.info(f"validate: {n_seen} samples in {total:.3f}s "

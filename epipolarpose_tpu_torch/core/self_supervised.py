@@ -34,8 +34,8 @@ from torch import nn
 from epipolarpose_tpu_torch.core.checkpoint import (load_model_variables,
                                                     read_state_dict)
 from epipolarpose_tpu_torch.core.refine import make_refiner_apply
-from epipolarpose_tpu_torch.core.steps import (integral_update,
-                                               normalize_images)
+from epipolarpose_tpu_torch.core.steps import (fuse_steps, integral_update,
+                                               normalize_images, warmup_for)
 from epipolarpose_tpu_torch.geometry.affine import (affine_transform,
                                                     get_affine_transform,
                                                     transform_preds)
@@ -45,6 +45,7 @@ from epipolarpose_tpu_torch.geometry.camera import (Camera,
                                                     world_to_camera_frame)
 from epipolarpose_tpu_torch.geometry.rig import pseudo_gt_uncalibrated
 from epipolarpose_tpu_torch.geometry.triangulation import triangulate
+from epipolarpose_tpu_torch.kernels import _build
 from epipolarpose_tpu_torch.kernels.triangulate import triangulate_fast
 from epipolarpose_tpu_torch.models.pose_resnet import PoseResNet
 from epipolarpose_tpu_torch.models.refiner import PoseRefiner
@@ -145,11 +146,12 @@ def teacher_detect(cfg, teacher: Teacher, imgs: torch.Tensor,
     preds, maxvals = get_max_preds(hm)
     preds = post_process_preds(hm, preds)
     joints_src = transform_preds(preds, centers, scales, (hm_w, hm_h))
-    teacher_detect.calls += 1
+    _build.count(teacher_detect, "calls")
     return joints_src.float(), maxvals.float()
 
 
-# calls of the teacher's forward and decode (no hand-written kernel)
+# calls of the teacher's forward and decode (no hand-written kernel; a
+# graph's at each replay, ``_build.count``)
 teacher_detect.calls = 0
 
 
@@ -198,10 +200,16 @@ def make_gt_teacher(joints_src, conf=None) -> Callable:
     joints_src = torch.as_tensor(joints_src, dtype=torch.float32)
     c = (torch.as_tensor(conf, dtype=torch.float32) if conf is not None
          else torch.ones(joints_src.shape[:-1]))
+    # one copy per device, made at the first call: a CUDA graph's capture
+    # (a later call) copies nothing from the host
+    on_device = {}
 
     def detect(imgs, centers, scales):
         del centers, scales
-        return joints_src.to(imgs.device), c.to(imgs.device)
+        if imgs.device not in on_device:
+            on_device[imgs.device] = (joints_src.to(imgs.device),
+                                      c.to(imgs.device))
+        return on_device[imgs.device]
     return detect
 
 
@@ -210,7 +218,8 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
                        detect_fn: Callable | None = None, flip_pairs=(),
                        refiner: Callable | None = None,
                        decode: Callable = softmax_integral,
-                       solve: Callable | None = None):
+                       solve: Callable | None = None,
+                       fused_steps: int = 1):
     """Build ``step(state, batch) -> (state, metrics)`` for multi-view
     batches (module docstring), with metrics ``{"loss", "tri_residual",
     "teacher_conf"}`` on the device.
@@ -231,6 +240,15 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
     intrinsics, as the JAX step fits it to the sharded batch, and each
     process keeps its own groups' pseudo-GT. The metrics are means over
     the processes.
+
+    ``fused_steps=K > 1``: the step takes K-stacked super-batches (the
+    cameras' fields too) and returns (K,) metrics
+    (``core/steps.py::FusedSteps``); on the card the teacher, the
+    triangulation and the student's update of all K steps are one
+    CUDA-graph replay. With ``estimated`` cameras that graph is split
+    around each cuSOLVER call of the rig (five a step), which reads its
+    status on the host and so runs eagerly between two segments
+    (``graphs.host_op``).
     """
     cameras = str(cfg.TPU.SS_CAMERAS)
     if cameras not in ("given", "estimated"):
@@ -248,6 +266,7 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
     for a, b in flip_pairs:
         if a < num_joints and b < num_joints:
             perm[a], perm[b] = perm[b], perm[a]
+    perm = torch.tensor(perm, dtype=torch.int64, device=device)
     net = unwrap(model).to(device)
 
     def to_device(a) -> torch.Tensor:
@@ -337,10 +356,10 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
                 m_aug = flat(batch["aug_M"]).float()
                 xy_crop = affine_transform(px, m_aug[:, None])
                 flip = flat(batch["aug_flip"])[:, None] > 0.5
-                xy_crop = torch.where(flip[..., None], xy_crop[:, perm],
-                                      xy_crop)
-                z_rel = torch.where(flip, z_rel[:, perm], z_rel)
-                vis = torch.where(flip, vis[:, perm], vis)
+                xy_crop = torch.where(flip[..., None],
+                                      xy_crop.index_select(1, perm), xy_crop)
+                z_rel = torch.where(flip, z_rel.index_select(1, perm), z_rel)
+                vis = torch.where(flip, vis.index_select(1, perm), vis)
             target, tw = generate_integral_target(
                 xy_crop, vis, image_size, depth_bound=depth_bound,
                 joints_depth=z_rel)
@@ -356,4 +375,5 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
             {"loss": loss, "tri_residual": res.mean(),
              "teacher_conf": conf.mean()})
 
-    return step
+    return fuse_steps(step, fused_steps, device,
+                      warmup_for(model, fused_steps))

@@ -7,19 +7,30 @@ crops (N, H, W, 3) NHWC; for training ``joints`` (N, J, 2+) crop pixels,
 in mm; for eval ``center`` and ``scale`` (N, 2). Numpy arrays or tensors,
 moved to the step's device. The model runs NCHW: a gaussian model's
 heatmaps are (N, J, H, W).
+
+``fused_steps=K > 1`` (``TPU.FUSED_STEPS``) is the JAX package's
+``compile_step(fused_steps=K)``: the step takes a super-batch, every
+leaf with a leading (K,) axis (``data/pipeline.py::stack_batches``), runs
+K steps in order and returns its outputs with that leading axis
+(:func:`fuse_steps`). On the card the K steps are one CUDA-graph replay.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from epipolarpose_tpu_torch.geometry.affine import (flip_back,
                                                     flip_back_volume,
                                                     shift_right,
                                                     transform_preds)
+from epipolarpose_tpu_torch.data.pipeline import batch_leaves, map_batch
+from epipolarpose_tpu_torch.graphs import StepGraph, constant
 from epipolarpose_tpu_torch.ops.heatmap import (generate_target,
                                                 get_final_preds)
 from epipolarpose_tpu_torch.ops.integral import (generate_integral_target,
@@ -28,7 +39,8 @@ from epipolarpose_tpu_torch.ops.integral import (generate_integral_target,
 from epipolarpose_tpu_torch.ops.losses import (integral_l1_loss,
                                                joints_mse_loss)
 from epipolarpose_tpu_torch.ops.metrics import heatmap_accuracy
-from epipolarpose_tpu_torch.parallel.mesh import mean_over_processes, unwrap
+from epipolarpose_tpu_torch.parallel.mesh import (mean_over_processes,
+                                                  process_count, unwrap)
 
 # ImageNet mean/std (torchvision Normalize constants of the reference)
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -39,8 +51,8 @@ def normalize_images(x: torch.Tensor) -> torch.Tensor:
     """(N, H, W, 3) uint8 in [0, 255] or float in [0, 1] -> normalized f32."""
     if not torch.is_floating_point(x):
         x = x.to(torch.float32) * (1.0 / 255.0)
-    mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
-    std = torch.as_tensor(IMAGENET_STD, device=x.device)
+    mean = constant(IMAGENET_MEAN, torch.float32, x.device)
+    std = constant(IMAGENET_STD, torch.float32, x.device)
     return (x.to(torch.float32) - mean) / std
 
 
@@ -73,9 +85,166 @@ def _check_target_type(cfg) -> str:
     return target_type
 
 
+# eager DDP iterations PyTorch's CUDA-graph notes ask for before a capture
+DDP_WARMUP_STEPS = 11
+
+
+class FusedSteps:
+    """K steps a call over a super-batch: the port's ``compile_step``.
+
+    ``step`` is a train step ``(state, batch) -> (state, metrics)`` or,
+    with ``stateful=False``, an eval step ``batch -> outputs``. A call
+    takes a super-batch whose leaves have a leading (K,) axis (any K: a
+    ragged tail is served as it is), runs the step on each inner batch in
+    order and returns the metrics or outputs stacked on a leading (K,)
+    axis; a train state's ``step`` advances by K.
+
+    - CPU (the tests): a Python loop of the K steps.
+    - Card: the first ``warmup_steps`` inner steps (whole super-batches)
+      run eagerly on a side stream, PyTorch's warm-up before a capture.
+      Then each super-batch shape is captured once into a
+      :class:`graphs.StepGraph` (the capture runs it), over static input
+      buffers; each later super-batch of that shape is copied into them
+      on the current stream, after the loader's copy by that stream's
+      wait, and replayed. A step that fails to capture or to replay
+      raises :class:`graphs.CaptureError` naming the op; nothing falls
+      back to the eager loop. The train state the graphs were captured
+      on must be the one passed to every later call.
+
+    ``gloo`` ranks on a card raise: their collectives go through the host
+    and no graph can hold them.
+    """
+
+    def __init__(self, step: Callable, fused_steps: int,
+                 device: str | torch.device = "cuda",
+                 warmup_steps: int | None = None, stateful: bool = True):
+        if int(fused_steps) < 1:
+            raise ValueError(f"fused_steps must be >= 1, got {fused_steps}")
+        self.step = step
+        self.fused_steps = int(fused_steps)
+        self.device = torch.device(device)
+        self.stateful = stateful
+        self.warmup_steps = (self.fused_steps if warmup_steps is None
+                             else int(warmup_steps))
+        self.eager_steps = 0
+        self.graphs: dict = {}
+        self.replays = 0
+        self.capture_s = 0.0
+        self._state = None
+        self._pool = self._stream = None
+        if (self.device.type == "cuda" and process_count() > 1
+                and dist.get_backend() != "nccl"):
+            raise NotImplementedError(
+                f"fused steps on the card with the {dist.get_backend()} "
+                "backend: its collectives go through the host, so no CUDA "
+                "graph can hold the step; use nccl, or TPU.FUSED_STEPS: 1")
+
+    @property
+    def host_ops(self) -> int:
+        """Ops run eagerly between graph segments, over every graph."""
+        return sum(g.host_ops for g, _, _ in self.graphs.values())
+
+    def _loop(self, state, superbatch):
+        k = int(batch_leaves(superbatch)[0].shape[0])
+        outs = []
+        for i in range(k):
+            batch = map_batch(lambda a: a[i], superbatch)
+            if self.stateful:
+                state, out = self.step(state, batch)
+            else:
+                out = self.step(batch)
+            outs.append(out)
+        stacked = {key: torch.stack([o[key] for o in outs])
+                   for key in outs[0]}
+        return state, stacked
+
+    def _run(self, state, superbatch):
+        if self.stateful:
+            return self._loop(state, superbatch)
+        with torch.inference_mode():
+            return self._loop(state, superbatch)
+
+    def __call__(self, *args):
+        state, superbatch = args if self.stateful else (None, args[0])
+        if self.device.type != "cuda":
+            state, out = self._run(state, superbatch)
+            return (state, out) if self.stateful else out
+        k = int(batch_leaves(superbatch)[0].shape[0])
+        current = torch.cuda.current_stream(self.device)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        if self.eager_steps < self.warmup_steps:
+            self._stream.wait_stream(current)
+            with torch.cuda.stream(self._stream):
+                state, out = self._run(state, superbatch)
+            current.wait_stream(self._stream)
+            # the allocator's stream marks: inputs read on the side
+            # stream, outputs read on the current one
+            for t in batch_leaves(superbatch):
+                if torch.is_tensor(t) and t.is_cuda:
+                    t.record_stream(self._stream)
+            for t in out.values():
+                t.record_stream(current)
+            self.eager_steps += k
+            return (state, out) if self.stateful else out
+        if self.stateful:
+            if self._state is None:
+                self._state = state
+            elif state is not self._state:
+                raise ValueError("the fused step's graphs hold another "
+                                 "train state: build the step anew")
+        key = tuple((tuple(t.shape), str(t.dtype))
+                    for t in batch_leaves(superbatch))
+        entry = self.graphs.get(key)
+        if entry is None:
+            t0 = time.perf_counter()
+            static = map_batch(lambda a: torch.as_tensor(a).to(
+                self.device).clone(), superbatch)
+            graph = StepGraph(self._pool)
+            out = graph.capture(lambda: self._run(state, static)[1],
+                                self._stream)
+            self.graphs[key] = (graph, static, out)
+            self.capture_s += time.perf_counter() - t0
+        else:
+            graph, static, out = entry
+            for dst, src in zip(batch_leaves(static),
+                                batch_leaves(superbatch)):
+                dst.copy_(torch.as_tensor(src), non_blocking=True)
+            graph.replay()
+            if self.stateful:
+                state.step += k
+                if state.scheduler is not None:
+                    state.scheduler.last_epoch += k
+        self.replays += 1
+        out = {key: v.clone() for key, v in out.items()}
+        return (state, out) if self.stateful else out
+
+
+def fuse_steps(step: Callable, fused_steps: int,
+               device: str | torch.device = "cuda",
+               warmup_steps: int | None = None,
+               stateful: bool = True) -> Callable:
+    """``step`` itself for ``fused_steps`` 1, else :class:`FusedSteps`."""
+    if int(fused_steps) == 1:
+        return step
+    return FusedSteps(step, fused_steps, device, warmup_steps, stateful)
+
+
+def warmup_for(model: torch.nn.Module, fused_steps: int) -> int:
+    """Eager inner steps before the first capture: one super-batch, or
+    :data:`DDP_WARMUP_STEPS` under DDP."""
+    if isinstance(model, DistributedDataParallel):
+        return max(int(fused_steps), DDP_WARMUP_STEPS)
+    return int(fused_steps)
+
+
 def optimizer_step(state, loss: torch.Tensor) -> None:
     """Backward of ``loss``, then one step of ``state``'s optimizer and
-    schedule."""
+    schedule. Graph-safe: the gradients are dropped, not zeroed, so the
+    backward allocates them in the graph's pool; the schedule sets the
+    rate on the card (``core/train_state.py``); ``state.step`` is the
+    Python count, which a replay's caller advances."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     state.optimizer.step()
@@ -101,7 +270,8 @@ def integral_update(state, model: torch.nn.Module, x: torch.Tensor,
 
 def make_train_step(cfg, model: torch.nn.Module,
                     device: str | torch.device = "cuda",
-                    decode: Callable = softmax_integral):
+                    decode: Callable = softmax_integral,
+                    fused_steps: int = 1):
     """Build ``step(state, batch) -> (state, metrics)``.
 
     One optimizer step of ``state``, a ``TrainState`` whose ``model`` is
@@ -122,6 +292,10 @@ def make_train_step(cfg, model: torch.nn.Module,
 
     The metrics are means over the processes and stay on the device:
     nothing waits for the card. ``model`` is moved to ``device``.
+    ``fused_steps=K > 1``: the step takes K-stacked super-batches and
+    returns (K,) metrics (:class:`FusedSteps`; on the card one CUDA-graph
+    replay, after one super-batch of warm-up, or
+    :data:`DDP_WARMUP_STEPS` steps under DDP).
     """
     target_type = _check_target_type(cfg)
     device = torch.device(device)
@@ -169,12 +343,14 @@ def make_train_step(cfg, model: torch.nn.Module,
                                decode)
         return state, mean_over_processes({"loss": loss})
 
-    return step
+    return fuse_steps(step, fused_steps, device,
+                      warmup_for(model, fused_steps))
 
 
 def make_eval_step(cfg, model: torch.nn.Module, flip_pairs=(),
                    device: str | torch.device = "cuda",
-                   decode: Callable = softmax_integral):
+                   decode: Callable = softmax_integral,
+                   fused_steps: int = 1):
     """Build ``step(batch) -> dict`` of predictions in source-image pixels.
 
     - ``integral``: ``{"preds": (N, J, 3) float32}``, (x, y) in pixels and
@@ -190,7 +366,9 @@ def make_eval_step(cfg, model: torch.nn.Module, flip_pairs=(),
     ``model`` is moved to ``device``. Each call puts it in eval mode, as
     the JAX step passes ``train=False`` on each call: BN runs on its
     running statistics and writes no buffer, so a train step built on the
-    same model may run before and after it.
+    same model may run before and after it. ``fused_steps=K > 1``: the
+    step takes K-stacked super-batches and returns (K, N, ...) outputs
+    under ``inference_mode`` (:class:`FusedSteps`).
     """
     target_type = _check_target_type(cfg)
     device = torch.device(device)
@@ -233,4 +411,4 @@ def make_eval_step(cfg, model: torch.nn.Module, flip_pairs=(),
         z_mm = integral_to_camera_depth(coords, depth_bound)
         return {"preds": torch.cat([xy_src, z_mm[..., None]], dim=-1)}
 
-    return step
+    return fuse_steps(step, fused_steps, device, stateful=False)

@@ -22,6 +22,7 @@ from epipolarpose_tpu_torch.data.pipeline import (  # noqa: F401
     device_prefetch,
     epoch_loader,
     host_prefetch,
+    stack_batches,
 )
 from epipolarpose_tpu_torch.data.pseudo_gt import (  # noqa: F401
     merge_pseudo_gt_into_annot,

@@ -107,6 +107,42 @@ def _pipeline_stage(batches: Iterator, size: int, transform: Callable,
                 break
 
 
+def _stack(items: list):
+    """Stack equal-shaped batches' leaves on a new leading axis: dicts key
+    by key, a :class:`Camera` field by field, tensors with ``torch`` and
+    anything else with numpy."""
+    first = items[0]
+    if isinstance(first, dict):
+        return {k: _stack([b[k] for b in items]) for k in first}
+    if isinstance(first, Camera):
+        return Camera(**{f.name: _stack([getattr(c, f.name) for c in items])
+                         for f in dataclasses.fields(first)})
+    if torch.is_tensor(first):
+        return torch.stack(items)
+    return np.stack(items)
+
+
+def stack_batches(batches: Iterator, k: int,
+                  drop_remainder: bool = False) -> Iterator:
+    """Group ``k`` consecutive batches into one super-batch.
+
+    Every leaf (nested dicts and the :class:`Camera` fields included)
+    gains a leading (k,) axis; a step built with ``fused_steps=k`` runs
+    the k steps of one super-batch in one call
+    (``core/steps.py::FusedSteps``). A last group smaller than ``k`` is
+    yielded as it is (one more graph capture for its shape) unless
+    ``drop_remainder``.
+    """
+    buf = []
+    for b in batches:
+        buf.append(b)
+        if len(buf) == k:
+            yield _stack(buf)
+            buf = []
+    if buf and not drop_remainder:
+        yield _stack(buf)
+
+
 def host_prefetch(batches: Iterator, size: int = 2,
                   stats: dict | None = None) -> Iterator:
     """Stage 1: pull batches ahead on a background thread, so decoding
@@ -115,19 +151,17 @@ def host_prefetch(batches: Iterator, size: int = 2,
 
 
 def map_batch(fn: Callable, batch: dict) -> dict:
-    """``fn`` over every array of a batch (a :class:`Camera` field by
-    field)."""
-    return {k: (v.map(fn) if isinstance(v, Camera) else fn(v))
+    """``fn`` over every array of a batch (nested dicts key by key, a
+    :class:`Camera` field by field)."""
+    return {k: (v.map(fn) if isinstance(v, Camera)
+                else map_batch(fn, v) if isinstance(v, dict) else fn(v))
             for k, v in batch.items()}
 
 
-def _leaves(batch: dict) -> list[torch.Tensor]:
+def batch_leaves(batch: dict) -> list:
+    """Every array of a batch, in :func:`map_batch`'s order."""
     out = []
-    for v in batch.values():
-        if isinstance(v, Camera):
-            out += [getattr(v, f.name) for f in dataclasses.fields(v)]
-        else:
-            out.append(v)
+    map_batch(out.append, batch)
     return out
 
 
@@ -158,7 +192,7 @@ def device_prefetch(batches: Iterator[dict], size: int = 2,
 
     def put(b):
         if stats is not None:
-            stats["bytes"] += sum(_tensor(a).nbytes for a in _leaves(b))
+            stats["bytes"] += sum(_tensor(a).nbytes for a in batch_leaves(b))
         if not cuda:
             return map_batch(lambda a: _tensor(a).to(device), b), None
         with torch.cuda.stream(copy_stream):
@@ -177,7 +211,7 @@ def device_prefetch(batches: Iterator[dict], size: int = 2,
                 if done is not None:
                     stream = torch.cuda.current_stream(device)
                     stream.wait_event(done)
-                    for t in _leaves(out):
+                    for t in batch_leaves(out):
                         t.record_stream(stream)
                 yield out
         finally:
@@ -189,8 +223,8 @@ def device_prefetch(batches: Iterator[dict], size: int = 2,
 def epoch_loader(dataset, batch_size: int, epoch: int, is_train: bool = True,
                  prefetch: int = 2, device: str | torch.device = "cuda",
                  multiview: bool = False, process_index: int = 0,
-                 process_count: int = 1,
-                 stats: dict | None = None) -> Iterator[dict]:
+                 process_count: int = 1, stats: dict | None = None,
+                 fused_steps: int = 1) -> Iterator[dict]:
     """One epoch of batches on ``device``, seeded by ``epoch``.
 
     ``multiview``: the dataset's ``view_batches`` of ``batch_size`` view
@@ -204,7 +238,9 @@ def epoch_loader(dataset, batch_size: int, epoch: int, is_train: bool = True,
     holds with the process count. ``batch_size`` is global; with
     ``process_count`` > 1 this process decodes its slice of each batch.
     ``stats``: a dict that gets each stage's figures under ``host`` and
-    ``device``.
+    ``device``. ``fused_steps=K > 1``: K-stacked super-batches
+    (:func:`stack_batches`, the tail as it is), stacked on the host before
+    both stages, for a step built with the same ``fused_steps``.
     """
     loader = str(getattr(dataset.cfg.TPU, "LOADER", "threads"))
     if multiview:
@@ -222,6 +258,8 @@ def epoch_loader(dataset, batch_size: int, epoch: int, is_train: bool = True,
         it = dataset.batches(batch_size, seed=epoch, shuffle=is_train,
                              drop_last=is_train, process_index=process_index,
                              process_count=process_count)
+    if fused_steps > 1:
+        it = stack_batches(it, fused_steps)
     host_stats = device_stats = None
     if stats is not None:
         host_stats = stats.setdefault("host", {})

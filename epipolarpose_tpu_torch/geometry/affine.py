@@ -26,8 +26,17 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from epipolarpose_tpu_torch.graphs import constant
+
 
 def _f32(x, device=None) -> torch.Tensor:
+    """``x`` as float32 on ``device``. A Python number or a flat sequence
+    of them (the shift and rotation defaults) comes from
+    :func:`graphs.constant`: no copy from the host in a CUDA graph."""
+    if (device is not None and not torch.is_tensor(x)
+            and all(isinstance(v, (int, float))
+                    for v in (x if isinstance(x, (tuple, list)) else [x]))):
+        return constant(x, torch.float32, device)
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
@@ -181,10 +190,15 @@ def fliplr_joints(joints: torch.Tensor, joints_vis: torch.Tensor,
     return joints * joints_vis[..., :1].to(joints.dtype), joints_vis
 
 
+def _swap_pairs(x: torch.Tensor, dim: int, matched_parts) -> torch.Tensor:
+    """``x`` with the left/right pairs along ``dim`` swapped."""
+    perm = _pair_permutation(x.shape[dim], matched_parts)
+    return x.index_select(dim, constant(perm, torch.int64, x.device))
+
+
 def flip_back(heatmaps: torch.Tensor, matched_parts) -> torch.Tensor:
     """Un-flip NCHW heatmaps from a flipped forward: flip W, swap pairs."""
-    perm = _pair_permutation(heatmaps.shape[-3], matched_parts)
-    return heatmaps.flip(-1)[..., perm, :, :]
+    return _swap_pairs(heatmaps.flip(-1), heatmaps.ndim - 3, matched_parts)
 
 
 def flip_back_volume(logits: torch.Tensor, matched_parts, num_joints: int,
@@ -198,7 +212,7 @@ def flip_back_volume(logits: torch.Tensor, matched_parts, num_joints: int,
         return flip_back(logits, matched_parts)
     n, _, h, w = logits.shape
     vol = logits.reshape(n, num_joints, depth_dim, h, w).flip(-1)
-    vol = vol[:, _pair_permutation(num_joints, matched_parts)]
+    vol = _swap_pairs(vol, 1, matched_parts)
     return vol.reshape(n, num_joints * depth_dim, h, w)
 
 

@@ -13,7 +13,11 @@ sums, never a matmul, so ``torch.backends.cuda.matmul.allow_tf32`` cannot
 change a bit. The solvers are ``torch.linalg.eigh`` (the 9x9 normal
 matrix, and the two-view DLT inside :func:`recover_pose`) and
 ``torch.linalg.svd`` (3x3); on a card each call goes through cuSOLVER,
-which waits for the host to read its status.
+which waits for the host to read its status. So no CUDA graph can hold
+them: each runs through :func:`graphs.host_op`, which ends the graph
+being captured before the call and opens another after it (the fused SS
+step of ``TPU.SS_CAMERAS: estimated``). The numbers are those of the
+eager call.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ import math
 
 import torch
 
-from epipolarpose_tpu_torch.geometry.triangulation import triangulate_points
+from epipolarpose_tpu_torch.geometry.triangulation import (eigh, svd,
+                                                         triangulate_points)
+from epipolarpose_tpu_torch.graphs import constant
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -72,7 +78,7 @@ def _nine_point_nullvec(a: torch.Tensor) -> torch.Tensor:
     """Smallest right-singular vector of (..., N, 9) ``a``, by ``eigh`` of
     AᵀA."""
     m = (a[..., :, :, None] * a[..., :, None, :]).sum(-3)
-    return torch.linalg.eigh(m)[1][..., :, 0]
+    return eigh(m)[1][..., :, 0]
 
 
 def estimate_fundamental(x1: torch.Tensor, x2: torch.Tensor,
@@ -95,7 +101,7 @@ def estimate_fundamental(x1: torch.Tensor, x2: torch.Tensor,
     f = _nine_point_nullvec(a)
     f = f.reshape(f.shape[:-1] + (3, 3))
     # rank 2
-    u, s, vt = torch.linalg.svd(f)
+    u, s, vt = svd(f)
     s = torch.cat([s[..., :2], torch.zeros_like(s[..., 2:])], dim=-1)
     f = _usv(u, s, vt)
     # x2ᵀ F x1 with x = T x_orig: F_orig = T2ᵀ F T1
@@ -106,7 +112,7 @@ def estimate_fundamental(x1: torch.Tensor, x2: torch.Tensor,
 
 def _project_to_essential(e: torch.Tensor) -> torch.Tensor:
     """The nearest essential matrix: σ1 and σ2 equalized, σ3 zeroed."""
-    u, s, vt = torch.linalg.svd(e)
+    u, s, vt = svd(e)
     m = (s[..., 0] + s[..., 1]) / 2.0
     return _usv(u, torch.stack([m, m, torch.zeros_like(m)], dim=-1), vt)
 
@@ -125,8 +131,8 @@ def estimate_essential(x1n: torch.Tensor, x2n: torch.Tensor,
 
 
 def _w_matrix(like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                        dtype=like.dtype, device=like.device)
+    return constant([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                    like.dtype, like.device)
 
 
 def decompose_essential(e: torch.Tensor
@@ -134,7 +140,7 @@ def decompose_essential(e: torch.Tensor
     """E -> (R1, R2, t), the candidate decompositions (as OpenCV's
     ``decomposeEssentialMat``): proper rotations and a unit translation,
     up to sign."""
-    u, _, vt = torch.linalg.svd(e)
+    u, _, vt = svd(e)
     u = u * torch.sign(_det3(u))[..., None, None]
     vt = vt * torch.sign(_det3(vt))[..., None, None]
     w = _w_matrix(e)

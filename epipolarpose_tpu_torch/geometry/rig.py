@@ -28,7 +28,10 @@ from epipolarpose_tpu_torch.geometry.camera import (Camera,
 from epipolarpose_tpu_torch.geometry.epipolar import (estimate_essential,
                                                       recover_pose)
 from epipolarpose_tpu_torch.geometry.triangulation import triangulate
-from epipolarpose_tpu_torch.kernels.triangulate import triangulate_fast
+from epipolarpose_tpu_torch.graphs import constant
+# the module, not the name: ``kernels.triangulate`` imports this package
+# (``geometry.triangulation``), so either may be imported first
+from epipolarpose_tpu_torch.kernels import triangulate as ktri
 
 
 def _eye34(like: torch.Tensor) -> torch.Tensor:
@@ -50,7 +53,7 @@ def estimate_rig(detections_norm: torch.Tensor,
     length; every other view's translation is scaled so its two-view
     points match pair (0, 1)'s.
     """
-    solve = solve or triangulate_fast
+    solve = solve or ktri.triangulate_fast
     g, v, j, _ = detections_norm.shape
     x0 = detections_norm[:, 0].reshape(g * j, 2)
     xv = detections_norm[:, 1:].transpose(0, 1).reshape(v - 1, g * j, 2)
@@ -100,7 +103,7 @@ def pseudo_gt_uncalibrated(detections_px: torch.Tensor, intrinsics: Camera,
     and ``bone_length_mm``, the whole reconstruction (points, baselines
     and residuals) is rescaled so that the mean bone has that length.
     """
-    solve = solve or triangulate_fast
+    solve = solve or ktri.triangulate_fast
     g, v, j, _ = detections_px.shape
     det_v = detections_px.transpose(0, 1).reshape(v, g * j, 2)
     norm = normalized_camera_coords(det_v, intrinsics)
@@ -112,9 +115,10 @@ def pseudo_gt_uncalibrated(detections_px: torch.Tensor, intrinsics: Camera,
     else:
         x, res = triangulate(norm, p, w, method=method)
     if bone_pairs is not None and bone_length_mm is not None:
-        a = [q[0] for q in bone_pairs]
-        b = [q[1] for q in bone_pairs]
-        lengths = torch.linalg.vector_norm(x[:, a] - x[:, b], dim=-1)
+        a = constant([q[0] for q in bone_pairs], torch.int64, x.device)
+        b = constant([q[1] for q in bone_pairs], torch.int64, x.device)
+        lengths = torch.linalg.vector_norm(
+            x.index_select(1, a) - x.index_select(1, b), dim=-1)
         s = bone_length_mm / (lengths.mean() + 1e-12)
         # scale the points and the baselines together: R (s X) + s t keeps
         # every view's projection and gives depths in mm

@@ -15,12 +15,34 @@ Three solvers, as in the JAX package:
 This module's ``fast`` path is the plain version of the CUDA kernel
 ``epk_triangulate`` (``kernels/triangulate.py``); ``svd`` and ``eigh`` are
 its oracles. Every product is elementwise float32 (no matmul), so no TF32
-setting can reach it.
+setting can reach it. :func:`svd` and :func:`eigh` are cuSOLVER's on a
+card, which reads its status back to the host: they run through
+:func:`graphs.host_op`, between the segments of a CUDA graph.
 """
 
 from __future__ import annotations
 
 import torch
+
+from epipolarpose_tpu_torch.graphs import host_op
+
+
+def eigh(m: torch.Tensor):
+    """``torch.linalg.eigh(m)``; eagerly between two graph segments inside
+    a capture (:func:`graphs.host_op`)."""
+    return host_op(torch.linalg.eigh, m)
+
+
+def svd(a: torch.Tensor, full_matrices: bool = True):
+    """``torch.linalg.svd(a, full_matrices)``; eagerly between two graph
+    segments inside a capture (:func:`graphs.host_op`)."""
+    if full_matrices:
+        return host_op(torch.linalg.svd, a)
+    return host_op(_svd_reduced, a)
+
+
+def _svd_reduced(a: torch.Tensor):
+    return torch.linalg.svd(a, full_matrices=False)
 
 
 def _mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -95,10 +117,10 @@ def normal_matrix(a: torch.Tensor) -> torch.Tensor:
 def _null_vector(a: torch.Tensor, method: str) -> torch.Tensor:
     """Right null vector of (..., 2V, 4) ``a`` by the named solver."""
     if method == "svd":
-        return torch.linalg.svd(a, full_matrices=False)[2][..., -1, :]
+        return svd(a, full_matrices=False)[2][..., -1, :]
     m = normal_matrix(a)
     if method == "eigh":
-        return torch.linalg.eigh(m)[1][..., :, 0]
+        return eigh(m)[1][..., :, 0]
     if method == "fast":
         return _smallest_eigvec_fast(m)
     raise ValueError(f"unknown triangulation method: {method}")

@@ -159,7 +159,7 @@ def softmax_integral_fwd(logits: torch.Tensor, num_joints: int,
         stats.data_ptr() if with_stats else None, _DTYPE_CODE[logits.dtype],
         n * num_joints, depth_dim, h, w, *_build.launch_args(logits.device))
     _build.check(lib, code, "epk_softargmax_fwd")
-    softmax_integral.launches += 1
+    _build.count(softmax_integral, "launches")
     return out, stats
 
 
@@ -192,7 +192,7 @@ def softmax_integral_bwd(logits: torch.Tensor, stats: torch.Tensor,
         dlogits.data_ptr(), _DTYPE_CODE[logits.dtype], n * j, d, h, w,
         *_build.launch_args(logits.device))
     _build.check(lib, code, "epk_softargmax_bwd")
-    softmax_integral_bwd.launches += 1
+    _build.count(softmax_integral_bwd, "launches")
     return dlogits
 
 
@@ -234,6 +234,7 @@ def softmax_integral(logits: torch.Tensor, num_joints: int,
                                 with_stats=False)[0]
 
 
-# launches of the CUDA kernels; the CPU path does not count
+# launches of the CUDA kernels (a graph's at each replay,
+# ``_build.count``); the CPU path does not count
 softmax_integral.launches = 0
 softmax_integral_bwd.launches = 0

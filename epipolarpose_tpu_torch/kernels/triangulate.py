@@ -133,16 +133,12 @@ def triangulate_fast(points2d: torch.Tensor, P: torch.Tensor,
         None if weights is None else weights.data_ptr(), x.data_ptr(),
         res.data_ptr(), n, v, j, index, _build.current_stream(index))
     _build.check(lib, code, "epk_triangulate")
-    triangulate_fast.launches += 1
-    if layout == "split":
-        triangulate_fast.launches_split += 1
-    else:
-        triangulate_fast.launches_thread += 1
+    _build.count(triangulate_fast, "launches", f"launches_{layout}")
     return x, res
 
 
-# launches of the CUDA kernel, all and per layout; the CPU path does not
-# count
+# launches of the CUDA kernel, all and per layout (a graph's at each
+# replay, ``_build.count``); the CPU path does not count
 triangulate_fast.launches = 0
 triangulate_fast.launches_thread = 0
 triangulate_fast.launches_split = 0

@@ -90,8 +90,10 @@ class FlaxRunningVar:
     ``m * var``. With the old buffer ``old`` and torch's result ``new``,
     flax's value is ``new * (n-1)/n + (1-m) * old / n``, that is
     ``lerp(new, (1-m) * old, 1/n)``: a per-channel fix of two small
-    kernels that reads no activation again. It replaces the buffer rather
-    than writing into it, since autograd saved the buffer for the backward.
+    kernels that reads no activation again. It writes the buffer in place,
+    so a CUDA graph's replays update the buffer the graph captured, and
+    through ``.data``: autograd saved the buffer for the backward, which in
+    train mode does not read it, and would refuse a bumped version.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -101,7 +103,8 @@ class FlaxRunningVar:
         y = super().forward(x)
         n = x.numel() // x.shape[1]
         with torch.no_grad():
-            self.running_var = torch.lerp(self.running_var, old, 1.0 / n)
+            self.running_var.data.copy_(
+                torch.lerp(self.running_var, old, 1.0 / n))
         return y
 
 
@@ -329,7 +332,10 @@ class PoseResNet(nn.Module):
                                      1 if k == 3 else 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cast = (torch.autocast(x.device.type, dtype=self.dtype)
+        # no cast cache: a CUDA graph must not keep casts made at capture
+        # (each weight is cast once a forward either way)
+        cast = (torch.autocast(x.device.type, dtype=self.dtype,
+                               cache_enabled=False)
                 if self.dtype != torch.float32 else contextlib.nullcontext())
         with cast:
             x = self.maxpool(self.relu(self.bn1(self.conv1(x))))

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from epipolarpose_tpu_torch.geometry.procrustes import procrustes_align
+from epipolarpose_tpu_torch.graphs import constant
 from epipolarpose_tpu_torch.ops.heatmap import get_max_preds
 
 
@@ -45,8 +46,7 @@ def heatmap_accuracy(output: torch.Tensor, target: torch.Tensor,
     gt, _ = get_max_preds(target)
     norm = (torch.ones((output.shape[0], 2), dtype=output.dtype,
                        device=output.device)
-            * torch.tensor([h, w], dtype=output.dtype,
-                           device=output.device) / 10.0)
+            * constant([h, w], output.dtype, output.device) / 10.0)
     acc = _dist_acc(_calc_dists(pred, gt, norm), thr)
     valid_joint = acc >= 0
     avg = (torch.where(valid_joint, acc, torch.zeros_like(acc)).sum()

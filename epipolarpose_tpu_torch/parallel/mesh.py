@@ -183,7 +183,9 @@ def wrap_model(model: torch.nn.Module) -> DistributedDataParallel:
     process the same running buffers by construction, and the running
     variance is written in place. Parameters and buffers are broadcast
     from rank 0 once, when the wrapper is built. The train state keeps
-    ``model`` itself (:func:`unwrap`)."""
+    ``model`` itself (:func:`unwrap`). On a card the wrapper is built on a
+    side stream, as PyTorch's notes on CUDA graphs ask of a DDP model
+    whose steps a graph will capture (``TPU.FUSED_STEPS``)."""
     from epipolarpose_tpu_torch.models.pose_resnet import (BatchNorm2d,
                                                            GlobalBatchNorm2d)
     if not dist.is_initialized():
@@ -193,9 +195,16 @@ def wrap_model(model: torch.nn.Module) -> DistributedDataParallel:
         if type(mod) is BatchNorm2d:
             mod.__class__ = GlobalBatchNorm2d
     device = next(model.parameters()).device
-    ids = [device.index] if device.type == "cuda" else None
-    return DistributedDataParallel(model, device_ids=ids,
-                                   broadcast_buffers=False)
+    if device.type != "cuda":
+        return DistributedDataParallel(model, broadcast_buffers=False)
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        ddp = DistributedDataParallel(model, device_ids=[device.index],
+                                      broadcast_buffers=False)
+    current.wait_stream(side)
+    return ddp
 
 
 def unwrap(model: torch.nn.Module) -> torch.nn.Module:

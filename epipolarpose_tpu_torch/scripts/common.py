@@ -1,6 +1,5 @@
 """What the port's CLIs share: the device argument and ``--distributed``,
-the ``--synthetic`` dataset rules, and the settings refused in the
-port."""
+the ``--synthetic`` dataset rules, and the setting refused in the port."""
 
 from __future__ import annotations
 
@@ -80,10 +79,7 @@ def log_processes(logger: logging.Logger, device: torch.device,
 
 
 def refuse_unported(cfg) -> None:
-    """Raise on what the port does not run: fused steps and a model axis
-    of the mesh."""
+    """Raise on what the port does not run: a model axis of the mesh
+    (``TPU.MESH.MODEL > 1``). ``TPU.FUSED_STEPS`` runs: K steps a call,
+    one CUDA-graph replay on the card (``core/steps.py::FusedSteps``)."""
     refuse_model_axis(cfg)
-    if int(cfg.TPU.FUSED_STEPS) > 1:
-        raise NotImplementedError(
-            "TPU.FUSED_STEPS > 1 has no counterpart in the PyTorch port "
-            "(one batch a step); set it to 1")

@@ -12,7 +12,10 @@ the SS route) -> the ``MODEL.PRETRAINED`` merge -> ``CheckpointManager``
 in the dataset's metric direction -> ``TRAIN.RESUME`` -> the SS step
 (teacher from ``MODEL.PRETRAINED``, refiner from ``TPU.SS_REFINER``) or
 the fully supervised / 2D step -> each epoch ``epoch_loader`` ->
-``train`` -> ``validate`` -> a checkpoint -> the final weights.
+``train`` -> ``validate`` -> a checkpoint -> the final weights. With
+``TPU.FUSED_STEPS: K`` the loaders stack K batches a super-batch and the
+train and eval steps run K steps a call (one CUDA-graph replay on the
+card).
 
 ``--distributed`` runs one process per card under
 ``torch.distributed.run``, as the JAX script runs one per host: the
@@ -130,6 +133,8 @@ def main(argv=None) -> dict:
 
     flip_pairs = getattr(train_ds, "flip_pairs", ())
     net = wrap_model(model) if args.distributed else model
+    # K optimizer steps a call, one CUDA-graph replay on the card
+    fused = int(cfg.TPU.FUSED_STEPS)
     if self_supervised:
         from epipolarpose_tpu_torch.core.self_supervised import (
             load_refiner, load_teacher, make_ss_train_step)
@@ -139,10 +144,12 @@ def main(argv=None) -> dict:
             refiner = load_refiner(cfg, cfg.TPU.SS_REFINER, device)
             logger.info(f"refining pseudo-GT with {cfg.TPU.SS_REFINER}")
         tstep = make_ss_train_step(cfg, net, teacher, device=device,
-                                   flip_pairs=flip_pairs, refiner=refiner)
+                                   flip_pairs=flip_pairs, refiner=refiner,
+                                   fused_steps=fused)
     else:
-        tstep = make_train_step(cfg, net, device=device)
-    estep = make_eval_step(cfg, model, flip_pairs, device=device)
+        tstep = make_train_step(cfg, net, device=device, fused_steps=fused)
+    estep = make_eval_step(cfg, model, flip_pairs, device=device,
+                           fused_steps=fused)
 
     best_perf = -np.inf if higher_better else np.inf
     perf = avg_loss = None
@@ -151,7 +158,7 @@ def main(argv=None) -> dict:
         loader = epoch_loader(train_ds, batch_size, epoch,
                               multiview=self_supervised,
                               prefetch=int(cfg.TPU.PREFETCH), device=device,
-                              **shard)
+                              fused_steps=fused, **shard)
         if args.profile and epoch == begin_epoch and process_index() == 0:
             state, avg_loss = _profiled(cfg, loader, state, tstep, epoch,
                                         writer, output_dir, tb_dir, device,
@@ -160,7 +167,8 @@ def main(argv=None) -> dict:
             state, avg_loss = train(cfg, loader, state, tstep, epoch, writer,
                                     output_dir)
         vloader = epoch_loader(valid_ds, int(cfg.TEST.BATCH_SIZE) * world,
-                               epoch, is_train=False, device=device, **shard)
+                               epoch, is_train=False, device=device,
+                               fused_steps=fused, **shard)
         _, perf = validate(cfg, vloader, valid_ds, estep, output_dir, writer,
                            state.step)
         best_perf = (max if higher_better else min)(best_perf, perf)

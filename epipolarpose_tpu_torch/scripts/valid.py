@@ -15,6 +15,8 @@ PCK3D@150 (percent, higher is better) on MPI-INF-3DHP, where
 JPEG frames need no OpenCV). ``--distributed``: one process per card,
 the global batch ``TEST.BATCH_SIZE`` times the number of processes, each
 process's slice of every batch gathered back before ``evaluate``.
+``TPU.FUSED_STEPS: K``: K batches a call of the eval step (one CUDA-graph
+replay on the card).
 """
 
 from __future__ import annotations
@@ -80,11 +82,13 @@ def main(argv=None) -> float:
         logger.info(f"loaded {cfg.TEST.MODEL_FILE}")
     ds = get_dataset(cfg, cfg.DATASET.TEST_SET, False,
                      **dataset_kwargs(cfg, args.samples))
+    fused = int(cfg.TPU.FUSED_STEPS)
     estep = make_eval_step(cfg, model, getattr(ds, "flip_pairs", ()),
-                           device=device)
+                           device=device, fused_steps=fused)
     loader = epoch_loader(ds, int(cfg.TEST.BATCH_SIZE) * world, 0,
                           is_train=False, device=device,
-                          process_index=process_index(), process_count=world)
+                          process_index=process_index(), process_count=world,
+                          fused_steps=fused)
     _, perf = validate(cfg, loader, ds, estep, output_dir=output_dir)
     logger.info(f"perf: {perf:.6f}")
     if args.distributed:

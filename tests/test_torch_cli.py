@@ -13,7 +13,8 @@ the calibration-free debug config (``TPU.SS_CAMERAS: estimated``)
 through ``train``. ``train --distributed --device cpu`` in two ``gloo``
 processes under ``torch.distributed.run`` against one process on the same
 global batch. Refused: ``--device cuda`` without a card,
-``TPU.MESH.MODEL > 1``, ``TPU.FUSED_STEPS > 1``.
+``TPU.MESH.MODEL > 1``; ``TPU.FUSED_STEPS > 1`` runs
+(``tests/test_torch_fused_steps.py`` drives it through ``train``).
 """
 
 import json
@@ -190,16 +191,21 @@ def test_device_cuda_without_a_card_raises(tmp_path):
 
 
 def test_unported_flags_raise(tmp_path):
-    """A model axis of the mesh and fused steps are refused by name, by
-    both CLIs, before any process group is joined."""
+    """A model axis of the mesh is refused by name, by both CLIs, before
+    any process group is joined; fused steps are ported now and pass the
+    check (with a model axis too, the model axis is what raises)."""
+    from epipolarpose_tpu_torch.scripts.common import refuse_unported
     model_axis = _yaml(tmp_path / "mesh.yaml", TPU={"MESH": {"MODEL": 2}})
     for cli in (train, valid):
         with pytest.raises(NotImplementedError, match="MESH.MODEL.*item 14"):
             cli.main(["--cfg", model_axis, "--distributed", "--device",
                       "cpu"])
     fused = _yaml(tmp_path / "fused.yaml", TPU={"FUSED_STEPS": 2})
-    with pytest.raises(NotImplementedError, match="FUSED_STEPS"):
-        train.main(["--cfg", fused, "--device", "cpu"])
+    refuse_unported(load_config(fused))
+    both = _yaml(tmp_path / "both.yaml",
+                 TPU={"FUSED_STEPS": 2, "MESH": {"MODEL": 2}})
+    with pytest.raises(NotImplementedError, match="MESH.MODEL.*item 14"):
+        train.main(["--cfg", both, "--device", "cpu"])
 
 
 def test_loops_write_scalars_to_the_writer():
