@@ -166,7 +166,30 @@ card, then drives the port's paths through their entry points:
    records: the same predictions), and ``scripts.train --distributed``
    on one ``nccl`` rank at K 2 (DDP's 11 eager warm-up steps, then
    graphs) against the same run in process;
-24. no process left: every process this script started has ended but
+24. the serving artifact (``tools/export_model.py``) at the flagship
+   eval config (``valid_r50_256_integral.yaml``, bf16, seeded random
+   weights, the head re-drawn so that the joints decode apart): exported
+   with a symbolic batch on the card and saved (MB, specs, the program
+   calling the registered op ``epipolarpose::softmax_integral`` once);
+   loaded by a fresh process that imports only ``torch`` and
+   ``load_exported`` (the op's module and nothing else of the port) and
+   serves a batch of 8 with one kernel launch, equal to this process's
+   under deterministic cuDNN; served here at batches 1, 8 and 64 with
+   one ``epk_softargmax_fwd`` launch each, against the eager model and
+   the plain decode within phase 4's bound in normalized units; ms a
+   batch of 64 served against the eager forward and kernel decode, and
+   the op's ms beside the wrapper's; then the eager eval step, after the
+   export, gives real tensors equal to its predictions before it
+   (``graphs.constant`` caches no traced tensor);
+25. the user's tools: ``dualcrop_headroom --preset ci --device cuda``
+   (parts A, B and C: the loader's route and bytes, finite floors, the
+   triangulation and both soft-argmax kernels launched), ``export_torch``
+   on a latest save of ``core/checkpoint.py`` loaded back ``strict``,
+   ``prepare_h36m`` on fabricated json (and ``--cameras-h5``: converted
+   where ``h5py`` is installed, else refused naming it), and
+   ``demo_torch.ipynb``'s code cells at the flagship config on the card
+   (one soft-argmax launch, two PNGs);
+26. no process left: every process this script started has ended but
    the worker loader's ``forkserver`` and its resource tracker, and those
    two end when ``stop_worker_server`` stops them; phase 22's rank
    processes are gone.
@@ -200,7 +223,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
 
-# seconds each phase may take; the whole run aims at under 600 s
+# seconds each phase may take; the whole run aims at under 700 s
 PHASE_LIMITS = {"build": 120.0, "softargmax": 30.0, "matmul_stats": 60.0,
                 "eval": 90.0, "train": 150.0, "ss": 150.0, "pose2d": 60.0,
                 "tool": 30.0, "eval_data": 60.0, "ss_data": 90.0,
@@ -209,7 +232,7 @@ PHASE_LIMITS = {"build": 120.0, "softargmax": 30.0, "matmul_stats": 60.0,
                 "pseudo_gt": 120.0, "loader_workers": 360.0,
                 "jpeg": 15.0, "mpi3dhp": 30.0, "warp": 15.0,
                 "remat": 150.0, "ddp": 420.0, "fused": 300.0,
-                "processes": 30.0}
+                "export": 90.0, "user_tools": 90.0, "processes": 30.0}
 
 # H36M left/right joint pairs (the JAX package's data/h36m.py FLIP_PAIRS)
 H36M_FLIP_PAIRS = ((1, 4), (2, 5), (3, 6), (11, 14), (12, 15), (13, 16))
@@ -344,17 +367,9 @@ def bf16_spacing(x: torch.Tensor) -> torch.Tensor:
 def launch_counts() -> dict:
     """Every kernel wrapper's launch counter (the triangulation kernel's
     also per layout; and the teacher's decodes, which launch no
-    hand-written kernel)."""
-    from epipolarpose_tpu_torch.core.self_supervised import teacher_detect
-    from epipolarpose_tpu_torch.kernels import softargmax as ksa
-    from epipolarpose_tpu_torch.kernels.matmul_stats import matmul_stats
-    from epipolarpose_tpu_torch.kernels.triangulate import triangulate_fast
-    return {"softargmax_fwd": ksa.softmax_integral.launches,
-            "softargmax_bwd": ksa.softmax_integral_bwd.launches,
-            "matmul_stats": matmul_stats.launches,
-            "triangulate": triangulate_fast.launches,
-            "triangulate_split": triangulate_fast.launches_split,
-            "teacher_decode": teacher_detect.calls}
+    hand-written kernel): ``tools/dualcrop_headroom.py::kernel_launches``."""
+    from epipolarpose_tpu_torch.tools.dualcrop_headroom import kernel_launches
+    return kernel_launches()
 
 
 def reset_counts() -> None:
@@ -3801,7 +3816,7 @@ def fused_clis(res: dict, tmp: pathlib.Path) -> None:
 
 def phase_fused(res: dict) -> None:
     """``TPU.FUSED_STEPS``: K steps a call as one CUDA-graph replay, held
-    against the eager loop (module docstring, phase 24)."""
+    against the eager loop (module docstring, phase 23)."""
     import shutil
     import tempfile
     res["fused"] = {}
@@ -3815,6 +3830,356 @@ def phase_fused(res: dict) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         deterministic(False)
+
+
+# export and user-tool phases: the serving artifact, then the user's tools
+EXPORT_BATCHES = (1, 8, 64)
+# the eval phase's bound (0.05 px in x, y and 0.5 mm in z at source scale)
+# in normalized units: over the largest un-crop factor, 256 px x
+# 1.2 * 200 / 256, and over z's 2000 mm a unit
+EXPORT_XY_TOL = 0.05 / (256 * 1.2 * 200 / 256)
+EXPORT_Z_TOL = 0.5 / 2000.0
+SERVE_CODE = """
+import json, sys, torch
+from epipolarpose_tpu_torch.tools.export_model import load_exported
+from epipolarpose_tpu_torch.kernels import softargmax as ksa
+# cuDNN's deterministic algorithms and no TF32, as the smoke's process
+# serves the same batch: the same bits
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+artifact = load_exported(sys.argv[1])
+x = torch.load(sys.argv[2]).cuda()
+y = artifact(x)
+torch.cuda.synchronize()
+torch.save(y.cpu(), sys.argv[3])
+print(json.dumps({"modules": sorted(m for m in sys.modules
+                                    if m.startswith("epipolarpose")),
+                  "launches": ksa.softmax_integral.launches,
+                  "device": str(artifact.device)}))
+"""
+# the modules a process that serves an artifact may import: the op's
+# module (and its packages and build helper) and the loader's
+SERVE_MODULES = ["epipolarpose_tpu_torch", "epipolarpose_tpu_torch.kernels",
+                 "epipolarpose_tpu_torch.kernels._build",
+                 "epipolarpose_tpu_torch.kernels.softargmax",
+                 "epipolarpose_tpu_torch.tools",
+                 "epipolarpose_tpu_torch.tools.export_model"]
+
+
+def phase_export(res: dict) -> None:
+    """The serving artifact (``tools/export_model.py``) at the flagship
+    eval config (module docstring, phase 24)."""
+    import shutil
+    import tempfile
+    from epipolarpose_tpu_torch import graphs
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.core.steps import (configure_backends,
+                                                   make_eval_step,
+                                                   normalize_images)
+    from epipolarpose_tpu_torch.kernels.softargmax import (
+        softmax_integral, softmax_integral_plain)
+    from epipolarpose_tpu_torch.models import get_model
+    from epipolarpose_tpu_torch.tools import export_model as tex
+    from epipolarpose_tpu_torch.tools.profile_step import time_ms
+
+    dev = torch.device("cuda")
+    cfg = load_config(ROOT / "experiments/h36m/valid_r50_256_integral.yaml")
+    check(cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+          and cfg.MODEL.EXTRA.DEPTH_DIM == 64, "unexpected flagship config")
+    configure_backends(cfg)
+    j, d = int(cfg.MODEL.NUM_JOINTS), int(cfg.MODEL.EXTRA.DEPTH_DIM)
+    model = get_model(cfg, False, torch.Generator().manual_seed(0)).to(dev)
+    redraw_head(model, seed=5)       # joints decode apart (phase eval)
+    data = SmokeH36M(1, 8, 256, j, seed=6)
+    step = make_eval_step(cfg, model, H36M_FLIP_PAIRS, device="cuda")
+    before = step(data.batches[0])["preds"].clone()
+    # as in a process whose first use of ImageNet's statistics is the
+    # export: graphs.constant must not cache the fake tensors it traces
+    graphs._constants.clear()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="epk_export_"))
+    try:
+        t0 = time.perf_counter()
+        program = tex.export_model(cfg, model, batch_size=-1, device=dev)
+        export_s = time.perf_counter() - t0
+        path = tmp / "model.pt2"
+        mb = tex.save_exported(program, str(path), dev, cfg)
+        ins, outs = tex.specs(program)
+        check(ins[0].endswith(", 256, 256, 3]") and outs[0].endswith(
+            f", {j}, 3]"), f"specs {ins} -> {outs}")
+        ops = [str(n.target) for n in program.graph.nodes
+               if n.op == "call_function"]
+        check(ops.count("epipolarpose.softmax_integral.default") == 1,
+              "the program does not call the registered soft-argmax op "
+              "once")
+        log(f"[export] ResNet-50@256 J=17 D=64 bf16, symbolic batch: "
+            f"exported in {export_s:.1f} s, {mb:.1f} MB, in {ins}, out "
+            f"{outs}")
+
+        # a fresh process that imports torch and the op's module only
+        x8 = torch.rand((8, 256, 256, 3),
+                        generator=torch.Generator().manual_seed(7))
+        torch.save(x8, tmp / "x.pt")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", SERVE_CODE, str(path),
+                            str(tmp / "x.pt"), str(tmp / "y.pt")],
+                           capture_output=True, text=True, cwd=ROOT,
+                           timeout=180)
+        sub_s = time.perf_counter() - t0
+        check(r.returncode == 0, f"serving process failed:\n"
+              f"{r.stderr[-3000:]}")
+        sub = json.loads(r.stdout.strip().splitlines()[-1])
+        check(sub["modules"] == SERVE_MODULES,
+              f"the serving process imported {sub['modules']}")
+        check(sub["launches"] == 1 and sub["device"] == "cuda",
+              f"serving process: {sub}")
+        log(f"[export] a fresh process loaded and served batch 8 in "
+            f"{sub_s:.1f} s (one kernel launch), importing only "
+            f"{sub['modules']}")
+
+        artifact = tex.load_exported(str(path))
+        g = torch.Generator(dev).manual_seed(8)
+        inputs = {n: torch.rand((n, 256, 256, 3), generator=g, device=dev)
+                  for n in EXPORT_BATCHES}
+        inputs[8] = x8.to(dev)
+        reset_counts()
+        served = {n: artifact(x) for n, x in inputs.items()}
+        torch.cuda.synchronize()
+        res["paths"]["export"] = counts = launch_counts()
+        check(counts["softargmax_fwd"] == len(EXPORT_BATCHES)
+              and counts["softargmax_bwd"] == 0,
+              f"{len(EXPORT_BATCHES)} served calls launched {counts}")
+
+        def eager(x, decode):
+            with torch.inference_mode():
+                out = model(normalize_images(x).permute(0, 3, 1, 2)
+                            .contiguous())
+                return decode(out, j, d)
+        worst = {"xy": 0.0, "z": 0.0}
+        for n, x in inputs.items():
+            got = served[n]
+            check(tuple(got.shape) == (n, j, 3)
+                  and bool(torch.isfinite(got).all()),
+                  f"batch {n}: served {tuple(got.shape)}, not finite")
+            ref = eager(x, softmax_integral_plain)
+            worst["xy"] = max(worst["xy"], (got[..., :2] - ref[..., :2])
+                              .abs().max().item())
+            worst["z"] = max(worst["z"],
+                             (got[..., 2] - ref[..., 2]).abs().max().item())
+        spread = (ref.amax(1) - ref.amin(1)).mean(0).tolist()
+        # the other process's batch 8 against this one's with the same
+        # cuDNN settings: with the head re-drawn the volumes are sharp, so
+        # another conv algorithm's bf16 rounding moves a joint by cells
+        deterministic(True)
+        try:
+            served_det = artifact(inputs[8])
+        finally:
+            deterministic(False)
+        sub_y = torch.load(tmp / "y.pt").to(dev)
+        sub_err = (sub_y - served_det).abs().max().item()
+        log(f"[export] served batches {list(EXPORT_BATCHES)} vs the eager "
+            f"model + plain decode: max |dxy| {worst['xy']:.3g}, |dz| "
+            f"{worst['z']:.3g} normalized (limits {EXPORT_XY_TOL:.3g}, "
+            f"{EXPORT_Z_TOL:.3g}: phase eval's 0.05 px and 0.5 mm); the "
+            f"other process's batch 8 within {sub_err:.3g} of this one's "
+            f"(deterministic cuDNN both); joints spread "
+            f"{spread[0]:.3f} / {spread[1]:.3f} / {spread[2]:.3f}")
+        check(min(spread) > 0.02, "joints do not spread: the comparison "
+              "would test nothing")
+        check(worst["xy"] <= EXPORT_XY_TOL and worst["z"] <= EXPORT_Z_TOL,
+              "the served program and the eager path disagree")
+        check(sub_err <= EXPORT_XY_TOL,
+              "the other process's served batch differs from this one's")
+
+        x64 = inputs[64]
+        served_ms = time_ms(lambda: artifact(x64), dev)
+        eager_ms = time_ms(lambda: eager(x64, softmax_integral), dev)
+        with torch.inference_mode():
+            vol = model(normalize_images(x64).permute(0, 3, 1, 2)
+                        .contiguous())
+        op_ms = time_ms(lambda: torch.ops.epipolarpose.softmax_integral(
+            vol, j, d), dev)
+        direct_ms = time_ms(lambda: softmax_integral(vol, j, d), dev)
+        log(f"[export] batch 64: served {served_ms:.3f} ms, eager forward + "
+            f"kernel decode {eager_ms:.3f} ms; the soft-argmax at "
+            f"{tuple(vol.shape)}: as the registered op {op_ms:.4f} ms, "
+            f"through softmax_integral {direct_ms:.4f} ms")
+
+        # the eager eval step after the export: real tensors, as before
+        after = step(data.batches[0])["preds"]
+        check(type(after) is torch.Tensor and after.device.type == "cuda",
+              f"eval step after the export gave {type(after).__name__}")
+        check(torch.equal(after, before),
+              "eval step after the export differs from before it")
+        res["export"] = dict(
+            mb=mb, export_s=export_s, subprocess_s=sub_s, inputs=ins,
+            outputs=outs, max_dxy=worst["xy"], max_dz=worst["z"],
+            served_ms_b64=served_ms, eager_ms_b64=eager_ms,
+            op_ms=op_ms, direct_ms=direct_ms,
+            launches=counts["softargmax_fwd"])
+        log("[export] the eager eval step after the export: real tensors, "
+            "equal to its predictions before it")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_user_tools(res: dict) -> None:
+    """The user's tools on the card (module docstring, phase 25)."""
+    import shutil
+    import tempfile
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="epk_tools_"))
+    try:
+        user_dualcrop(res)
+        user_export_torch(res, tmp)
+        user_prepare_h36m(res, tmp)
+        user_notebook(res, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    loaded = [m for m in IMAGE_LIBS if m in sys.modules]
+    check(not loaded, f"the user's tools imported {loaded}")
+
+
+def user_dualcrop(res: dict) -> None:
+    from epipolarpose_tpu_torch.tools import dualcrop_headroom
+    reset_counts()
+    t0 = time.perf_counter()
+    out = dualcrop_headroom.main([
+        "--preset", "ci", "--device", "cuda", "--cfg",
+        str(ROOT / "experiments/h36m/train_ss_r50_256_integral.yaml")])
+    wall = time.perf_counter() - t0
+    A, B = out["A"], out["B"]
+    lb, lc = B["launches"]["B"], B["launches"]["C"]
+    res["paths"]["dualcrop_B"], res["paths"]["dualcrop_C"] = lb, lc
+    floors = (B["floor_full"], B["floor_half"], B["floor_half_ft"])
+    check(all(math.isfinite(f) for f in floors), f"floors {floors}")
+    check(all(B["device"][s] > 0 and math.isfinite(B["loss"][s])
+              for s in (1.0, 0.5)), f"SS steps {B}")
+    check(lb["triangulate"] == lb["teacher_decode"] == 3
+          and lb["softargmax_fwd"] == lb["matmul_stats"] == 0,
+          f"part B launched {lb}")
+    # C: 1 + 2 SS steps at each scale, a teacher decode, a triangulation
+    # and a soft-argmax forward and backward each
+    check(lc["triangulate"] == lc["softargmax_fwd"] == lc["softargmax_bwd"]
+          == lc["teacher_decode"] == 6 and lc["matmul_stats"] == 0,
+          f"part C launched {lc}")
+    total = launch_counts()
+    check(all(total[k] == lb[k] + lc[k] for k in total),
+          f"the tool launched {total} in all, parts B and C {lb}, {lc}")
+    check(A[1.0]["bytes_per_img"] == 2 * 64 * 64 * 3
+          and A[0.5]["bytes_per_img"] == (32 * 32 + 64 * 64) * 3,
+          f"part A shipped {A}")
+    check("native loader: one" in A["route"] or A["decodes"] > 0,
+          f"part A: route {A['route']}, {A['decodes']} port decodes")
+    res["dualcrop_ci"] = dict(A=A, B={k: v for k, v in B.items()},
+                              wall_s=wall)
+    log(f"[user_tools] dualcrop_headroom --preset ci in {wall:.1f} s; part "
+        f"A route: {A['route']} ({A['decodes']} port decodes); launches B "
+        f"{lb}, C {lc}\n{out['table']}")
+
+
+def user_export_torch(res: dict, tmp: pathlib.Path) -> None:
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.core import create_train_state
+    from epipolarpose_tpu_torch.core.checkpoint import CheckpointManager
+    from epipolarpose_tpu_torch.models import get_model
+    from epipolarpose_tpu_torch.tools import export_torch
+    yaml = ROOT / "experiments/h36m/valid_r50_256_integral.yaml"
+    cfg = load_config(yaml)
+    model = get_model(cfg, False, torch.Generator().manual_seed(3))
+    state = create_train_state(cfg, model, 10, "cuda")
+    CheckpointManager(str(tmp / "checkpoints"), best_mode="min").save(
+        5, state, 0, 50.0)
+    out = tmp / "reference.pth.tar"
+    t0 = time.perf_counter()
+    written = export_torch.main(["--cfg", str(yaml), "--model-file",
+                                 str(tmp / "checkpoints" / "latest"),
+                                 "--out", str(out)])
+    wall = time.perf_counter() - t0
+    fresh = get_model(cfg, False, torch.Generator().manual_seed(4))
+    sd = torch.load(out, map_location="cpu", weights_only=True)["state_dict"]
+    fresh.load_state_dict(sd, strict=True)
+    want = state.model.state_dict()
+    bad = [k for k, v in fresh.state_dict().items()
+           if not torch.equal(v, want[k].cpu())]
+    check(not bad and sorted(written) == sorted(want),
+          f"export_torch: entries differ {bad[:5]}")
+    log(f"[user_tools] export_torch: a latest save (model, Adam, schedule) "
+        f"-> {out.stat().st_size / 1e6:.1f} MB reference .pth.tar in "
+        f"{wall:.1f} s, loaded back strict, {len(sd)} entries equal")
+
+
+def user_prepare_h36m(res: dict, tmp: pathlib.Path) -> None:
+    from epipolarpose_tpu_torch.tools import prepare_h36m
+    raw = [{"img_path": f"S9/img_{i:06d}.jpg", "c": [500.0, 400.0],
+            "s": 2.1, "joint_img": [[10.0 + i, 20.0, 0.5]] * 17,
+            "joint_cam": [[1.0, 2.0, 3000.0]] * 17, "s_id": 9,
+            "act_id": 2, "subact_id": 1, "cam_id": "54138969",
+            "image_id": i} for i in range(4)]
+    (tmp / "raw.json").write_text(json.dumps(raw))
+    written = prepare_h36m.main(["--train-annot", str(tmp / "raw.json"),
+                                 "--valid-annot", str(tmp / "raw.json"),
+                                 "--out", str(tmp / "annot")])
+    annots = json.loads(pathlib.Path(written["train.json"]).read_text())
+    check(sorted(written) == ["train.json", "valid.json"] and len(annots) == 4
+          and annots[3]["frame"] == 3 and annots[0]["scale"] == [2.1, 2.1],
+          f"prepare_h36m wrote {written}: {annots[:1]}")
+    try:
+        import h5py  # noqa: F401
+        have_h5py = True
+    except ImportError:
+        have_h5py = False
+    if have_h5py:
+        import numpy as np
+        with h5py.File(tmp / "cameras.h5", "w") as f:
+            g = f.create_group("subject9/camera1")
+            g["Name"] = np.frombuffer("54138969".encode("utf-16-le"),
+                                      np.uint16)
+            for k, v in dict(R=np.eye(3), T=np.zeros(3), f=np.ones(2),
+                             c=np.ones(2), k=np.zeros(3),
+                             p=np.zeros(2)).items():
+                g[k] = v
+        cams = prepare_h36m.main(["--cameras-h5", str(tmp / "cameras.h5"),
+                                  "--out", str(tmp / "annot")])
+        got = json.loads(pathlib.Path(cams["cameras.json"]).read_text())
+        check(list(got) == ["9:54138969"], f"cameras.json {got}")
+        h5 = "cameras.h5 converted"
+    else:
+        try:
+            prepare_h36m.main(["--cameras-h5", str(tmp / "cameras.h5"),
+                               "--out", str(tmp / "annot")])
+            check(False, "--cameras-h5 ran without h5py")
+        except ImportError as exc:
+            check("h5py" in str(exc), f"the refusal does not name h5py: "
+                  f"{exc}")
+        h5 = "no h5py here: --cameras-h5 refused, naming it"
+    log(f"[user_tools] prepare_h36m: train/valid json of 4 records; {h5}")
+
+
+def user_notebook(res: dict, tmp: pathlib.Path) -> None:
+    cells = [c for c in json.loads((ROOT / "demo_torch.ipynb").read_text())
+             ["cells"] if c["cell_type"] == "code"]
+    out_dir = tmp / "demo_out"
+    sources = ["".join(c["source"]).replace(
+        "OUT = 'demo_out'", f"OUT = {str(out_dir)!r}") for c in cells]
+    check("DEVICE = 'cuda'" in sources[0]
+          and "valid_r50_256_integral.yaml" in sources[0],
+          "the notebook's first cell does not set the card and the flagship")
+    scope: dict = {"__name__": "demo_torch"}
+    reset_counts()
+    t0 = time.perf_counter()
+    for i, src in enumerate(sources):
+        exec(compile(src, f"demo_torch.ipynb cell {i + 1}", "exec"), scope)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res["paths"]["notebook"] = counts = launch_counts()
+    preds = scope["preds"]
+    check(preds.shape == (17, 3) and bool(torch.isfinite(
+        torch.as_tensor(preds)).all()), f"notebook preds {preds.shape}")
+    check(counts["softargmax_fwd"] == 1, f"the notebook launched {counts}")
+    sizes = [pathlib.Path(f).stat().st_size for f in scope["figures"]]
+    check(len(sizes) == 2 and min(sizes) > 0, f"figures {sizes}")
+    log(f"[user_tools] demo_torch.ipynb: 3 code cells on cuda at the "
+        f"flagship config in {wall:.1f} s, one soft-argmax launch, PNGs "
+        f"{sizes} bytes")
 
 
 def descendants() -> dict[int, str]:
@@ -3901,6 +4266,7 @@ def main() -> int:
               ("jpeg", phase_jpeg), ("mpi3dhp", phase_mpi3dhp),
               ("warp", phase_warp), ("remat", phase_remat),
               ("ddp", phase_ddp), ("fused", phase_fused),
+              ("export", phase_export), ("user_tools", phase_user_tools),
               ("processes", phase_processes)]
     failed = []
     for i, (name, fn) in enumerate(phases, 1):
@@ -3948,7 +4314,8 @@ def main() -> int:
         dict(name="softargmax_fwd", route="cuda", source=sa,
              replaces=pallas.format(98, ""), path="eval",
              launches=res["eval_launches"],
-             launches_by_path=by_path("softargmax_fwd"), **k1),
+             launches_by_path=by_path("softargmax_fwd"),
+             from_export=res["export"], **k1),
         dict(name="softargmax_fwd_stats", route="cuda", source=sa,
              replaces=pallas.format(98, ""), path="train",
              launches=res["train_launches"][0],
@@ -4052,6 +4419,12 @@ def main() -> int:
             for c in ("given", "estimated"))
         + f"; r152@384 REMAT {fu['remat']['ms_a_step_1']:.2f} / "
         f"{fu['remat'][f'ms_a_step_{FUSED_SS_K}']:.2f} ms a step")
+    ex, dc = res["export"], res["dualcrop_ci"]
+    log(f"export: {ex['mb']:.1f} MB artifact, batch 64 served "
+        f"{ex['served_ms_b64']:.3f} ms vs eager {ex['eager_ms_b64']:.3f} ms; "
+        f"dualcrop ci: SS step img/s " + " / ".join(
+            f"{dc['B']['device'][s]}" for s in (1.0, 0.5))
+        + " at teacher scale 1.0 / 0.5")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,7 +38,12 @@ keeps as its own copy. Layout mirrors the reference package:
 - utils:     debug images as PNG, drawn in numpy.
 - scripts:   the CLIs ``train``, ``valid``, ``demo``, ``train_refiner``
              (``python -m epipolarpose_tpu_torch.scripts.<name>``).
-- tools:     ``profile_step --step`` (the train step and its parts),
+- tools:     the user's tools ``export_model`` (a ``torch.export``
+             serving artifact whose decode is the registered soft-argmax
+             op; ``load_exported``), ``export_torch`` (a reference
+             ``.pth.tar``), ``prepare_h36m`` (H36M annotation releases)
+             and ``dualcrop_headroom`` (the half-res teacher crop);
+             ``profile_step --step`` (the train step and its parts),
              ``--conv1x1`` (the 1x1-conv matmul+stats bench),
              ``bench_triangulate``, ``ss_convergence`` (the SS loop's MPJPE
              curve), ``trace_summary`` (a profiler trace's top kernels

@@ -297,13 +297,17 @@ def write_synthetic_mpii(root: str, cfg, num_samples: int = 8,
 
 
 def write_synthetic_h36m(root: str, cfg, num_frames: int = 6,
-                         seed: int = 0, camera_ids=None) -> None:
+                         seed: int = 0, camera_ids=None,
+                         jpeg: bytes | None = None) -> None:
     """Write an H36M-format tree (annot jsons, cameras.json, JPEG images
     in a zip) under ``root``; ``camera_ids`` names the 4 cameras (default
-    '0'..'3'). Needs OpenCV to encode the images."""
+    '0'..'3'). Each image is its rendered view, encoded by OpenCV; with
+    ``jpeg``, every image is those JPEG bytes instead (no OpenCV needed;
+    the labels then do not match the pictures)."""
     import zipfile
 
-    import cv2
+    if jpeg is None:
+        import cv2
     os.makedirs(os.path.join(root, "annot"), exist_ok=True)
     os.makedirs(os.path.join(root, "images"), exist_ok=True)
     ds = SyntheticMultiviewDataset(cfg, num_frames=num_frames, seed=seed)
@@ -322,13 +326,16 @@ def write_synthetic_h36m(root: str, cfg, num_frames: int = 6,
     with zipfile.ZipFile(zip_path, "w") as z:
         for i, rec in enumerate(ds.records):
             name = f"S1/img_{i:05d}.jpg"
-            img = ds._read_image(rec.image)
-            ok, enc = cv2.imencode(
-                ".jpg", cv2.cvtColor(img, cv2.COLOR_RGB2BGR),
-                [cv2.IMWRITE_JPEG_QUALITY, 95])
-            if not ok:
-                raise IOError(f"JPEG encoding failed for {name}")
-            z.writestr(name, enc.tobytes())
+            if jpeg is None:
+                img = ds._read_image(rec.image)
+                ok, enc = cv2.imencode(
+                    ".jpg", cv2.cvtColor(img, cv2.COLOR_RGB2BGR),
+                    [cv2.IMWRITE_JPEG_QUALITY, 95])
+                if not ok:
+                    raise IOError(f"JPEG encoding failed for {name}")
+                z.writestr(name, enc.tobytes())
+            else:
+                z.writestr(name, jpeg)
             annots.append({
                 "image": f"{zip_path}@/{name}",
                 "center": rec.center.tolist(),

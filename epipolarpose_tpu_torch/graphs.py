@@ -30,6 +30,7 @@ import traceback
 
 import numpy as np
 import torch
+from torch._guards import detect_fake_mode
 
 from epipolarpose_tpu_torch.kernels import _build
 
@@ -56,8 +57,16 @@ def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
     """A small constant tensor (index lists, matrices, per-channel
     statistics) on ``device``, copied from the host once and kept: a later
     call, inside a capture too, copies nothing. Callers must not write
-    into it."""
+    into it.
+
+    While a fake mode is active (``torch.export`` or ``torch.compile``
+    tracing), the tensor made here is a fake one with no data: it is made
+    anew and not cached, and the cache is not read, so the traced program
+    holds the values as a constant of its own and a later eager call still
+    gets real data."""
     a = np.asarray(values)
+    if detect_fake_mode() is not None:
+        return torch.as_tensor(a, dtype=dtype, device=device)
     key = (a.shape, a.dtype.str, a.tobytes(), dtype, torch.device(device))
     t = _constants.get(key)
     if t is None:

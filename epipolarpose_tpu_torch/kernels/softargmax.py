@@ -18,6 +18,14 @@ On a CUDA tensor these launch ``epk_softargmax_fwd`` and
 ``epk_softargmax_bwd``; on a CPU tensor they are the plain twins. Without a
 gradient (the eval step runs under ``inference_mode``) the forward writes
 no statistics. :func:`softmax_integral_plain` is the reference.
+
+The forward without statistics is also the registered PyTorch op
+``torch.ops.epipolarpose.softmax_integral`` (:func:`softmax_integral_op`),
+so that a ``torch.export`` program of the eval computation
+(``tools/export_model.py``) calls it as one node: the program launches
+``epk_softargmax_fwd`` on the card and the plain twin on the CPU. The op
+is for inference only: it registers no autograd, and a backward through
+it raises.
 """
 
 from __future__ import annotations
@@ -232,6 +240,26 @@ def softmax_integral(logits: torch.Tensor, num_joints: int,
         return SoftmaxIntegral.apply(logits, num_joints, depth_dim)
     return softmax_integral_fwd(logits, num_joints, depth_dim,
                                 with_stats=False)[0]
+
+
+@torch.library.custom_op("epipolarpose::softmax_integral", mutates_args=())
+def softmax_integral_op(logits: torch.Tensor, num_joints: int,
+                        depth_dim: int) -> torch.Tensor:
+    """``torch.ops.epipolarpose.softmax_integral``: (N, J*D, H, W) logits
+    -> (N, J, 3) float32, the forward without statistics
+    (:func:`softmax_integral_fwd`). The tensor's device picks the route:
+    a CUDA tensor launches ``epk_softargmax_fwd`` (its launch counted as
+    :func:`softmax_integral`'s) or raises; a CPU tensor takes the plain
+    twin."""
+    return softmax_integral_fwd(logits, num_joints, depth_dim,
+                                with_stats=False)[0]
+
+
+@softmax_integral_op.register_fake
+def _softmax_integral_op_fake(logits: torch.Tensor, num_joints: int,
+                              depth_dim: int) -> torch.Tensor:
+    return logits.new_empty((logits.shape[0], num_joints, 3),
+                            dtype=torch.float32)
 
 
 # launches of the CUDA kernels (a graph's at each replay,
