@@ -189,13 +189,26 @@ card, then drives the port's paths through their entry points:
    where ``h5py`` is installed, else refused naming it), and
    ``demo_torch.ipynb``'s code cells at the flagship config on the card
    (one soft-argmax launch, two PNGs);
-26. no process left: every process this script started has ended but
+26. ``TPU.MESH.MODEL: 2`` at ResNet-152@384: the image rows of every
+   crop split over two ranks sharing the card over ``gloo``
+   (``python3 chip_smoke.py --spatial-rank <dir>``, 192 rows each, halo
+   exchanges in every row-sensitive layer through the host, the
+   soft-argmax kernels on the gathered volume) against one process on the
+   same 4 crops: the float32 step with TF32 off and REMAT on (the loss
+   relative 1e-5, the gradients and the BN buffers no further from a
+   float64 evaluation than twice the one process's (the buffers: or 1e-4
+   of each tensor's largest entry), the ranks equal bit for bit), the
+   flip-test eval step (phase 4's bound; BN statistics calibrated on the
+   crops, the head sharpened), then the ranks' bf16 step of 24 crops timed beside
+   phase 21's; the kernels' launches on the ranks; one ``nccl`` pair
+   where the machine has two cards;
+27. no process left: every process this script started has ended but
    the worker loader's ``forkserver`` and its resource tracker, and those
-   two end when ``stop_worker_server`` stops them; phase 22's rank
-   processes are gone.
+   two end when ``stop_worker_server`` stops them; phases 22's and 26's
+   rank processes are gone.
 
 Kernel launch counters are set to 0 just before each path and read just
-after it (phase 22's rank processes report their own). Each phase checks
+after it (phases 22's and 26's rank processes report their own). Each phase checks
 its own time limit. Any failed phase makes the script exit 1 without a
 result; without a CUDA card it exits 1 at once.
 On success the line before the last is the kernels' JSON record and the
@@ -232,7 +245,8 @@ PHASE_LIMITS = {"build": 120.0, "softargmax": 30.0, "matmul_stats": 60.0,
                 "pseudo_gt": 120.0, "loader_workers": 360.0,
                 "jpeg": 15.0, "mpi3dhp": 30.0, "warp": 15.0,
                 "remat": 150.0, "ddp": 420.0, "fused": 300.0,
-                "export": 90.0, "user_tools": 90.0, "processes": 30.0}
+                "export": 90.0, "user_tools": 90.0, "spatial": 150.0,
+                "processes": 30.0}
 
 # H36M left/right joint pairs (the JAX package's data/h36m.py FLIP_PAIRS)
 H36M_FLIP_PAIRS = ((1, 4), (2, 5), (3, 6), (11, 14), (12, 15), (13, 16))
@@ -2783,9 +2797,9 @@ R152_CONFIG = "h36m/train_fs_r152_384_integral.yaml"
 # steps timed after REMAT_WARMUP, then REMAT_TRACED traced; the ddp
 # phase: DDP_RANKS ranks of R152_BATCH crops against one process of
 # their global batch for DDP_STEPS steps, then DDP_TIMED bf16 steps
-# timed after DDP_WARMUP
+# timed after DDP_WARMUP (1 after 1: the smoke's time; 3 after 2 before)
 R152_BATCH, REMAT_WARMUP, REMAT_TIMED, REMAT_TRACED = 24, 2, 3, 2
-DDP_RANKS, DDP_STEPS, DDP_WARMUP, DDP_TIMED = 2, 2, 2, 3
+DDP_RANKS, DDP_STEPS, DDP_WARMUP, DDP_TIMED = 2, 2, 1, 1
 # the CLIs at r152@384 with and without --distributed: 48 records, two
 # train steps of 24 and two eval batches
 DDP_CLI_SAMPLES = 48
@@ -2854,10 +2868,12 @@ def rel_l2(got: dict, want: dict) -> float:
     return math.sqrt(num / max(den, 1e-300))
 
 
-def r152_grads_f64(cfg, weights, batch) -> dict:
+def r152_grads_f64(cfg, weights, batch, buffers: dict | None = None
+                   ) -> dict:
     """The gradients of one FS step of ``cfg`` on ``batch`` with the model
     in float64 (REMAT on for memory: it changes no value), on the host:
-    the oracle a float32 or bf16 step is held to."""
+    the oracle a float32 or bf16 step is held to. ``buffers``, when given,
+    receives the BN running buffers after that forward (float64)."""
     import warnings
     from epipolarpose_tpu_torch.core.steps import normalize_images
     from epipolarpose_tpu_torch.kernels.softargmax import (
@@ -2884,6 +2900,9 @@ def r152_grads_f64(cfg, weights, batch) -> dict:
                                     int(cfg.MODEL.EXTRA.DEPTH_DIM))
     integral_l1_loss(coords, target.double(), tw.double()).backward()
     out = grads_cpu(model)
+    if buffers is not None:
+        buffers.update({k: v for k, v in state_cpu(model).items()
+                        if "running" in k})
     del model, vol, coords, x
     torch.cuda.empty_cache()
     return out
@@ -3311,6 +3330,281 @@ def ddp_clis(res: dict, tmp: pathlib.Path) -> None:
     log(f"[ddp] two nccl ranks on two cards ({DDP_CLI_SAMPLES} records, "
         f"global batch {2 * R152_BATCH}): loss {found[0][0]} perf "
         f"{found[0][1]}")
+
+
+# the spatial phase: a model axis of SPATIAL_RANKS ranks on the one card
+# (384 / 2 = 192 rows each) against one process: SPATIAL_BATCH crops in
+# the float32 step and the eval step, then the bf16 step of R152_BATCH
+# crops (phase remat's) timed after DDP_WARMUP
+SPATIAL_RANKS, SPATIAL_BATCH, SPATIAL_TIMED = 2, 4, 2
+
+
+def spatial_config(**tpu):
+    """``train_fs_r152_384_integral.yaml`` on a 1 x SPATIAL_RANKS mesh,
+    with ``valid``'s flip test and heatmap shift."""
+    cfg = r152_config(**tpu)
+    cfg.TPU.MESH.DATA, cfg.TPU.MESH.MODEL = 1, SPATIAL_RANKS
+    cfg.TEST.FLIP_TEST = cfg.TEST.SHIFT_HEATMAP = True
+    return cfg
+
+
+def r152_eval_batch(n: int) -> dict:
+    """``n`` seeded crops at 384 with boxes, on the card."""
+    g = torch.Generator(DEVICE).manual_seed(24)
+    return {"input": r152_batch(n)["input"],
+            "center": 200 + 600 * torch.rand((n, 2), generator=g,
+                                             device=DEVICE),
+            "scale": 0.8 + 0.4 * torch.rand((n, 2), generator=g,
+                                            device=DEVICE)}
+
+
+# the final layer's weights times this after the BN calibration: logits
+# of std ~7 rather than ~0.5, so that the joints decode apart
+EVAL_HEAD_GAIN = 16.0
+
+
+def r152_eval_weights(cfg, weights, images) -> dict:
+    """``weights`` with every batch norm's running statistics set to one
+    train-mode forward's batch statistics on ``images`` (momentum 1), and
+    the final layer times :data:`EVAL_HEAD_GAIN`. On the init's mean 0
+    and variance 1 a random ResNet-152's eval forward grows through its 50
+    residual blocks to logits of 1e9 and more, whose decode is one-hot:
+    no eval comparison within a tolerance holds on that (a trained
+    network's statistics are its data's); calibrated, its volumes are
+    near uniform, every joint at the crop centre, until the head is
+    sharpened."""
+    from epipolarpose_tpu_torch.core.steps import local_crops
+    from epipolarpose_tpu_torch.models import get_model
+    with torch.device(DEVICE):     # its own init on the card: discarded
+        model = get_model(cfg, True)
+    model.load_state_dict(weights, strict=True)
+    model.train()
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = 1.0
+    with torch.no_grad():
+        model(local_crops(images))
+        model.final_layer.weight.mul_(EVAL_HEAD_GAIN)
+    out = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def r152_eval(cfg, weights, batch, prepare=None) -> torch.Tensor:
+    """The flip-test eval step's predictions on the host."""
+    from epipolarpose_tpu_torch.core import make_eval_step
+    from epipolarpose_tpu_torch.models import get_model
+    with torch.device(DEVICE):     # its own init on the card: discarded
+        model = get_model(cfg, False)
+    model.load_state_dict(weights, strict=True)
+    if prepare is not None:
+        prepare(model)
+    preds = make_eval_step(cfg, model, H36M_FLIP_PAIRS, device=DEVICE)(
+        batch)["preds"].cpu()
+    del model
+    torch.cuda.empty_cache()
+    return preds
+
+
+def spatial_rank(directory: str) -> int:
+    """One rank of phase ``spatial``: its rows of every crop of the float32
+    step (REMAT on, TF32 off) and of the eval step, then the bf16 step of
+    R152_BATCH crops timed; writes ``rank<r>.pt`` into ``directory``.
+    ``spec.json`` there names the backend (``gloo``: two ranks on the one
+    card; ``nccl``: one a card, the float32 step alone)."""
+    import os
+    from epipolarpose_tpu_torch.core.steps import configure_backends
+    from epipolarpose_tpu_torch.models import partition_rows
+    from epipolarpose_tpu_torch.parallel import (init_distributed, make_mesh,
+                                                 pod_sync, process_index,
+                                                 wrap_model)
+    directory = pathlib.Path(directory)
+    spec = json.loads((directory / "spec.json").read_text())
+    init_distributed(DEVICE, init_method=f"file://{directory}/rendezvous",
+                     backend=spec["backend"])
+    cfg = spatial_config(COMPUTE_DTYPE="float32", REMAT=True)
+    make_mesh(cfg)
+    configure_backends(cfg)
+
+    def split(model):
+        return wrap_model(partition_rows(model))
+
+    # the first process's r152_weights and r152_eval_weights, written
+    # before the ranks start
+    weights = torch.load(directory / "weights.pt", weights_only=True)
+    reset_counts()
+    out = r152_steps(cfg, weights, r152_batch(SPATIAL_BATCH), 1, split)
+    if spec["backend"] == "gloo":
+        out["preds"] = r152_eval(
+            cfg, torch.load(directory / "eval_weights.pt", weights_only=True),
+            r152_eval_batch(SPATIAL_BATCH), partition_rows)
+        cfg16 = spatial_config()
+        configure_backends(cfg16)
+        pod_sync("timing")
+        timed = r152_steps(cfg16, weights, r152_batch(R152_BATCH), 1, split,
+                           timed=SPATIAL_TIMED, warmup=DDP_WARMUP)
+        out.update(ms=timed["ms"], peak_gb=timed["peak_gb"])
+    out.update(counts=launch_counts(), pid=os.getpid())
+    torch.save(out, directory / f"rank{process_index()}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def spatial_ranks(tmp: pathlib.Path, backend: str, cards: bool) -> list:
+    """Run SPATIAL_RANKS ``--spatial-rank`` processes (on one card, or one
+    a card) and return their results."""
+    import os
+    tmp.mkdir()
+    (tmp / "spec.json").write_text(json.dumps({"backend": backend}))
+    for name in ("weights.pt", "eval_weights.pt"):
+        os.link(tmp.parent / name, tmp / name)
+    env = dict(os.environ, WORLD_SIZE=str(SPATIAL_RANKS))
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--spatial-rank",
+         str(tmp)], env=dict(env, RANK=str(r),
+                             LOCAL_RANK=str(r if cards else 0)), cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(SPATIAL_RANKS)]
+    try:
+        logs = [p.communicate(timeout=PHASE_LIMITS["spatial"])[0]
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0,
+              f"{backend} rank {r} exited {p.returncode}:\n"
+              f"{logs[r][-3000:]}")
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+            for r in range(SPATIAL_RANKS)]
+
+
+def phase_spatial(res: dict) -> None:
+    """``TPU.MESH.MODEL: 2`` at ResNet-152@384: the image rows of every
+    crop split over two ranks sharing the card over ``gloo`` (192 rows
+    each, halo exchanges through the host) against one process on the
+    same crops: the float32 step (TF32 off, REMAT on), the flip-test eval
+    step (the weights' BN statistics calibrated on the eval crops and the
+    head sharpened: :func:`r152_eval_weights`), then the ranks' bf16 step timed beside phase
+    remat's; one ``nccl`` pair where the machine has two cards."""
+    import shutil
+    import tempfile
+    from epipolarpose_tpu_torch.core.steps import configure_backends
+    cfg = spatial_config(COMPUTE_DTYPE="float32", REMAT=True)
+    configure_backends(cfg)
+    weights = r152_weights(cfg)
+    batch = r152_batch(SPATIAL_BATCH)
+    one = r152_steps(cfg, weights, batch, 1)
+    exact_bufs: dict = {}
+    exact = r152_grads_f64(cfg, weights, batch, exact_bufs)
+    eval_batch = r152_eval_batch(SPATIAL_BATCH)
+    eval_weights = r152_eval_weights(cfg, weights, eval_batch["input"])
+    want = r152_eval(cfg, eval_weights, eval_batch)
+    del batch, eval_batch
+    torch.cuda.empty_cache()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="epk_spatial_"))
+    try:
+        torch.save(weights, tmp / "weights.pt")
+        torch.save(eval_weights, tmp / "eval_weights.pt")
+        t0 = time.perf_counter()
+        a, b = spatial_ranks(tmp / "gloo", "gloo", cards=False)
+        ranks_s = time.perf_counter() - t0
+        res["spatial_pids"] = [a["pid"], b["pid"]]
+        cards = torch.cuda.device_count()
+        nccl = None
+        if cards >= SPATIAL_RANKS:
+            nccl = spatial_ranks(tmp / "nccl", "nccl", cards=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    differ = [k for k, v in a["state"].items()
+              if not torch.equal(v, b["state"][k])]
+    differ += [k for k, v in a["grads"].items()
+               if not torch.equal(v, b["grads"][k])]
+    check(a["loss"] == b["loss"] and not differ
+          and torch.equal(a["preds"], b["preds"]),
+          f"the ranks differ: losses {a['loss']} / {b['loss']}, "
+          f"{differ[:3]}")
+    dloss = abs(a["loss"][0] - one["loss"][0]) / abs(one["loss"][0])
+    one_exact, two_exact = (rel_l2(one["grads"], exact),
+                            rel_l2(a["grads"], exact))
+    glimit = 2 * one_exact
+    gworst, gname = worst_share(a["grads"], one["grads"])
+    # BN buffers: the split convolutions round otherwise, and this random
+    # network carries the rounding through 150 layers (its float32
+    # gradients are ~10% from float64): held to the float64 forward's
+    # buffers, no further than twice the one process's distance or 1e-4
+    bufs = sorted(exact_bufs)
+    bgap, bname = worst_share(a["state_1"], one["state_1"], bufs)
+    b_one, _ = worst_share(one["state_1"], exact_bufs, bufs)
+    b_split, b_split_name = worst_share(a["state_1"], exact_bufs, bufs)
+    blimit = max(2 * b_one, 1e-4)
+    dxy = (a["preds"][..., :2] - want[..., :2]).abs().max().item()
+    dz = (a["preds"][..., 2] - want[..., 2]).abs().max().item()
+    spread = (want.amax(1) - want.amin(1)).mean(0).tolist()
+    # each rank set its counts to 0 before its steps and read them after
+    counts = {k: a["counts"][k] + b["counts"][k] for k in a["counts"]}
+    res["paths"]["spatial"] = counts
+    # a rank: the float32 step, the eval call, then the bf16 steps
+    steps = 1 + 1 + DDP_WARMUP + SPATIAL_TIMED
+    want_fwd, want_bwd = SPATIAL_RANKS * (steps + 1), SPATIAL_RANKS * steps
+    log(f"[spatial] ResNet-152@384 float32 (TF32 off, REMAT on), "
+        f"{SPATIAL_BATCH} crops, rows split over {SPATIAL_RANKS} gloo ranks "
+        f"on one card ({R152_SIZE // SPATIAL_RANKS} each) vs one process: "
+        f"loss {a['loss'][0]:.6f} / {one['loss'][0]:.6f} (relative gap "
+        f"{dloss:.3g}, limit 1e-5); gradients from a float64 evaluation: "
+        f"one process {one_exact:.3g}, the ranks {two_exact:.3g} (limit "
+        f"{glimit:.3g}), worst tensor against one process {gname} at "
+        f"{gworst:.3g} of its largest entry; BN buffers against one "
+        f"process worst {bname} at {bgap:.3g} of its largest entry, from "
+        f"the float64 forward's: one process {b_one:.3g}, the ranks "
+        f"{b_split:.3g} ({b_split_name}; limit {blimit:.3g}, twice the one "
+        f"process's or 1e-4); the ranks equal bit for bit; "
+        f"{ranks_s:.1f} s for the rank processes")
+    log(f"[spatial] flip-test eval, {SPATIAL_BATCH} crops: predictions max "
+        f"|dxy| {dxy:.3g} px (limit 0.05), |dz| {dz:.3g} mm (limit 0.5) "
+        f"against one process; joints spread {spread[0]:.2f} px, "
+        f"{spread[1]:.2f} px, {spread[2]:.1f} mm (need ten times the "
+        f"limits: 0.5 px, 0.5 px, 5 mm)")
+    check(dloss <= 1e-5, "the split step's loss differs from one process's")
+    check(two_exact <= glimit,
+          "the split step's gradients are further from float64 than one's")
+    check(b_split <= blimit,
+          "the split step's BN buffers are further from float64 than one's")
+    check(spread[0] >= 0.5 and spread[1] >= 0.5 and spread[2] >= 5,
+          "joints do not spread; the eval comparison would test nothing")
+    check(dxy <= 0.05 and dz <= 0.5, "the split eval step disagrees")
+    check(counts["softargmax_fwd"] == want_fwd
+          and counts["softargmax_bwd"] == want_bwd,
+          f"rank launches {counts}, expected {want_fwd} forward and "
+          f"{want_bwd} backward")
+    single = res["remat"]["False"]
+    res["spatial"] = dict(
+        loss_gap=dloss, grad_f64_one=one_exact, grad_f64_split=two_exact,
+        grad_worst=gworst, buffer_gap=bgap, buffer_f64_one=b_one,
+        buffer_f64_split=b_split, eval_dxy=dxy, eval_dz=dz,
+        ms=[a["ms"], b["ms"]], peak_gb=[a["peak_gb"], b["peak_gb"]],
+        one_process_ms=single["ms"], ranks_s=ranks_s)
+    log(f"[spatial] bf16 step of {R152_BATCH} crops, their rows split over "
+        f"two gloo ranks on the card: {a['ms']:.2f} / {b['ms']:.2f} ms (peak "
+        f"{a['peak_gb']:.2f} / {b['peak_gb']:.2f} GB a rank) against one "
+        f"process's {single['ms']:.2f} ms, {single['peak_gb']:.2f} GB (phase "
+        f"remat): x{a['ms'] / single['ms']:.3f}; launches "
+        f"{counts['softargmax_fwd']} forward, {counts['softargmax_bwd']} "
+        f"backward on the ranks")
+    if nccl is None:
+        res["spatial"]["nccl_pair"] = f"not run: {cards} card"
+        log(f"[spatial] a nccl pair: not run ({cards} card on this machine)")
+        return
+    n_gap = abs(nccl[0]["loss"][0] - one["loss"][0]) / abs(one["loss"][0])
+    n_exact = rel_l2(nccl[0]["grads"], exact)
+    res["spatial"]["nccl_pair"] = dict(loss_gap=n_gap, grad_f64=n_exact)
+    log(f"[spatial] a nccl pair on two cards: loss relative gap {n_gap:.3g},"
+        f" gradients from float64 {n_exact:.3g} (limit {glimit:.3g})")
+    check(nccl[0]["loss"] == nccl[1]["loss"] and n_gap <= 1e-5
+          and n_exact <= glimit, "the nccl pair differs from one process")
 
 
 # the fused phase: K and the batches of its checks (two super-batches and
@@ -4229,17 +4523,18 @@ def phase_processes(res: dict) -> None:
     tracker = resource_tracker._resource_tracker._pid
     left = wait_for_no_processes({server, tracker})
     check(not left, f"processes still running: {left}")
-    ranks = res.get("ddp_pids", [])
+    ranks = res.get("ddp_pids", []) + res.get("spatial_pids", [])
     alive = [pid for pid in ranks if pathlib.Path(f"/proc/{pid}").exists()]
-    check(bool(ranks) and not alive, f"phase ddp's rank processes "
-          f"{ranks}: still there {alive}")
+    check(len(ranks) == DDP_RANKS + SPATIAL_RANKS and not alive,
+          f"phases ddp's and spatial's rank processes {ranks}: still "
+          f"there {alive}")
     stop_worker_server()
     left = wait_for_no_processes(set())
     check(not left, f"processes still running after stop_worker_server: "
           f"{left}")
     res["processes"] = dict(server=server, tracker=tracker)
-    log(f"[processes] none left, phase ddp's ranks (pids {ranks}) "
-        f"among them; the worker server (pid {server}) and its resource "
+    log(f"[processes] none left, phases ddp's and spatial's ranks (pids "
+        f"{ranks}) among them; the worker server (pid {server}) and its resource "
         f"tracker (pid {tracker}) stopped")
 
 
@@ -4267,7 +4562,7 @@ def main() -> int:
               ("warp", phase_warp), ("remat", phase_remat),
               ("ddp", phase_ddp), ("fused", phase_fused),
               ("export", phase_export), ("user_tools", phase_user_tools),
-              ("processes", phase_processes)]
+              ("spatial", phase_spatial), ("processes", phase_processes)]
     failed = []
     for i, (name, fn) in enumerate(phases, 1):
         if failed and failed[0] == "build":
@@ -4435,4 +4730,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-rank"]:
         sys.exit(ddp_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--spatial-rank"]:
+        sys.exit(spatial_rank(sys.argv[2]))
     sys.exit(main())

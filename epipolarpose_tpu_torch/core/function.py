@@ -5,7 +5,8 @@ Counterpart of the JAX package's ``core/function.py`` (``AverageMeter``,
 ``TPU.FUSED_STEPS = K > 1`` K-stacked super-batches for a fused step,
 whose metrics and predictions carry a leading (K,) axis. ``train`` waits
 for the card only when it logs; ``validate`` gathers predictions on the
-host (from every process under data parallelism) and hands them to
+host (from every data group under data parallelism: the processes of a
+model group hold the same predictions) and hands them to
 ``dataset.evaluate``. A ``writer`` is anything with tensorboard's
 ``add_scalar(tag, value, step)``. Under data parallelism every process
 runs the loops and only the first writes files and scalars.
@@ -20,8 +21,8 @@ import time
 import numpy as np
 import torch
 
-from epipolarpose_tpu_torch.parallel.mesh import (process_allgather,
-                                                  process_count,
+from epipolarpose_tpu_torch.parallel.mesh import (data_count, data_group,
+                                                  process_allgather,
                                                   process_index)
 
 logger = logging.getLogger(__name__)
@@ -81,7 +82,7 @@ def train(cfg, loader, state, train_step, epoch: int, writer=None,
         data_time.update(time.time() - end)
         state, metrics = train_step(state, batch)
         fused = np.ndim(metrics["loss"]) >= 1
-        n = int(batch["input"].shape[0]) * process_count()
+        n = int(batch["input"].shape[0]) * data_count()
         if fused:
             n *= int(batch["input"].shape[1])
         if i % int(cfg.PRINT_FREQ) == 0:
@@ -125,10 +126,11 @@ def validate(cfg, loader, dataset, eval_step, output_dir=None, writer=None,
 
     ``loader`` is any iterable of batches; ``dataset`` has ``__len__`` and
     ``evaluate(cfg, preds, output_dir)``. The perf goes to ``writer`` at
-    ``step``. Under data parallelism each process's loader holds its slice
-    of every global batch: the predictions and boxes of every process are
-    gathered back into the global order, and every process evaluates
-    them (the first alone with ``output_dir`` and ``writer``). A fused
+    ``step``. Under data parallelism each data group's loader holds its
+    slice of every global batch: the predictions and boxes of every data
+    group are gathered back into the global order (over the data group:
+    the processes of a model group hold the same ones), and every process
+    evaluates them (the first alone with ``output_dir`` and ``writer``). A fused
     eval step's (K, B, J, C) predictions and their (K, B, 2) centres and
     scales are flattened to K x B rows. Returns (name_values, perf).
     """
@@ -153,7 +155,7 @@ def validate(cfg, loader, dataset, eval_step, output_dir=None, writer=None,
     total = time.perf_counter() - t0
     preds = _gather_batches(np.concatenate(all_preds), n_batches)
     boxes = _gather_batches(np.concatenate(all_boxes), n_batches)
-    n_seen *= process_count()
+    n_seen *= data_count()
     preds, boxes = preds[:len(dataset)], boxes[:len(dataset)]
     logger.info(f"validate: {n_seen} samples in {total:.3f}s "
                 f"({n_seen / max(total, 1e-9):.1f} samples/s)")
@@ -169,12 +171,13 @@ def validate(cfg, loader, dataset, eval_step, output_dir=None, writer=None,
 
 
 def _gather_batches(local: np.ndarray, n_batches: int) -> np.ndarray:
-    """Rows of ``n_batches`` batches, each process holding its contiguous
-    slice of every global batch, -> the global batches' rows in order."""
-    rows = process_allgather(local)
-    if process_count() == 1:
+    """Rows of ``n_batches`` batches, each data group holding its
+    contiguous slice of every global batch, -> the global batches' rows
+    in order."""
+    rows = process_allgather(local, data_group())
+    if data_count() == 1:
         return rows
-    rows = rows.reshape((process_count(), n_batches, -1) + local.shape[1:])
+    rows = rows.reshape((data_count(), n_batches, -1) + local.shape[1:])
     return rows.swapaxes(0, 1).reshape((-1,) + local.shape[1:])
 
 

@@ -34,8 +34,9 @@ from torch import nn
 from epipolarpose_tpu_torch.core.checkpoint import (load_model_variables,
                                                     read_state_dict)
 from epipolarpose_tpu_torch.core.refine import make_refiner_apply
-from epipolarpose_tpu_torch.core.steps import (fuse_steps, integral_update,
-                                               normalize_images, warmup_for)
+from epipolarpose_tpu_torch.core.steps import (check_row_split_model,
+                                               fuse_steps, integral_update,
+                                               local_crops, warmup_for)
 from epipolarpose_tpu_torch.geometry.affine import (affine_transform,
                                                     get_affine_transform,
                                                     transform_preds)
@@ -53,9 +54,10 @@ from epipolarpose_tpu_torch.ops.heatmap import (get_max_preds,
                                                 post_process_preds)
 from epipolarpose_tpu_torch.ops.integral import (generate_integral_target,
                                                  softmax_integral)
-from epipolarpose_tpu_torch.parallel.mesh import (mean_over_processes,
-                                                  process_allgather,
-                                                  process_index, unwrap)
+from epipolarpose_tpu_torch.parallel.mesh import (data_group, data_index,
+                                                  mean_over_processes,
+                                                  process_allgather, unwrap)
+from epipolarpose_tpu_torch.parallel.spatial import gather_rows
 
 
 class Teacher(nn.Module):
@@ -136,12 +138,13 @@ def teacher_detect(cfg, teacher: Teacher, imgs: torch.Tensor,
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Teacher heatmaps -> source-image 2D joints and confidences.
 
-    imgs (B, 3, H, W) normalized crops; centers, scales (B, 2). Returns
-    (joints_src (B, J, 2), conf (B, J)), both float32. The heatmap size is
-    read from the teacher's output, not the config, so a teacher may run
-    on smaller crops.
+    imgs (B, 3, H, W) normalized crops (under a model axis this process's
+    rows of them: the heatmaps are gathered whole before the decode);
+    centers, scales (B, 2). Returns (joints_src (B, J, 2), conf (B, J)),
+    both float32. The heatmap size is read from the teacher's output, not
+    the config, so a teacher may run on smaller crops.
     """
-    hm = teacher(imgs)
+    hm = gather_rows(teacher(imgs))
     hm_h, hm_w = hm.shape[-2:]
     preds, maxvals = get_max_preds(hm)
     preds = post_process_preds(hm, preds)
@@ -239,7 +242,12 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
     the detections of every process's groups, with global group 0's
     intrinsics, as the JAX step fits it to the sharded batch, and each
     process keeps its own groups' pseudo-GT. The metrics are means over
-    the processes.
+    the processes. Under a model axis (``core/steps.py``) the teacher
+    (switched by ``models.partition_rows``, as the student) and the
+    student run on this process's rows of ``input`` and ``input_aug``, the
+    teacher's heatmaps and the student's volume are gathered whole, and
+    the estimated rig's gathers run over the data group; ``detect_fn``
+    gets this process's rows.
 
     ``fused_steps=K > 1``: the step takes K-stacked super-batches (the
     cameras' fields too) and returns (K,) metrics
@@ -268,6 +276,9 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
             perm[a], perm[b] = perm[b], perm[a]
     perm = torch.tensor(perm, dtype=torch.int64, device=device)
     net = unwrap(model).to(device)
+    check_row_split_model(net)
+    if teacher is not None:
+        check_row_split_model(teacher.model)
 
     def to_device(a) -> torch.Tensor:
         return torch.as_tensor(a).to(device, non_blocking=True)
@@ -283,8 +294,7 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
             return a.reshape((G * V,) + tuple(a.shape[2:]))
 
         def crops(key) -> torch.Tensor:
-            return normalize_images(flat(batch[key])).permute(
-                0, 3, 1, 2).contiguous()
+            return local_crops(flat(batch[key]))
 
         imgs = crops("input")
         centers = flat(batch["center"]).float()
@@ -308,17 +318,19 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
             det = joints_src.reshape(G, V, num_joints, 2)
             conf_gv = conf.reshape(G, V, -1)
             if cameras == "estimated":
-                # the rig from the detections of the global batch; every
-                # group shares it, the intrinsics are global group 0's; X
-                # in camera 0's frame; this process keeps its own groups
-                intr = cam.map(lambda t: process_allgather(t[:1])[0])
+                # the rig from the detections of the global batch (over
+                # the data group); every group shares it, the intrinsics
+                # are global group 0's; X in camera 0's frame; this
+                # process keeps its own groups
+                group = data_group()
+                intr = cam.map(lambda t: process_allgather(t[:1], group)[0])
                 x0, p_est, res = pseudo_gt_uncalibrated(
-                    process_allgather(det), intr,
-                    conf=process_allgather(conf_gv).contiguous(),
+                    process_allgather(det, group), intr,
+                    conf=process_allgather(conf_gv, group).contiguous(),
                     bone_pairs=bones,
                     bone_length_mm=bone_mm if bone_mm > 0 else None,
                     solve=solve)
-                mine = slice(process_index() * G, (process_index() + 1) * G)
+                mine = slice(data_index() * G, (data_index() + 1) * G)
                 x0, res = x0[mine], res[mine]
                 if refiner is not None:
                     root = x0[:, root_idx:root_idx + 1]

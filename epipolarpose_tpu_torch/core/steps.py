@@ -13,6 +13,14 @@ heatmaps are (N, J, H, W).
 leaf with a leading (K,) axis (``data/pipeline.py::stack_batches``), runs
 K steps in order and returns its outputs with that leading axis
 (:func:`fuse_steps`). On the card the K steps are one CUDA-graph replay.
+
+Under a model axis (``TPU.MESH.MODEL = M > 1``, ``parallel.make_mesh``)
+every process of a model group gets the same crops and takes its ``H/M``
+rows of ``input`` (``parallel.local_rows``); its model, switched by
+``models.partition_rows``, exchanges halos with the group, and the
+network's output is gathered back whole (``parallel.gather_rows``)
+before the soft-argmax kernels, the losses, the accuracy and the flip
+test's merge (a flip along W needs no exchange).
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from epipolarpose_tpu_torch.geometry.affine import (flip_back,
                                                     transform_preds)
 from epipolarpose_tpu_torch.data.pipeline import batch_leaves, map_batch
 from epipolarpose_tpu_torch.graphs import StepGraph, constant
+from epipolarpose_tpu_torch.models.pose_resnet import is_row_split
 from epipolarpose_tpu_torch.ops.heatmap import (generate_target,
                                                 get_final_preds)
 from epipolarpose_tpu_torch.ops.integral import (generate_integral_target,
@@ -40,7 +49,9 @@ from epipolarpose_tpu_torch.ops.losses import (integral_l1_loss,
                                                joints_mse_loss)
 from epipolarpose_tpu_torch.ops.metrics import heatmap_accuracy
 from epipolarpose_tpu_torch.parallel.mesh import (mean_over_processes,
+                                                  model_count,
                                                   process_count, unwrap)
+from epipolarpose_tpu_torch.parallel.spatial import gather_rows, local_rows
 
 # ImageNet mean/std (torchvision Normalize constants of the reference)
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -76,6 +87,23 @@ def configure_backends(cfg) -> None:
     torch.backends.cudnn.enabled = bool(cfg.CUDNN.ENABLED)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def check_row_split_model(model: torch.nn.Module) -> None:
+    """Under a model axis a step feeds ``model`` this process's rows: its
+    layers must exchange halos (``models.partition_rows``), or each
+    process would pad its rows' edges with zeros and give another
+    network."""
+    if model_count() > 1 and not is_row_split(unwrap(model)):
+        raise ValueError("TPU.MESH.MODEL > 1: the model's layers read only "
+                         "this process's rows; switch them first with "
+                         "models.partition_rows(model)")
+
+
+def local_crops(images) -> torch.Tensor:
+    """(N, H, W, 3) crops -> this process's rows, normalized, NCHW."""
+    x = normalize_images(local_rows(images, 1))
+    return x.permute(0, 3, 1, 2).contiguous()
 
 
 def _check_target_type(cfg) -> str:
@@ -241,12 +269,16 @@ def warmup_for(model: torch.nn.Module, fused_steps: int) -> int:
 
 def optimizer_step(state, loss: torch.Tensor) -> None:
     """Backward of ``loss``, then one step of ``state``'s optimizer and
-    schedule. Graph-safe: the gradients are dropped, not zeroed, so the
+    schedule. Under a model axis of ``M`` the backward is that of ``M x
+    loss``: each process's parameter gradient is the part through its own
+    rows, the right gradient their sum over the model group averaged over
+    the data groups, and DDP averages over all ``D * M`` processes
+    (``models.pose_resnet._GlobalBatchNormFn``). Graph-safe: the gradients are dropped, not zeroed, so the
     backward allocates them in the graph's pool; the schedule sets the
     rate on the card (``core/train_state.py``); ``state.step`` is the
     Python count, which a replay's caller advances."""
     state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    (loss * model_count()).backward()
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
@@ -259,10 +291,11 @@ def integral_update(state, model: torch.nn.Module, x: torch.Tensor,
     """One optimizer step of the integral model on NCHW images ``x``: the
     forward in train mode, ``decode``, the L1 loss, the backward and the
     update. ``model`` runs the forward: under data parallelism the DDP
-    wrapper of ``state.model``, whose hooks average the gradients. Returns
-    the loss, detached."""
+    wrapper of ``state.model``, whose hooks average the gradients; under a
+    model axis ``x`` is this process's rows and the decode sees the
+    gathered volume. Returns the loss, detached."""
     model.train()
-    coords = decode(model(x), num_joints, depth_dim)
+    coords = decode(gather_rows(model(x)), num_joints, depth_dim)
     loss = integral_l1_loss(coords, target, tw)
     optimizer_step(state, loss)
     return loss.detach()
@@ -281,7 +314,8 @@ def make_train_step(cfg, model: torch.nn.Module,
     ``optimizer.step()`` and ``scheduler.step()``. Under data parallelism
     ``model`` is ``parallel.wrap_model``'s DDP wrapper: the forward runs
     through it and ``state.model`` is the module inside; each process
-    steps on its slice of the global batch.
+    steps on its slice of the global batch; under a model axis on its rows
+    of it (module docstring).
 
     - ``integral``: the soft-argmax (``decode``: the CUDA kernels on the
       card, with their backward) and the integral L1 loss; metrics
@@ -308,6 +342,7 @@ def make_train_step(cfg, model: torch.nn.Module,
     use_tw = bool(cfg.LOSS.USE_TARGET_WEIGHT)
     root_idx = 0
     net = unwrap(model).to(device)
+    check_row_split_model(net)
 
     def to_device(a) -> torch.Tensor:
         return torch.as_tensor(a).to(device, non_blocking=True)
@@ -316,15 +351,14 @@ def make_train_step(cfg, model: torch.nn.Module,
         if state.model is not net:
             raise ValueError("the train state holds another model than the "
                              "one this step was built for")
-        x = normalize_images(to_device(batch["input"]))
-        x = x.permute(0, 3, 1, 2).contiguous()
+        x = local_crops(to_device(batch["input"]))
         joints = to_device(batch["joints"]).float()
         vis = to_device(batch["joints_vis"])
         if target_type == "gaussian":
             target, tw = generate_target(joints, vis, heatmap_size, sigma,
                                          image_size)
             model.train()
-            out = model(x)
+            out = gather_rows(model(x))
             loss = joints_mse_loss(out, target, tw if use_tw else None)
             optimizer_step(state, loss)
             with torch.no_grad():
@@ -363,7 +397,10 @@ def make_eval_step(cfg, model: torch.nn.Module, flip_pairs=(),
 
     With ``TEST.FLIP_TEST`` the flipped forward is flipped back (and
     shifted one pixel right with ``TEST.SHIFT_HEATMAP``) and averaged in.
-    ``model`` is moved to ``device``. Each call puts it in eval mode, as
+    Under a model axis each process runs its rows and the output is
+    gathered whole before the decode; every process of a model group
+    returns the same predictions. ``model`` is moved to ``device``. Each
+    call puts it in eval mode, as
     the JAX step passes ``train=False`` on each call: BN runs on its
     running statistics and writes no buffer, so a train step built on the
     same model may run before and after it. ``fused_steps=K > 1``: the
@@ -380,13 +417,14 @@ def make_eval_step(cfg, model: torch.nn.Module, flip_pairs=(),
     shift_heatmap = bool(cfg.TEST.SHIFT_HEATMAP)
     post_process = bool(cfg.TEST.POST_PROCESS)
     model = model.to(device)
+    check_row_split_model(model)
     size = torch.tensor(image_size, dtype=torch.float32, device=device)
 
     @torch.inference_mode()
     def step(batch) -> dict[str, torch.Tensor]:
         model.eval()
-        imgs = torch.as_tensor(batch["input"]).to(device, non_blocking=True)
-        x = normalize_images(imgs).permute(0, 3, 1, 2).contiguous()
+        x = local_crops(torch.as_tensor(batch["input"]).to(
+            device, non_blocking=True))
         out = model(x)
         if flip_test:
             out_f = model(x.flip(-1))
@@ -398,6 +436,7 @@ def make_eval_step(cfg, model: torch.nn.Module, flip_pairs=(),
             if shift_heatmap:
                 out_f = shift_right(out_f)
             out = (out + out_f) * 0.5
+        out = gather_rows(out)
         center = torch.as_tensor(batch["center"]).to(device)
         scale = torch.as_tensor(batch["scale"]).to(device)
         if target_type == "gaussian":

@@ -96,11 +96,13 @@ softargmax_fwd_kernel(const T* __restrict__ logits, float* __restrict__ out,
         acc.z *= s; acc.sx *= s; acc.sy *= s; acc.sz *= s;
         acc.m = cmax;
       }
-      const float ml = acc.m * kLog2e;
+      // subtract the max first: exact near it (Sterbenz), where
+      // fmaf(v, log2e, -m*log2e) keeps the rounding of m*log2e, up to half
+      // its spacing, as an exponent (exp2 of it overflows for |m| ~ 1e9)
       float se = 0.f, si = 0.f;
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        const float e = exp2f(fmaf(v[u][i], kLog2e, -ml));
+        const float e = exp2f((v[u][i] - acc.m) * kLog2e);
         se += e;
         si = fmaf(e, static_cast<float>(i), si);
       }
@@ -163,7 +165,7 @@ softargmax_bwd_kernel(const T* __restrict__ logits,
   const float* g = grad + 3ll * row;
   const float a = g[0] / W, b = g[1] / H, c = D > 1 ? g[2] / D : 0.f;
   const float r = -(a * st[1] + b * st[2] + c * st[3]);
-  const float lse2 = st[0] * kLog2e;
+  const float lse = st[0];
 
   float v[kUnroll][V];
 #pragma unroll
@@ -187,7 +189,7 @@ softargmax_bwd_kernel(const T* __restrict__ logits,
     float dl[V];
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      const float p = exp2f(fmaf(v[u][i], kLog2e, -lse2));
+      const float p = exp2f((v[u][i] - lse) * kLog2e);  // as the forward
       dl[i] = p * fmaf(a, static_cast<float>(i), base);
     }
     store16(dlogits + offset + static_cast<long long>(ch) * V, dl);

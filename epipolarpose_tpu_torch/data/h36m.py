@@ -87,7 +87,10 @@ class MultiviewDataset(JointsDataset):
         (``input_aug``, its source -> crop affine ``aug_M`` with random
         scale and rotation and the flip folded in, and ``aug_flip``): the
         teacher sees the clean crop, the student trains on the other.
-        Each view is read once and warped twice.
+        Each view is read once and warped twice. ``groups_per_batch`` is
+        global: with ``process_count`` > 1 each process (each data group,
+        under a model axis) takes its contiguous slice of every batch's
+        groups (``host_shard_indices``).
         """
         n = len(self.view_groups)
         order = np.arange(n)

@@ -40,7 +40,10 @@ logger = logging.getLogger(__name__)
 def host_shard_indices(idx: np.ndarray, process_index: int,
                        process_count: int) -> np.ndarray:
     """This process's contiguous slice of a global batch's record
-    indices (each of P processes decodes 1/P of every global batch)."""
+    indices (each of P processes decodes 1/P of every global batch).
+    Under a model axis ``process_index``/``process_count`` are the data
+    axis's (``parallel.data_index``/``data_count``): the processes of a
+    model group decode the same slice and split its rows."""
     idx = np.asarray(idx)
     n = len(idx)
     if n % process_count:
@@ -314,8 +317,9 @@ class JointsDataset:
         """Yield the batches of one epoch (static shapes: a training
         remainder is dropped, an eval remainder padded with its last
         record). ``batch_size`` is global; with ``process_count`` > 1 each
-        process decodes its contiguous slice of every batch
-        (:func:`host_shard_indices`), in the same seeded order."""
+        process (each data group, under a model axis) decodes its
+        contiguous slice of every batch (:func:`host_shard_indices`), in
+        the same seeded order."""
         n = len(self.records)
         order = np.arange(n)
         if shuffle if shuffle is not None else self.is_train:

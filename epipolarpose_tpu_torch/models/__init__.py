@@ -9,6 +9,8 @@ from epipolarpose_tpu_torch.models.convert import (  # noqa: F401
 from epipolarpose_tpu_torch.models.pose_resnet import (  # noqa: F401
     PoseResNet,
     get_pose_net,
+    is_row_split,
+    partition_rows,
 )
 from epipolarpose_tpu_torch.models.refiner import PoseRefiner  # noqa: F401
 

@@ -35,6 +35,13 @@ BatchNorm gives a batch sharded over a mesh (flax computes the variance
 as E[x^2] - E[x]^2; the port combines centred sums, which do not
 cancel).
 
+Under a model axis (``TPU.MESH.MODEL > 1``) each process runs the network
+on its own rows of the crops: :func:`partition_rows` switches every layer
+that reads rows beyond its output's (the stem, the max pool, the 3x3
+convolutions, the k3 and k4 deconvolutions, a k3 final layer) to a halo
+exchange (``parallel/spatial.py``) followed by the layer with no padding
+along H. With one process it is the same layer.
+
 Weight init follows the JAX package: backbone convs truncated-normal
 He init over fan-out, deconvs and the final conv normal(std=0.001), BN
 scale 1 and shift 0, running mean 0 and variance 1. It draws from a
@@ -50,12 +57,14 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from epipolarpose_tpu_torch.parallel.mesh import (all_reduce_sum,
                                                   process_allgather,
                                                   process_count)
+from epipolarpose_tpu_torch.parallel.spatial import halo_exchange
 
 # layers per stage for each depth
 RESNET_SPEC = {
@@ -120,10 +129,17 @@ class _GlobalBatchNormFn(torch.autograd.Function):
     by Chan et al.'s pairwise rule, so the global variance does not cancel
     in float32 as E[x^2] - E[x]^2 does where a channel's mean is large
     against its spread; every process combines the same numbers in the
-    same order, so all hold the same statistics. Backward: one all-reduce
-    of (sum dy, sum dy * xhat); the gradient of ``x`` is that of the sum of
+    same order, so all hold the same statistics. Under a model axis a
+    process's count is its crops x its rows x W, and the global count
+    covers each crop's rows once. Backward: one all-reduce of (sum dy, sum
+    dy * xhat); the gradient of ``x`` is that of the sum of the losses
+    whose gradients the processes hold. Without a model axis that is
     every process's loss, so DDP's mean of the parameter gradients is the
-    gradient of the global mean loss. Returns (y, mean, biased
+    gradient of the global mean loss. Under a model axis each process of
+    a model group holds its rows' part of their one loss, so the sum
+    counts each data group's loss once and DDP's mean over ``D * M``
+    processes is ``1/M`` of that gradient: the train step scales its loss
+    by ``M`` (``core/steps.py::optimizer_step``). Returns (y, mean, biased
     variance)."""
 
     @staticmethod
@@ -261,6 +277,98 @@ class SameDeconv2d(nn.ConvTranspose2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = super().forward(x)
         return y[..., :-self.crop, :-self.crop] if self.crop else y
+
+
+def _check_stride(x: torch.Tensor, stride: int) -> None:
+    if x.shape[2] % stride:
+        raise ValueError(f"{x.shape[2]} rows a process under a stride "
+                         f"{stride}: the row split is not aligned "
+                         "(parallel.check_row_split)")
+
+
+class RowSplitConv2d(nn.Conv2d):
+    """``nn.Conv2d`` on this process's rows: the ``p`` rows above and the
+    ``k - s - p`` below that its outputs read come from the neighbours
+    (zeros at the image's edges), then the convolution without padding
+    along H gives exactly this process's output rows, given that its
+    first row is a multiple of the stride."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (k, _), (s, _), (p, pw) = (self.kernel_size, self.stride,
+                                   self.padding)
+        _check_stride(x, s)
+        x = halo_exchange(x, p, max(k - s - p, 0), 0.0)
+        return F.conv2d(x, self.weight, self.bias, self.stride, (0, pw),
+                        self.dilation, self.groups)
+
+
+class RowSplitMaxPool2d(nn.MaxPool2d):
+    """``nn.MaxPool2d`` on this process's rows, as
+    :class:`RowSplitConv2d`; the image's edges are ``-inf``, the pool's
+    own padding."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, s, p = self.kernel_size, self.stride, self.padding
+        _check_stride(x, s)
+        x = halo_exchange(x, p, max(k - s - p, 0), float("-inf"))
+        return F.max_pool2d(x, k, s, (0, p), self.dilation, self.ceil_mode,
+                            self.return_indices)
+
+
+class RowSplitDeconv2d(SameDeconv2d):
+    """:class:`SameDeconv2d` on this process's rows: its output rows
+    ``[s*r0, s*(r0 + R))`` read input rows ``r0 - floor((k-1-p)/s)`` to
+    ``r0 + R - 1 + floor((p-1)/s) + 1``; with those halos (zeros at the
+    edges) the transposed convolution's H padding ``s*top + p`` and an
+    output padding give exactly them. The k3 head's crop of the last row
+    falls to the last process alone; every process crops its column."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (k, _), (s, _), (p, pw) = (self.kernel_size, self.stride,
+                                   self.padding)
+        r = x.shape[2]
+        top, bottom = (k - 1 - p) // s, (p - 1) // s + 1
+        pad = s * top + p
+        extra = s * r - ((r + top + bottom - 1) * s + k - 2 * pad)
+        y = F.conv_transpose2d(halo_exchange(x, top, bottom, 0.0),
+                               self.weight, self.bias, self.stride,
+                               (pad, pw), (extra, 0), self.groups,
+                               self.dilation)
+        return y[..., :-self.crop] if self.crop else y
+
+
+# the layers that read rows beyond their output's, and their row-split
+# forms (same attributes and state-dict names)
+_ROW_SPLIT = {nn.Conv2d: RowSplitConv2d, nn.MaxPool2d: RowSplitMaxPool2d,
+              SameDeconv2d: RowSplitDeconv2d}
+
+
+def _reads_halo(mod: nn.Module) -> bool:
+    if isinstance(mod, SameDeconv2d):
+        return mod.kernel_size[0] > 2
+    k = mod.kernel_size if isinstance(mod, nn.MaxPool2d) \
+        else mod.kernel_size[0]
+    return k > 1
+
+
+def partition_rows(model: nn.Module) -> nn.Module:
+    """Switch every row-sensitive layer of ``model`` to its row-split form
+    (a class swap, as ``parallel.wrap_model`` swaps batch norms: the
+    state-dict names stay, so ``strict=True`` loads and the weight bridge
+    are unchanged). 1x1 convolutions (those of stride 2 read the even
+    local rows, aligned since each process's first row is even) and the
+    k2 deconvolution read no halo and stay. Returns ``model``; a second
+    call changes nothing."""
+    for mod in model.modules():
+        cls = _ROW_SPLIT.get(type(mod))
+        if cls is not None and _reads_halo(mod):
+            mod.__class__ = cls
+    return model
+
+
+def is_row_split(model: nn.Module) -> bool:
+    """Whether :func:`partition_rows` has switched ``model``'s layers."""
+    return any(type(m) in _ROW_SPLIT.values() for m in model.modules())
 
 
 @contextlib.contextmanager

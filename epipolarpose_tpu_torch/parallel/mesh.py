@@ -1,16 +1,23 @@
-"""Data parallelism over processes: ``torch.distributed`` in place of the
-JAX package's device mesh.
+"""Data parallelism and the model axis over processes: ``torch.distributed``
+in place of the JAX package's device mesh.
 
 Counterpart of ``epipolarpose_tpu/parallel/mesh.py``. The JAX package
-runs one program over a mesh whose ``data`` axis shards the batch; XLA
-then reduces the gradients and flax's BatchNorm statistics over the whole
-logical batch. The port runs one process per card under
-``python -m torch.distributed.run``: each process decodes its slice of
-every global batch (the loaders' ``process_index``/``process_count``),
-``wrap_model`` gives the model batch norm over the global batch
-(``models.pose_resnet.GlobalBatchNorm2d``) and DDP's mean of the
-gradients, and ``process_allgather`` brings per-process results together
-where the JAX package gathers its sharded arrays.
+runs one program over a ``(data, model)`` mesh: ``data`` shards the
+batch, ``model`` (``TPU.MESH.MODEL > 1``) the image rows of ``"input"``;
+XLA then adds each convolution's halo exchange and reduces the gradients
+and flax's BatchNorm statistics over the whole logical batch. The port
+runs one process per card under ``python -m torch.distributed.run``,
+``D * M`` of them: rank ``r`` is data index ``r // M`` and model index
+``r % M`` (JAX's ``reshape(data, model)``). :func:`make_mesh` builds the
+two axis groups once. Each data group of ``M`` consecutive ranks decodes
+the same slice of every global batch (the loaders take
+:func:`data_index`/:func:`data_count`), each of its ranks runs the
+network on its own rows with halo exchanges (``parallel/spatial.py``,
+``models.pose_resnet.partition_rows``); ``wrap_model`` gives the model
+batch norm over every process (``models.pose_resnet.GlobalBatchNorm2d``)
+and DDP's mean of the gradients, and ``process_allgather`` brings
+per-process results together where the JAX package gathers its sharded
+arrays.
 
 Every helper here is a no-op in a process without a process group, so
 the single-card path runs the same code.
@@ -28,7 +35,14 @@ from torch.nn.parallel import DistributedDataParallel
 # the variables torch.distributed.run sets for each process it starts
 LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
 RENDEZVOUS_ENV = ("MASTER_ADDR", "MASTER_PORT")
-MESH_MODEL_ITEM = "ROADMAP Queue A item 14"
+# rows a process must hold under a model axis: ResNet's five stride-2
+# layers (stem, max pool, layers 2-4) keep every stage's first local row
+# even only when each process's rows are a multiple of 2**5
+ROW_ALIGN = 32
+
+# the axis groups :func:`make_mesh` built, for the process group it built
+# them in (``dist.group.WORLD`` then)
+_AXES: dict = {}
 
 
 def init_distributed(device: str | torch.device = "cuda",
@@ -88,31 +102,107 @@ def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def refuse_model_axis(cfg) -> None:
-    """``TPU.MESH.MODEL > 1`` is the JAX package's spatial partitioning of
-    image rows (``image_sharding``); the port has no counterpart yet."""
-    if int(cfg.TPU.MESH.MODEL) > 1:
-        raise NotImplementedError(
-            f"TPU.MESH.MODEL = {cfg.TPU.MESH.MODEL}: spatial partitioning of "
-            f"image rows over a model axis is not ported ({MESH_MODEL_ITEM});"
-            " set it to 1")
+def check_row_split(image_size, model: int) -> None:
+    """Refuse a model axis whose row split leaves a process a number of
+    rows that is not a multiple of :data:`ROW_ALIGN`. ``image_size`` is
+    ``MODEL.IMAGE_SIZE`` (width, height). The JAX package falls back to
+    data-only sharding when ``H % M`` is not 0 and lets GSPMD pad uneven
+    stages; the port refuses such shapes by name."""
+    rows, model = int(image_size[1]), int(model)
+    if model > 1 and (rows % model or rows // model % ROW_ALIGN):
+        raise ValueError(
+            f"TPU.MESH.MODEL = {model}: {rows} image rows split {model} ways"
+            f" is not {ROW_ALIGN}-aligned; each process's rows must be a "
+            f"multiple of {ROW_ALIGN} (ResNet's five stride-2 layers)")
 
 
-def make_mesh(cfg=None) -> int:
-    """The size of the data axis: the number of processes.
+def make_mesh(cfg=None) -> tuple[int, int]:
+    """The sizes ``(data, model)`` of the mesh over the processes, and its
+    axis groups, built once for this process group: a model group of
+    ``M`` consecutive ranks and a data group of the ranks with one model
+    index.
 
-    ``TPU.MESH.DATA`` of -1 (or 0: every device, as in the JAX package)
-    or equal to the number of processes is accepted, any other value
-    raises; ``TPU.MESH.MODEL > 1`` raises :class:`NotImplementedError`.
+    ``TPU.MESH.MODEL`` is ``M`` (1 without ``cfg``); ``TPU.MESH.DATA`` of
+    -1 (or 0: every process, as in the JAX package) or ``world / M`` is
+    accepted. Any layout whose ``DATA x MODEL`` is not the number of
+    processes raises, and so does a row split :func:`check_row_split`
+    refuses.
     """
     world = process_count()
-    if cfg is not None:
-        refuse_model_axis(cfg)
-        data = int(cfg.TPU.MESH.DATA)
-        if data > 0 and data != world:
-            raise ValueError(f"TPU.MESH.DATA = {data} but {world} processes "
-                             "run: set it to -1 or launch that many")
-    return world
+    model = max(1, int(cfg.TPU.MESH.MODEL)) if cfg is not None else 1
+    data = int(cfg.TPU.MESH.DATA) if cfg is not None else -1
+    if world % model or (data > 0 and data * model != world):
+        raise ValueError(
+            f"TPU.MESH.DATA = {data} x TPU.MESH.MODEL = {model} does not "
+            f"match {world} processes: launch DATA x MODEL processes "
+            "(DATA -1 takes world / MODEL)")
+    if model > 1:
+        check_row_split(cfg.MODEL.IMAGE_SIZE, model)
+    if dist.is_initialized() and not (_axes() and _AXES["model"] == model):
+        _build_axes(model)
+    return world // model, model
+
+
+def _build_axes(model: int) -> None:
+    """Every rank creates every group, in the same order, as
+    ``dist.new_group`` asks; each keeps its own two."""
+    _AXES.clear()
+    world, rank = process_count(), process_index()
+    groups = {"model_group": None, "data_group": None}
+    if model > 1:
+        for d in range(world // model):
+            ranks = list(range(d * model, (d + 1) * model))
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                groups["model_group"] = g
+        for m in range(model):
+            ranks = list(range(m, world, model))
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                groups["data_group"] = g
+    _AXES.update(groups, model=model, world=dist.group.WORLD)
+
+
+def _axes() -> dict | None:
+    """The axis groups, when they belong to the live process group."""
+    if dist.is_initialized() and _AXES.get("world") is dist.group.WORLD:
+        return _AXES
+    return None
+
+
+def model_count() -> int:
+    """The size of the model axis: the processes that split one batch's
+    image rows (1 without a process group or a model axis)."""
+    axes = _axes()
+    return axes["model"] if axes else 1
+
+
+def model_index() -> int:
+    """This process's place on the model axis: which rows it holds."""
+    return process_index() % model_count()
+
+
+def data_count() -> int:
+    """The size of the data axis: the slices of each global batch."""
+    return process_count() // model_count()
+
+
+def data_index() -> int:
+    """Which slice of each global batch this process's group holds."""
+    return process_index() // model_count()
+
+
+def model_group():
+    """This process's model group (``None`` without a model axis)."""
+    axes = _axes()
+    return axes["model_group"] if axes else None
+
+
+def data_group():
+    """This process's data group: the ranks of its model index (``None``,
+    the default group, without a model axis)."""
+    axes = _axes()
+    return axes["data_group"] if axes else None
 
 
 def _comm_device() -> torch.device:
@@ -132,20 +222,32 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     return buf.to(t.device)
 
 
-def process_allgather(x):
-    """Every process's ``x`` concatenated along axis 0 in rank order (a
-    tiled gather, as JAX's ``process_allgather(x, tiled=True)``): a numpy
-    array for a numpy array, else a tensor on ``x``'s device. The shapes
-    must agree; ``x`` itself comes back without a process group."""
-    if process_count() == 1:
+def group_allgather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every member's ``t`` of ``group`` (the default group for ``None``)
+    stacked on a new leading axis in group-rank order, on ``t``'s device.
+    The shapes and dtypes must agree. Under ``gloo`` the bytes go through
+    the host; they travel as ``uint8``, so any dtype does, bf16 too."""
+    n = dist.get_world_size(group)
+    buf = t.detach().to(_comm_device()).contiguous().reshape(-1)
+    raw = buf.view(torch.uint8)
+    parts = torch.empty((n,) + raw.shape, dtype=torch.uint8,
+                        device=raw.device)
+    dist.all_gather(list(parts.unbind()), raw, group=group)
+    return parts.to(t.device).view(t.dtype).reshape((n,) + t.shape)
+
+
+def process_allgather(x, group=None):
+    """Every process's ``x`` (of ``group``: the default group for ``None``)
+    concatenated along axis 0 in rank order (a tiled gather, as JAX's
+    ``process_allgather(x, tiled=True)``): a numpy array for a numpy
+    array, else a tensor on ``x``'s device. The shapes must agree; ``x``
+    itself comes back without a process group or from a group of one."""
+    if process_count() == 1 or dist.get_world_size(group) == 1:
         return x
     as_numpy = not torch.is_tensor(x)
     t = torch.from_numpy(np.ascontiguousarray(x)) if as_numpy else x
-    buf = t.to(_comm_device()).contiguous()
-    parts = [torch.empty_like(buf) for _ in range(process_count())]
-    dist.all_gather(parts, buf)
-    out = torch.cat(parts)
-    return out.cpu().numpy() if as_numpy else out.to(t.device)
+    out = group_allgather(t, group).flatten(0, 1)
+    return out.numpy() if as_numpy else out
 
 
 def mean_over_processes(metrics: dict) -> dict:

@@ -1,5 +1,6 @@
-"""What the port's CLIs share: the device argument and ``--distributed``,
-the ``--synthetic`` dataset rules, and the setting refused in the port."""
+"""What the port's CLIs share: the device argument and ``--distributed``
+(the ``(data, model)`` mesh over the processes), the ``--synthetic``
+dataset rules, and the settings refused in the port."""
 
 from __future__ import annotations
 
@@ -7,9 +8,9 @@ import logging
 
 import torch
 
-from epipolarpose_tpu_torch.parallel.mesh import (init_distributed,
-                                                  make_mesh,
-                                                  refuse_model_axis)
+from epipolarpose_tpu_torch.parallel.mesh import (check_row_split,
+                                                  init_distributed,
+                                                  make_mesh)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -50,26 +51,28 @@ def dataset_kwargs(cfg, samples: int) -> dict:
 
 
 def setup_processes(cfg, device: torch.device, distributed: bool
-                    ) -> tuple[torch.device, int]:
+                    ) -> tuple[torch.device, tuple[int, int]]:
     """``--distributed``: join the process group ``torch.distributed.run``
-    launched, one process per card (:func:`parallel.init_distributed`).
-    Returns (this process's device, the data axis's size: the number of
-    processes). Without it one process runs on one card (see
-    :func:`log_processes`)."""
+    launched, one process per card (:func:`parallel.init_distributed`),
+    and build the mesh's axis groups (:func:`parallel.make_mesh`).
+    Returns (this process's device, the mesh's ``(data, model)`` sizes).
+    Without it one process runs on one card (see :func:`log_processes`)."""
     if distributed:
         device = init_distributed(device)
     return device, make_mesh(cfg)
 
 
 def log_processes(logger: logging.Logger, device: torch.device,
-                  world: int, distributed: bool) -> None:
-    """Log the device and the number of processes. Unlike the JAX package,
-    which spreads one process over every local chip, a run without
-    ``--distributed`` uses one card: the count it leaves unused is
-    logged."""
+                  mesh: tuple[int, int], distributed: bool) -> None:
+    """Log the device, the number of processes and their ``data x model``
+    layout. Unlike the JAX package, which spreads one process over every
+    local chip, a run without ``--distributed`` uses one card: the count
+    it leaves unused is logged."""
+    data, model = mesh
     name = (f" ({torch.cuda.get_device_name(device)})"
             if device.type == "cuda" else "")
-    logger.info(f"device: {device}{name}; {world} process(es)")
+    logger.info(f"device: {device}{name}; {data * model} process(es): "
+                f"data {data} x model {model}")
     cards = torch.cuda.device_count() if device.type == "cuda" else 0
     if not distributed and cards > 1:
         logger.warning(
@@ -79,7 +82,10 @@ def log_processes(logger: logging.Logger, device: torch.device,
 
 
 def refuse_unported(cfg) -> None:
-    """Raise on what the port does not run: a model axis of the mesh
-    (``TPU.MESH.MODEL > 1``). ``TPU.FUSED_STEPS`` runs: K steps a call,
-    one CUDA-graph replay on the card (``core/steps.py::FusedSteps``)."""
-    refuse_model_axis(cfg)
+    """Raise, before any process group is joined, on what the port does
+    not run: a model axis (``TPU.MESH.MODEL > 1``) whose row split
+    :func:`parallel.check_row_split` refuses. A model axis otherwise runs
+    (``parallel/spatial.py``), and so does ``TPU.FUSED_STEPS``: K steps a
+    call, one CUDA-graph replay on the card
+    (``core/steps.py::FusedSteps``)."""
+    check_row_split(cfg.MODEL.IMAGE_SIZE, int(cfg.TPU.MESH.MODEL))

@@ -18,10 +18,13 @@ train and eval steps run K steps a call (one CUDA-graph replay on the
 card).
 
 ``--distributed`` runs one process per card under
-``torch.distributed.run``, as the JAX script runs one per host: the
-global batch is ``TRAIN.BATCH_SIZE`` (and ``TEST.BATCH_SIZE``) times the
-number of processes, the schedule counts global batches, each process
-decodes its slice of every batch, the model trains through
+``torch.distributed.run``, as the JAX script runs one per host, on a
+``(data, model)`` mesh (``TPU.MESH``): the global batch is
+``TRAIN.BATCH_SIZE`` (and ``TEST.BATCH_SIZE``) times the data axis, the
+schedule counts global batches, each data group decodes its slice of
+every batch, with ``TPU.MESH.MODEL > 1`` each process of a data group
+runs the network on its rows of the crops (``models.partition_rows``:
+halo exchanges; the teacher's too), the model trains through
 ``parallel.wrap_model`` (batch norm over the global batch, DDP), and the
 first process writes the logs and checkpoints.
 """
@@ -83,8 +86,9 @@ def main(argv=None) -> dict:
     if args.synthetic:
         use_synthetic(cfg, train=True)
     refuse_unported(cfg)
-    device, world = setup_processes(cfg, resolve_device(args.device),
-                                    args.distributed)
+    device, mesh = setup_processes(cfg, resolve_device(args.device),
+                                   args.distributed)
+    data = mesh[0]
 
     from epipolarpose_tpu_torch.core import (create_train_state,
                                              make_eval_step, make_train_step,
@@ -96,12 +100,13 @@ def main(argv=None) -> dict:
                                                     create_metric_writer)
     from epipolarpose_tpu_torch.core.steps import configure_backends
     from epipolarpose_tpu_torch.data import epoch_loader, get_dataset
-    from epipolarpose_tpu_torch.models import get_model
-    from epipolarpose_tpu_torch.parallel import process_index, wrap_model
+    from epipolarpose_tpu_torch.models import get_model, partition_rows
+    from epipolarpose_tpu_torch.parallel import (data_index, model_count,
+                                                 process_index, wrap_model)
 
     configure_backends(cfg)
     logger, output_dir, tb_dir = create_logger(cfg, args.cfg, "train")
-    log_processes(logger, device, world, args.distributed)
+    log_processes(logger, device, mesh, args.distributed)
     writer = create_metric_writer(tb_dir)
 
     model = get_model(cfg, True,
@@ -111,7 +116,7 @@ def main(argv=None) -> dict:
     valid_ds = get_dataset(cfg, cfg.DATASET.TEST_SET, False, **kw)
 
     # global batches: the JAX script's BATCH_SIZE x the mesh's data axis
-    batch_size = int(cfg.TRAIN.BATCH_SIZE) * world
+    batch_size = int(cfg.TRAIN.BATCH_SIZE) * data
     self_supervised = cfg.DATASET.LABEL_SOURCE == "triangulated"
     # the schedule counts optimizer steps: one a view group batch for SS
     epoch_units = (len(train_ds.view_groups) if self_supervised
@@ -132,6 +137,8 @@ def main(argv=None) -> dict:
         logger.info(f"resumed at epoch {begin_epoch}, step {state.step}")
 
     flip_pairs = getattr(train_ds, "flip_pairs", ())
+    if model_count() > 1:
+        partition_rows(model)          # each process runs its image rows
     net = wrap_model(model) if args.distributed else model
     # K optimizer steps a call, one CUDA-graph replay on the card
     fused = int(cfg.TPU.FUSED_STEPS)
@@ -139,6 +146,8 @@ def main(argv=None) -> dict:
         from epipolarpose_tpu_torch.core.self_supervised import (
             load_refiner, load_teacher, make_ss_train_step)
         teacher = load_teacher(cfg, device)
+        if model_count() > 1:
+            partition_rows(teacher.model)
         refiner = None
         if cfg.TPU.SS_REFINER:
             refiner = load_refiner(cfg, cfg.TPU.SS_REFINER, device)
@@ -153,7 +162,8 @@ def main(argv=None) -> dict:
 
     best_perf = -np.inf if higher_better else np.inf
     perf = avg_loss = None
-    shard = dict(process_index=process_index(), process_count=world)
+    # each data group decodes its slice of every batch
+    shard = dict(process_index=data_index(), process_count=data)
     for epoch in range(begin_epoch, int(cfg.TRAIN.END_EPOCH)):
         loader = epoch_loader(train_ds, batch_size, epoch,
                               multiview=self_supervised,
@@ -166,7 +176,7 @@ def main(argv=None) -> dict:
         else:
             state, avg_loss = train(cfg, loader, state, tstep, epoch, writer,
                                     output_dir)
-        vloader = epoch_loader(valid_ds, int(cfg.TEST.BATCH_SIZE) * world,
+        vloader = epoch_loader(valid_ds, int(cfg.TEST.BATCH_SIZE) * data,
                                epoch, is_train=False, device=device,
                                fused_steps=fused, **shard)
         _, perf = validate(cfg, vloader, valid_ds, estep, output_dir, writer,

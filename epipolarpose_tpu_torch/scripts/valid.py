@@ -12,9 +12,12 @@ metric table and ``perf: <value>``: MPJPE (mm, lower is better) on H36M,
 PCK3D@150 (percent, higher is better) on MPI-INF-3DHP, where
 ``experiments/h36m/valid_3dhp_transfer.yaml`` scores an H36M model on the
 3DHP test set (``DATASET.ROOT`` or ``--dataDir`` points at the tree; its
-JPEG frames need no OpenCV). ``--distributed``: one process per card,
-the global batch ``TEST.BATCH_SIZE`` times the number of processes, each
-process's slice of every batch gathered back before ``evaluate``.
+JPEG frames need no OpenCV). ``--distributed``: one process per card on
+a ``(data, model)`` mesh (``TPU.MESH``), the global batch
+``TEST.BATCH_SIZE`` times the data axis, each data group's slice of
+every batch gathered back before ``evaluate``; with ``TPU.MESH.MODEL >
+1`` each process of a data group runs the network on its rows of the
+crops.
 ``TPU.FUSED_STEPS: K``: K batches a call of the eval step (one CUDA-graph
 replay on the card).
 """
@@ -62,32 +65,35 @@ def main(argv=None) -> float:
     if args.synthetic:
         use_synthetic(cfg, train=False)
     refuse_unported(cfg)
-    device, world = setup_processes(cfg, resolve_device(args.device),
-                                    args.distributed)
+    device, mesh = setup_processes(cfg, resolve_device(args.device),
+                                   args.distributed)
+    data = mesh[0]
 
     from epipolarpose_tpu_torch.core import make_eval_step, validate
     from epipolarpose_tpu_torch.core.checkpoint import load_model_variables
     from epipolarpose_tpu_torch.core.logger import create_logger
     from epipolarpose_tpu_torch.core.steps import configure_backends
     from epipolarpose_tpu_torch.data import epoch_loader, get_dataset
-    from epipolarpose_tpu_torch.models import get_model
-    from epipolarpose_tpu_torch.parallel import process_index
+    from epipolarpose_tpu_torch.models import get_model, partition_rows
+    from epipolarpose_tpu_torch.parallel import data_index, model_count
 
     configure_backends(cfg)
     logger, output_dir, _ = create_logger(cfg, args.cfg, "valid")
-    log_processes(logger, device, world, args.distributed)
+    log_processes(logger, device, mesh, args.distributed)
     model = get_model(cfg, False, torch.Generator().manual_seed(0))
     if cfg.TEST.MODEL_FILE:
         load_model_variables(model, cfg.TEST.MODEL_FILE)
         logger.info(f"loaded {cfg.TEST.MODEL_FILE}")
     ds = get_dataset(cfg, cfg.DATASET.TEST_SET, False,
                      **dataset_kwargs(cfg, args.samples))
+    if model_count() > 1:
+        partition_rows(model)          # each process runs its image rows
     fused = int(cfg.TPU.FUSED_STEPS)
     estep = make_eval_step(cfg, model, getattr(ds, "flip_pairs", ()),
                            device=device, fused_steps=fused)
-    loader = epoch_loader(ds, int(cfg.TEST.BATCH_SIZE) * world, 0,
+    loader = epoch_loader(ds, int(cfg.TEST.BATCH_SIZE) * data, 0,
                           is_train=False, device=device,
-                          process_index=process_index(), process_count=world,
+                          process_index=data_index(), process_count=data,
                           fused_steps=fused)
     _, perf = validate(cfg, loader, ds, estep, output_dir=output_dir)
     logger.info(f"perf: {perf:.6f}")

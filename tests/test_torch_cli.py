@@ -12,8 +12,10 @@ skipped) and a refiner from ``train_refiner`` as ``TPU.SS_REFINER``;
 the calibration-free debug config (``TPU.SS_CAMERAS: estimated``)
 through ``train``. ``train --distributed --device cpu`` in two ``gloo``
 processes under ``torch.distributed.run`` against one process on the same
-global batch. Refused: ``--device cuda`` without a card,
-``TPU.MESH.MODEL > 1``; ``TPU.FUSED_STEPS > 1`` runs
+global batch, and ``train`` and ``valid`` with ``TPU.MESH.MODEL: 2`` (the
+image rows split over the two) against the same runs without the flag.
+Refused: ``--device cuda`` without a card, a model axis whose row split
+is not 32-aligned; ``TPU.FUSED_STEPS > 1`` runs
 (``tests/test_torch_fused_steps.py`` drives it through ``train``).
 """
 
@@ -191,21 +193,23 @@ def test_device_cuda_without_a_card_raises(tmp_path):
 
 
 def test_unported_flags_raise(tmp_path):
-    """A model axis of the mesh is refused by name, by both CLIs, before
-    any process group is joined; fused steps are ported now and pass the
-    check (with a model axis too, the model axis is what raises)."""
+    """``refuse_unported``, which both CLIs call before any process group
+    is joined, passes a model axis whose row split is 32-aligned
+    (``TPU.MESH.MODEL: 2`` at 256x256, alone and with ``FUSED_STEPS: 2``)
+    and fused steps alone; a split that is not (``MODEL: 2`` at a 48-row
+    image: 24 rows a process) raises by name in both CLIs."""
     from epipolarpose_tpu_torch.scripts.common import refuse_unported
-    model_axis = _yaml(tmp_path / "mesh.yaml", TPU={"MESH": {"MODEL": 2}})
+    for tpu in ({"MESH": {"MODEL": 2}}, {"FUSED_STEPS": 2},
+                {"FUSED_STEPS": 2, "MESH": {"MODEL": 2}}):
+        refuse_unported(load_config(_yaml(
+            tmp_path / "ok.yaml", MODEL={"IMAGE_SIZE": [256, 256]},
+            TPU=tpu)))
+    rows48 = _yaml(tmp_path / "rows48.yaml", MODEL={"IMAGE_SIZE": [48, 48]},
+                   TPU={"MESH": {"MODEL": 2}})
     for cli in (train, valid):
-        with pytest.raises(NotImplementedError, match="MESH.MODEL.*item 14"):
-            cli.main(["--cfg", model_axis, "--distributed", "--device",
-                      "cpu"])
-    fused = _yaml(tmp_path / "fused.yaml", TPU={"FUSED_STEPS": 2})
-    refuse_unported(load_config(fused))
-    both = _yaml(tmp_path / "both.yaml",
-                 TPU={"FUSED_STEPS": 2, "MESH": {"MODEL": 2}})
-    with pytest.raises(NotImplementedError, match="MESH.MODEL.*item 14"):
-        train.main(["--cfg", both, "--device", "cpu"])
+        with pytest.raises(ValueError,
+                           match="TPU.MESH.MODEL = 2: 48 image rows"):
+            cli.main(["--cfg", rows48, "--distributed", "--device", "cpu"])
 
 
 def test_loops_write_scalars_to_the_writer():
@@ -319,6 +323,29 @@ with open(os.path.join(sys.argv[1], f"rank{os.environ['RANK']}.json"),
                "steps": out["state"].step, "final": out["final"]}, f)
 """
 
+VALID_RUNNER = """
+import json, os, sys
+from epipolarpose_tpu_torch.scripts import valid
+perf = valid.main(sys.argv[2:])
+with open(os.path.join(sys.argv[1], f"valid{os.environ['RANK']}.json"),
+          "w") as f:
+    json.dump({"perf": perf}, f)
+"""
+
+
+def _torchrun(tmp_path, runner: str, args: list,
+              name: str = "runner.py") -> None:
+    """``runner`` in two ``gloo`` processes under ``torch.distributed.run``
+    (one thread each)."""
+    path = tmp_path / name
+    path.write_text(runner)
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", str(path), str(tmp_path)] + args,
+        env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+
 
 def test_distributed_train_under_torch_distributed_run(tmp_path):
     """``train --distributed --device cpu`` in two processes started by
@@ -337,14 +364,7 @@ def test_distributed_train_under_torch_distributed_run(tmp_path):
     args = ["--cfg", per_rank, "--synthetic", "--samples", "32", "--epochs",
             "1", "--device", "cpu", "--modelDir", str(tmp_path / "out"),
             "--logDir", str(tmp_path / "log"), "--distributed"]
-    runner = tmp_path / "runner.py"
-    runner.write_text(RUNNER)
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "2", str(runner), str(tmp_path)] + args,
-        env=env, capture_output=True, text=True, timeout=240)
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    _torchrun(tmp_path, RUNNER, args)
     ranks = [json.loads((tmp_path / f"rank{r}.json").read_text())
              for r in range(2)]
     assert ranks[0] == ranks[1]
@@ -365,3 +385,56 @@ def test_distributed_train_under_torch_distributed_run(tmp_path):
                            "32", "--model-file", got["final"]]
                           + _common(tmp_path / "valid"))
     assert perf == pytest.approx(got["perf"], rel=1e-6)
+
+
+def test_model_axis_train_and_valid_under_torch_distributed_run(tmp_path):
+    """``train`` and ``valid`` with ``--distributed`` and
+    ``TPU.MESH.MODEL: 2`` in two ``gloo`` processes under
+    ``torch.distributed.run`` (one data group: each process runs 32 of
+    the 64 rows of the same 8 crops a step) against the same runs in one
+    process without the flag: the same step count, the first step's loss
+    relative 1e-5, the perf after both steps relative 1e-4 (Adam's sign
+    noise, as above), the layout logged, a final checkpoint that loads
+    ``strict=True`` into a plain model; ``valid`` on that checkpoint with
+    the rows split gives the perf of one process, relative 1e-5."""
+    split = _yaml(tmp_path / "split.yaml", PRINT_FREQ=2,
+                  TRAIN={"BATCH_SIZE": 8}, TEST={"BATCH_SIZE": 8},
+                  TPU={"MESH": {"MODEL": 2}})
+    one = _yaml(tmp_path / "one.yaml", PRINT_FREQ=2,
+                TRAIN={"BATCH_SIZE": 8}, TEST={"BATCH_SIZE": 8})
+    common = ["--synthetic", "--samples", "16", "--device", "cpu"]
+    _torchrun(tmp_path, RUNNER, ["--cfg", split, "--epochs", "1",
+                                 "--modelDir", str(tmp_path / "out"),
+                                 "--logDir", str(tmp_path / "log"),
+                                 "--distributed"] + common)
+    ranks = [json.loads((tmp_path / f"rank{r}.json").read_text())
+             for r in range(2)]
+    assert ranks[0] == ranks[1]
+    got = ranks[0]
+    with quiet_cli():
+        want = train.main(["--cfg", one, "--epochs", "1"] + common[:-2]
+                          + _common(tmp_path / "one"))
+    assert got["steps"] == want["state"].step == 2
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+    np.testing.assert_allclose(got["perf"], want["perf"], rtol=1e-4)
+    logs = list(pathlib.Path(got["final"]).parents[1].glob(
+        "split_*_train.log"))
+    assert len(logs) == 1
+    assert "2 process(es): data 1 x model 2" in logs[0].read_text()
+    net = get_pose_net(load_config(one))
+    sd = torch.load(got["final"], map_location="cpu", weights_only=True)
+    net.load_state_dict(sd["state_dict"], strict=True)
+
+    _torchrun(tmp_path, VALID_RUNNER, ["--cfg", split, "--model-file",
+                                       got["final"], "--modelDir",
+                                       str(tmp_path / "vout"), "--logDir",
+                                       str(tmp_path / "vlog"),
+                                       "--distributed"] + common,
+              "valid_runner.py")
+    perfs = [json.loads((tmp_path / f"valid{r}.json").read_text())["perf"]
+             for r in range(2)]
+    assert perfs[0] == perfs[1]
+    with quiet_cli():
+        perf = valid.main(["--cfg", one, "--model-file", got["final"]]
+                          + common[:-2] + _common(tmp_path / "vone"))
+    assert perfs[0] == pytest.approx(perf, rel=1e-5)

@@ -136,6 +136,31 @@ def test_softargmax_backward_kernel_matches_plain(cuda, dtype, shape):
     assert want.abs().max() > 1e-3 * gmax
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softargmax_kernels_take_large_logits(cuda, dtype):
+    """Logits of magnitude 1e10 (a random ResNet-152's eval forward on
+    its init's BN statistics reaches them): both kernels subtract the
+    row's max (or lse) before scaling to base 2, so the exponent is exact
+    near the max and nothing overflows; they give the plain versions'
+    finite values. Fusing the shift into the scale's FMA kept the rounding
+    of max * log2(e), up to half its spacing, as an exponent, and the
+    forward returned nan."""
+    n, j, d, h, w = 2, 17, 8, 16, 24
+    g = torch.Generator(cuda).manual_seed(3)
+    x = (1e10 * torch.randn((n, j * d, h, w), generator=g,
+                            device=cuda)).to(dtype)
+    coords, stats = ksa.softmax_integral_fwd(x, j, d)
+    assert torch.isfinite(coords).all() and torch.isfinite(stats).all()
+    torch.testing.assert_close(coords, ksa.softmax_integral_plain(x, j, d),
+                               rtol=0, atol=1e-5)
+    grad = torch.randn((n, j, 3), generator=g, device=cuda)
+    want_stats = ksa.softmax_integral_stats_plain(x, j, d)
+    got = ksa.softmax_integral_bwd(x, want_stats, grad)
+    want = ksa.softmax_integral_bwd_plain(x, want_stats, grad)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max() <= 1e-5 * grad.abs().max()
+
+
 def test_softargmax_gradient_on_card_matches_cpu(cuda):
     """Through the autograd Function on the card (both kernels) against
     ordinary autograd of the plain version on the CPU, float32; a

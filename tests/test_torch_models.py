@@ -53,7 +53,8 @@ def _port_model(num_layers, variables, **kw):
     return model.eval()
 
 
-@pytest.mark.parametrize("num_layers,depth_dim", [(18, 8), (50, 4)])
+@pytest.mark.parametrize("num_layers,depth_dim", [(18, 8), (50, 4),
+                                                   (101, 4)])
 def test_eval_forward_matches_jax(rng, num_layers, depth_dim):
     kw = dict(num_joints=5, depth_dim=depth_dim,
               num_deconv_filters=(32, 32, 32))

@@ -140,15 +140,15 @@ def _head_redrawn(model, seed):
     return model.state_dict()
 
 
-def _ss_batches():
+def _ss_batches(seed=5):
     """4 view groups of 4 views (noise crops for the student, the dual
     crop for ``given``), detections in the batch: ``given`` 2 px off the
     truth with confidences in [0.5, 1]; ``estimated`` the truth through
-    an undistorted rig."""
+    an undistorted rig. ``seed`` draws the noise."""
     cfg = worker.ss_config("given")
     ds = SyntheticMultiviewDataset(cfg, num_frames=4, is_train=True,
                                    image_shape=(64, 64))
-    r = np.random.default_rng(5)
+    r = np.random.default_rng(seed)
     groups = ds.view_groups[:4]
     given = next(ds.view_batches(4, shuffle=False, augment=True))
     gt = np.stack([[ds.records[i].joints for i in g] for g in groups])
