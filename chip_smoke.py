@@ -108,19 +108,22 @@ card, then drives the port's paths through their entry points:
    route's, ``os.cpu_count()``;
 18. JPEG data: the port's own decoder (``native/jpegdec.cpp``, built by
    one ``g++`` call; the card's machine has neither libjpeg's headers nor
-   OpenCV) on every fixture of ``tests/data/jpeg`` against the sha256 of
-   libjpeg-turbo's decode in its manifest, the progressive fixture
-   refused with its mode named; ms a decode of the 2048 x 2048, 1920 x
-   1080 and 1000 x 1000 frames, and the rate on 1, 2, 4 and 8 threads;
-   ``demo --image`` on the 2048 x 2048 frame at ResNet-50@256;
+   OpenCV) on every fixture of ``tests/data/jpeg`` (progressive ones
+   included) against the sha256 of libjpeg-turbo's decode in its
+   manifest; ms a decode of the 2048 x 2048, 1920 x 1080 and 1000 x 1000
+   frames, and the rate on 1, 2, 4 and 8 threads; ``demo --image`` on
+   the 2048 x 2048 frame at ResNet-50@256, one decode through
+   ``imread``'s decoder and none through the native loader;
 19. the H36M -> MPI-INF-3DHP transfer evaluation through the ``valid``
    CLI (``experiments/h36m/valid_3dhp_transfer.yaml`` unchanged,
    ``--dataDir`` at a tree of 2 x 129 frames: 256 records, 4 batches of
    64) with phase 13's FS weights: ``evaluate`` on perfect predictions
    (PCK3D 100, AUC above 95, MPJPE under 0.5 mm), the CLI's perf in [0,
-   100], every frame through the port's decoder and none through OpenCV,
-   validation samples/s and the loader's stage shares, one soft-argmax
-   launch a batch;
+   100], every frame through the port's code (its decoder or its native
+   loader, counted in both libraries; ``TPU.NATIVE_LOADER: auto``
+   calibrates on the first batch, its decision logged) and none through
+   OpenCV, validation samples/s and the loader's stage shares, one
+   soft-argmax launch a batch;
 20. ``ops/warp.py``: 64 rotation-free 256 x 256 crops of 1000 x 1000
    frames on the card against the CPU and ``imgproc``'s numpy crops,
    the separable warp's bits with TF32 allowed and not, card ms beside
@@ -205,7 +208,23 @@ card, then drives the port's paths through their entry points:
 27. no process left: every process this script started has ended but
    the worker loader's ``forkserver`` and its resource tracker, and those
    two end when ``stop_worker_server`` stops them; phases 22's and 26's
-   rank processes are gone.
+   rank processes are gone;
+28. the native loader without libjpeg
+   (``epipolarpose_tpu_torch/native/fastloader.cpp`` on the port's
+   decoder): built on this host, where ``jpeglib.h`` is absent, with no
+   libjpeg linked (a fresh build's seconds); every fixture's sha256 at
+   8/8 and at each DCT scale of its manifest entry, the 3/8 ones also
+   through the loader's exact 3/8 crop; ms a decode at 8, 4, 3, 2 and 1
+   eighths of the three dataset frames and the progressive 2048 x 2048
+   twin; phase 19's tree through the ``valid`` CLI with
+   ``TPU.NATIVE_LOADER`` true, then false (samples/s, the decode's share,
+   the ``scale_num`` histogram, every frame through the loader or the
+   decoder as the flag says, one soft-argmax launch a batch), and the
+   loader alone with the tree's boxes grown x3 (2/8); two SS steps of
+   ``train_ss_r50_256_integral.yaml`` at each ``SS_TEACHER_SCALE``, 1.0
+   and 0.5, fed by ``_dual_batch_native`` from the 1000 x 1000 frame
+   (loader img/s, a soft-argmax forward and backward and a triangulation
+   a step).
 
 Kernel launch counters are set to 0 just before each path and read just
 after it (phases 22's and 26's rank processes report their own). Each phase checks
@@ -246,7 +265,7 @@ PHASE_LIMITS = {"build": 120.0, "softargmax": 30.0, "matmul_stats": 60.0,
                 "jpeg": 15.0, "mpi3dhp": 30.0, "warp": 15.0,
                 "remat": 150.0, "ddp": 420.0, "fused": 300.0,
                 "export": 90.0, "user_tools": 90.0, "spatial": 150.0,
-                "processes": 30.0}
+                "processes": 30.0, "native_loader": 90.0}
 
 # H36M left/right joint pairs (the JAX package's data/h36m.py FLIP_PAIRS)
 H36M_FLIP_PAIRS = ((1, 4), (2, 5), (3, 6), (11, 14), (12, 15), (13, 16))
@@ -1634,14 +1653,16 @@ def format_shares(shares: dict) -> str:
 
 
 def loader_route(ds) -> str:
-    """Which route decodes ``ds``'s records, and whether the native
-    loader is built."""
+    """Which route decodes ``ds``'s records: the native loader (the
+    port's own decoder and warp, no libjpeg) where they are JPEGs and it
+    is built, else the thread pool (numpy render or the port's decoder,
+    numpy warp)."""
     from epipolarpose_tpu_torch.data import fastloader
-    built = fastloader.available()
-    native = "built" if built else f"not built ({fastloader.build_error()})"
-    route = ("native decode + warp" if ds._native_eligible([0])
-             else "numpy render + warp on the thread pool")
-    return f"{route}; native loader {native}"
+    if ds._native_eligible([0]):
+        return "native decode + warp (the port's loader, no libjpeg)"
+    built = ("built" if fastloader.available()
+             else f"not built ({fastloader.build_error()})")
+    return f"numpy render + warp on the thread pool; native loader {built}"
 
 
 def assert_same_batch(on_card: dict, on_host: dict) -> None:
@@ -2543,7 +2564,7 @@ def phase_jpeg(res: dict) -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
-    from epipolarpose_tpu_torch.data import fastloader, jpeg
+    from epipolarpose_tpu_torch.data import jpeg
     from epipolarpose_tpu_torch.scripts import demo
     t0 = time.perf_counter()
     check(jpeg.available(), f"JPEG decoder: {jpeg.build_error()}")
@@ -2589,17 +2610,16 @@ def phase_jpeg(res: dict) -> None:
     for n in JPEG_THREADS:
         threads[n]["speedup"] = (threads[n]["frames_per_s"]
                                  / threads[1]["frames_per_s"])
-    check(not fastloader.available(),
-          "the native loader is built here: imread would not take the "
-          "port's decoder")
     with tempfile.TemporaryDirectory(prefix="epk_demo_") as tmp:
-        jpeg.reset_count()
+        reset_decodes()
         c = res["paths"]["jpeg_demo"] = {}
         shown = run_cli(demo.main, [
             "--cfg", str(ROOT / "experiments/h36m/valid_r50_256_integral.yaml"),
             "--image", str(JPEG_FIXTURES / JPEG_FRAMES[0]), "--out", tmp], c)
-        check(jpeg.decode_count() == 1, f"demo decoded "
-              f"{jpeg.decode_count()} JPEGs with the port's decoder")
+        d = decodes_by_library()
+        check(d["jpeg"] == d["total"] == 1 and not d["failed"],
+              f"demo decoded {d}: imread takes the port's decoder, not "
+              f"its loader")
         check(c["softargmax_fwd"] == 1, f"demo launched {c}")
         check_png(shown["files"][0], (258, 258))
         check(bool(np.isfinite(shown["pose3d"]).all()), "demo pose")
@@ -2608,8 +2628,8 @@ def phase_jpeg(res: dict) -> None:
     res["jpeg"] = dict(build_s=build_s, ms=ms, threads=threads,
                        refused=refused, demo_wall_s=c["wall_s"])
     log(f"[jpeg] {len(manifest) - len(refused)} fixtures decode to "
-        f"libjpeg-turbo's sha256 on this host, "
-        + ", ".join(f"{k} refused ({v})" for k, v in refused.items())
+        f"libjpeg-turbo's sha256 on this host"
+        + "".join(f", {k} refused ({v})" for k, v in refused.items())
         + f"; build {build_s:.2f} s; ms a decode (median / min of "
         f"{JPEG_REPS}): " + ", ".join(
             f"{k} {v['median']:.2f} / {v['min']:.2f} ({v['bytes']} bytes)"
@@ -2621,41 +2641,108 @@ def phase_jpeg(res: dict) -> None:
         f"ResNet-50@256 in {c['wall_s']:.2f} s, one decode, one launch")
 
 
+def make_3dhp_tree(tmp: pathlib.Path, cfg):
+    """Phase 19's 3DHP tree under ``tmp``: annotations from
+    ``write_synthetic_3dhp``, the 2048 x 2048 fixture as every TS1 frame
+    and the 1920 x 1080 one as every TS2 frame (the pixels do not match
+    the poses; the route and its rate are what is checked). Returns its
+    dataset."""
+    import shutil
+    from epipolarpose_tpu_torch.data.mpi3dhp import (MPI3DHPDataset,
+                                                     write_synthetic_3dhp)
+    tree = tmp / cfg.DATASET.ROOT
+    write_synthetic_3dhp(str(tree), num_frames=MPI3DHP_FRAMES, seed=7)
+    for ts, frame in ((1, JPEG_FRAMES[0]), (2, JPEG_FRAMES[1])):
+        seq = tree / f"TS{ts}" / "imageSequence"
+        for f in range(MPI3DHP_FRAMES):
+            shutil.copyfile(JPEG_FIXTURES / frame,
+                            seq / f"img_{f + 1:06d}.jpg")
+    cfg.DATASET.ROOT = str(tree)
+    ds = MPI3DHPDataset(cfg, str(tree), "test", is_train=False)
+    check(len(ds) == 4 * EVAL_BATCH, f"{len(ds)} records")
+    return ds
+
+
+def decodes_by_library() -> dict:
+    """The decodes of the port's code since the counters' last reset:
+    ``jpeg`` through ``data/jpeg.py`` (imread, the pool route),
+    ``native`` through the loader's library by ``scale_num``, and the
+    loader's failures."""
+    from epipolarpose_tpu_torch.data import fastloader, jpeg
+    native = fastloader.decode_counts()
+    return dict(jpeg=jpeg.decode_count(), native=native["scale"],
+                failed=native["failed"],
+                total=jpeg.decode_count() + sum(native["scale"].values()))
+
+
+def reset_decodes() -> None:
+    from epipolarpose_tpu_torch.data import fastloader, jpeg
+    jpeg.reset_count()
+    fastloader.reset_counts()
+
+
+def valid_3dhp(res: dict, tmp: pathlib.Path, cfg_file: str, key: str,
+               weights: str) -> dict:
+    """The ``valid`` CLI on ``cfg_file`` over the tree under ``tmp`` (its
+    launches in ``res["paths"][key]``): perf, samples/s and seconds of
+    the validation (from its log), the loader's stage shares, the decodes
+    of each library, and the log's loader calibration line if any."""
+    import re
+    import epipolarpose_tpu_torch.data as data_pkg
+    from epipolarpose_tpu_torch.scripts import valid
+    stats = {}
+    loader = data_pkg.epoch_loader
+
+    def with_stats(*a, **k):                 # the CLI's loader, measured
+        return loader(*a, stats=stats, **k)
+    data_pkg.epoch_loader = with_stats
+    reset_decodes()
+    c = res["paths"][key] = {}
+    out = tmp / f"out_{key}"
+    try:
+        perf = run_cli(valid.main, [
+            "--cfg", cfg_file, "--dataDir", str(tmp), "--model-file",
+            weights, "--modelDir", str(out), "--logDir",
+            str(tmp / f"log_{key}")], c)
+    finally:
+        data_pkg.epoch_loader = loader
+    decoded = decodes_by_library()
+    text = "".join(p.read_text() for p in out.rglob("*_valid.log"))
+    m = re.search(r"validate: (\d+) samples in ([\d.]+)s \(([\d.]+) "
+                  r"samples/s\)", text)
+    check(m is not None, f"{key}: the valid log has no validate line")
+    seen, val_s = int(m.group(1)), float(m.group(2))
+    check(math.isfinite(perf) and 0.0 <= perf <= 100.0,
+          f"{key}: 3DHP perf {perf}")
+    calib = re.search(r"loader calibration .*-> (native|pool)", text)
+    return dict(perf=perf, seen=seen, validate_s=val_s,
+                samples_per_s=float(m.group(3)), wall_s=c["wall_s"],
+                decoded=decoded, shares=stats_shares(stats, val_s),
+                calibration=calib.group(0) if calib else None,
+                counts=dict(c))
+
+
 def phase_mpi3dhp(res: dict) -> None:
     """The H36M -> 3DHP transfer evaluation through the ``valid`` CLI at
-    full width on a 3DHP tree (annotations from
-    ``write_synthetic_3dhp``, the 2048 x 2048 fixture as every TS1 frame
-    and the 1920 x 1080 one as every TS2 frame: the pixels do not match
-    the poses; this checks the route and its rate), with phase 13's FS
-    weights: every frame through the port's decoder, none through
-    OpenCV."""
-    import re
+    full width on :func:`make_3dhp_tree`'s tree, with phase 13's FS
+    weights and the config as shipped (``TPU.NATIVE_LOADER: auto``,
+    which calibrates on the first batch now that the native loader builds
+    on the card): every frame through the port's code (its decoder, or
+    its native loader), none through OpenCV."""
     import shutil
     import tempfile
 
     import numpy as np
-    import epipolarpose_tpu_torch.data as data_pkg
     from epipolarpose_tpu_torch.config import load_config
-    from epipolarpose_tpu_torch.data import fastloader, jpeg
-    from epipolarpose_tpu_torch.data.mpi3dhp import (H36M_TO_3DHP,
-                                                     MPI3DHPDataset,
-                                                     write_synthetic_3dhp)
-    from epipolarpose_tpu_torch.scripts import valid
+    from epipolarpose_tpu_torch.data import fastloader
+    from epipolarpose_tpu_torch.data.joints_dataset import JointsDataset
+    from epipolarpose_tpu_torch.data.mpi3dhp import H36M_TO_3DHP
     src = ROOT / "experiments/h36m/valid_3dhp_transfer.yaml"
     cfg = load_config(src)
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="epk_3dhp_"))
     try:
-        tree = tmp / cfg.DATASET.ROOT
-        write_synthetic_3dhp(str(tree), num_frames=MPI3DHP_FRAMES, seed=7)
-        for ts, frame in ((1, JPEG_FRAMES[0]), (2, JPEG_FRAMES[1])):
-            seq = tree / f"TS{ts}" / "imageSequence"
-            for f in range(MPI3DHP_FRAMES):
-                shutil.copyfile(JPEG_FIXTURES / frame,
-                                seq / f"img_{f + 1:06d}.jpg")
-        cfg.DATASET.ROOT = str(tree)
-        ds = MPI3DHPDataset(cfg, str(tree), "test", is_train=False)
+        ds = make_3dhp_tree(tmp, cfg)
         n = len(ds)
-        check(n == 4 * EVAL_BATCH, f"{n} records")
         # perfect predictions in the model's H36M order
         inv = np.argsort(np.asarray(H36M_TO_3DHP))
         perfect = np.stack([np.concatenate([
@@ -2664,56 +2751,40 @@ def phase_mpi3dhp(res: dict) -> None:
         nv, pck = ds.evaluate(cfg, perfect)
         check(pck == 100.0 and nv["AUC"] > 95.0 and nv["MPJPE"] < 0.5,
               f"evaluate on perfect predictions gave {nv}")
-
-        check(not fastloader.available(), "the native loader is built here")
-        stats = {}
-        loader = data_pkg.epoch_loader
-
-        def with_stats(*a, **k):             # the CLI's loader, measured
-            return loader(*a, stats=stats, **k)
-        data_pkg.epoch_loader = with_stats
-        jpeg.reset_count()
-        c = res["paths"]["mpi3dhp"] = {}
-        try:
-            perf = run_cli(valid.main, [
-                "--cfg", str(src), "--dataDir", str(tmp), "--model-file",
-                res["cli_fs_final"], "--modelDir", str(tmp / "out"),
-                "--logDir", str(tmp / "log")], c)
-        finally:
-            data_pkg.epoch_loader = loader
-        decoded = jpeg.decode_count()
-        text = "".join(p.read_text() for p in
-                       (tmp / "out").rglob("*_valid.log"))
+        out = valid_3dhp(res, tmp, str(src), "mpi3dhp", res["cli_fs_final"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    m = re.search(r"validate: (\d+) samples in ([\d.]+)s \(([\d.]+) "
-                  r"samples/s\)", text)
-    check(m is not None, "the valid log has no validate line")
-    seen, val_s, rate = int(m.group(1)), float(m.group(2)), float(m.group(3))
-    check(math.isfinite(perf) and 0.0 <= perf <= 100.0,
-          f"3DHP perf {perf}")
-    check(seen == n and decoded == n,
-          f"{seen} samples validated, {decoded} frames through the port's "
-          f"decoder, {n} records")
+    c, d = out["counts"], out["decoded"]
+    # 'auto' times both routes on the first batch, each CALIBRATION_REPS
+    # times, before the run
+    calib = (2 * JointsDataset.CALIBRATION_REPS * EVAL_BATCH
+             if fastloader.available() else 0)
+    check(out["seen"] == n and d["total"] == n + calib and not d["failed"],
+          f"{out['seen']} samples validated, {d} frames through the port's "
+          f"decoder and loader, {n} records and {calib} calibration decodes")
+    check((out["calibration"] is not None) == bool(calib),
+          f"calibration line {out['calibration']!r}")
     check(c["softargmax_fwd"] == n // EVAL_BATCH and c["softargmax_bwd"]
           == c["triangulate"] == c["matmul_stats"] == 0,
           f"3DHP valid launched {c}")
     loaded = [m for m in IMAGE_LIBS if m in sys.modules]
     check(not loaded, f"the 3DHP path imported {loaded}")
-    shares = stats_shares(stats, val_s)
-    res["mpi3dhp"] = dict(perf=perf, samples_per_s=rate, validate_s=val_s,
-                          wall_s=c["wall_s"], decoded=decoded,
-                          perfect=nv, shares=shares)
+    res["mpi3dhp"] = dict(perf=out["perf"], samples_per_s=out["samples_per_s"],
+                          validate_s=out["validate_s"], wall_s=c["wall_s"],
+                          decoded=d, calibration=out["calibration"],
+                          perfect=nv, shares=out["shares"])
     log(f"[mpi3dhp] valid_3dhp_transfer.yaml through the valid CLI at "
         f"ResNet-50@256 (flip test, batch {EVAL_BATCH}) on {n} records of "
         f"a 3DHP tree (2048 x 2048 and 1920 x 1080 JPEG frames): PCK3D@150 "
-        f"{perf:.3f} with phase 13's FS weights (pixels unrelated to the "
-        f"poses); perfect predictions: " + ", ".join(
+        f"{out['perf']:.3f} with phase 13's FS weights (pixels unrelated to "
+        f"the poses); perfect predictions: " + ", ".join(
             f"{k} {v:.4g}" for k, v in nv.items())
-        + f"; validation {rate:.1f} samples/s ({val_s:.3f} s; CLI call "
-        f"{c['wall_s']:.2f} s); {decoded} frames through the port's "
-        f"decoder, none through OpenCV; soft-argmax launches "
-        f"{c['softargmax_fwd']}; {format_shares(shares)}")
+        + f"; validation {out['samples_per_s']:.1f} samples/s "
+        f"({out['validate_s']:.3f} s; CLI call {c['wall_s']:.2f} s); "
+        f"{out['calibration'] or 'no calibration'}; decodes {d} (the "
+        f"port's decoder, its loader by scale_num), none through OpenCV; "
+        f"soft-argmax launches {c['softargmax_fwd']}; "
+        f"{format_shares(out['shares'])}")
 
 
 def phase_warp(res: dict) -> None:
@@ -4538,6 +4609,299 @@ def phase_processes(res: dict) -> None:
         f"tracker (pid {tracker}) stopped")
 
 
+# ------------------------------------------- the native loader (phase 28)
+# the frames timed: the three dataset sizes and the progressive twin of
+# the 2048 x 2048 frame
+NATIVE_FRAMES = JPEG_FRAMES + ("3dhp_studio_progressive_2048x2048.jpg",)
+NATIVE_SCALES, NATIVE_REPS = (8, 4, 3, 2, 1), 5
+# the loader alone on the 3DHP tree with its boxes grown x3 (a shrink
+# past 4: 2/8), batches timed
+NATIVE_BOX_GAIN, NATIVE_BOX_BATCHES = 3.0, 4
+# the SS dual crop: H36M frames (each the 1000 x 1000 fixture), 4 views,
+# two batches of 32 groups at each teacher scale, the loader timed over
+# NATIVE_SS_PASSES passes of them (the median's rate)
+NATIVE_SS_FRAMES, NATIVE_SS_SCALES = 2 * SS_GROUPS, (1.0, 0.5)
+NATIVE_SS_PASSES = 3
+
+
+def native_build(res: dict) -> dict:
+    """The port's native loader built on this host with no libjpeg:
+    ``jpeglib.h`` is not on the compiler's path, the source and flags
+    name no libjpeg, the library links none; the build is not allowed to
+    fail (the datasets would quietly take the pool route). Its seconds
+    are those of a fresh build of the same command (phase 19 built the
+    library in use)."""
+    import subprocess
+    import tempfile
+    from epipolarpose_tpu_torch.data import fastloader
+    probe = subprocess.run(["g++", "-x", "c++", "-fsyntax-only", "-"],
+                           input="#include <cstdio>\n#include <jpeglib.h>\n",
+                           text=True, capture_output=True)
+    check(fastloader.available(), f"native loader: {fastloader.build_error()}")
+    with tempfile.TemporaryDirectory(prefix="epk_loader_build_") as tmp:
+        t0 = time.perf_counter()
+        fresh = subprocess.run(fastloader._LIB.command(
+            "g++", pathlib.Path(tmp) / "libfastloader.so"),
+            capture_output=True, text=True)
+        build_s = time.perf_counter() - t0
+    check(fresh.returncode == 0, f"a fresh build failed: {fresh.stderr}")
+    lib = fastloader.library_path()
+    check(lib.is_relative_to(ROOT / "epipolarpose_tpu_torch"),
+          f"the loader was built at {lib}")
+    flags = " ".join(fastloader.CXX_FLAGS + fastloader.LD_FLAGS)
+    sources = fastloader.SOURCE.read_text() + "".join(
+        p.read_text() for p in fastloader._LIB.includes)
+    check("jpeg" not in flags and "jpeglib" not in sources,
+          f"the loader's build names libjpeg: {flags}")
+    ldd = subprocess.run(["ldd", str(lib)], capture_output=True,
+                         text=True).stdout
+    check("libjpeg" not in ldd, f"the loader links libjpeg: {ldd}")
+    return dict(build_s=build_s, jpeglib_h=probe.returncode == 0,
+                links=sorted(ln.split()[0] for ln in ldd.splitlines()
+                             if ln.strip()))
+
+
+def native_fixtures() -> dict:
+    """Every fixture at 8/8 and at each scale of its manifest entry
+    through the port's decoder against libjpeg-turbo's sha256, and the
+    3/8 ones through the loader's exact 3/8 crop as well."""
+    import hashlib
+
+    import numpy as np
+    from epipolarpose_tpu_torch.data import fastloader, jpeg
+    checked = 0
+    third = np.array([[[0.375, 0.0, -0.3125], [0.0, 0.375, -0.3125]]],
+                     np.float32)
+    for name, entry in jpeg_manifest().items():
+        buf = (JPEG_FIXTURES / name).read_bytes()
+        want = {"8": entry["rgb_sha256"], **entry["scaled_rgb_sha256"]}
+        for s, digest in want.items():
+            rgb = jpeg.decode(buf, int(s))
+            check(hashlib.sha256(rgb.tobytes()).hexdigest() == digest,
+                  f"{name} at {s}/8: the decode differs from "
+                  f"libjpeg-turbo's")
+            checked += 1
+            if s == "3":
+                crop = fastloader.decode_warp_batch(
+                    [buf], third, (rgb.shape[1], rgb.shape[0]))[0]
+                check(np.array_equal(crop, rgb),
+                      f"{name}: the loader's 3/8 crop is not the 3/8 decode")
+    return dict(files=len(jpeg_manifest()), hashes=checked)
+
+
+def native_frame_ms() -> dict:
+    """ms a decode (median of NATIVE_REPS after one) of each frame at each
+    scale, one thread."""
+    from epipolarpose_tpu_torch.data import jpeg
+    out = {}
+    for name in NATIVE_FRAMES:
+        buf = (JPEG_FIXTURES / name).read_bytes()
+        out[name] = {}
+        for s in NATIVE_SCALES:
+            jpeg.decode(buf, s)
+            times = []
+            for _ in range(NATIVE_REPS):
+                t = time.perf_counter()
+                jpeg.decode(buf, s)
+                times.append((time.perf_counter() - t) * 1e3)
+            out[name][s] = sorted(times)[len(times) // 2]
+    return out
+
+
+def native_valid(res: dict) -> dict:
+    """Phase 19's tree through the ``valid`` CLI with ``TPU.NATIVE_LOADER``
+    true, then false (the pool route), in this run; then the loader alone
+    on that tree with its boxes grown NATIVE_BOX_GAIN times."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.data import fastloader
+    src = "h36m/valid_3dhp_transfer.yaml"
+    cfg = load_config(ROOT / "experiments" / src)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="epk_native_"))
+    out = {}
+    try:
+        ds = make_3dhp_tree(tmp, cfg)
+        n = len(ds)
+        for key, native in (("native_valid", True), ("pool_valid", False)):
+            cfg_file = cli_yaml(tmp / f"{key}_3dhp.yaml", src,
+                                TPU={"NATIVE_LOADER": native})
+            r = out[key] = valid_3dhp(res, tmp, cfg_file, key,
+                                      res["cli_fs_final"])
+            d, c = r["decoded"], r["counts"]
+            want = (dict(jpeg=0, native_total=n) if native
+                    else dict(jpeg=n, native_total=0))
+            check(r["seen"] == n and d["jpeg"] == want["jpeg"]
+                  and sum(d["native"].values()) == want["native_total"]
+                  and not d["failed"] and r["calibration"] is None,
+                  f"{key}: {r['seen']} samples, decodes {d}, expected "
+                  f"{want}")
+            check(c["softargmax_fwd"] == n // EVAL_BATCH
+                  and c["softargmax_bwd"] == c["triangulate"] == 0,
+                  f"{key} launched {c}")
+        # the loader alone, larger boxes: a scaled decode
+        ds.cfg.TPU.NATIVE_LOADER = True
+        for rec in ds.records:
+            rec.scale = rec.scale * np.float32(NATIVE_BOX_GAIN)
+        idx = list(range(EVAL_BATCH))
+        ds.get_batch(idx)
+        fastloader.reset_counts()
+        t0 = time.perf_counter()
+        for b in range(NATIVE_BOX_BATCHES):
+            batch = ds.get_batch(list(range(b * EVAL_BATCH,
+                                            (b + 1) * EVAL_BATCH)))
+        dt = time.perf_counter() - t0
+        scales = fastloader.decode_counts()
+        check(batch["input"].shape == (EVAL_BATCH, 256, 256, 3)
+              and not scales["failed"]
+              and sum(scales["scale"].values()) == NATIVE_BOX_BATCHES
+              * EVAL_BATCH and 8 not in scales["scale"],
+              f"boxes x{NATIVE_BOX_GAIN}: decodes {scales}")
+        out["boxes_x3"] = dict(img_s=NATIVE_BOX_BATCHES * EVAL_BATCH / dt,
+                               scales=scales["scale"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def native_ss(res: dict) -> dict:
+    """A few SS steps of ``train_ss_r50_256_integral.yaml`` (a random
+    bf16 teacher, its confidence gate ``TPU.SS_CONF_MIN`` at 0 so that
+    its detections are trained on) fed by
+    ``H36MDataset._dual_batch_native`` through ``view_batches``, at each
+    teacher scale: loader img/s (student images counted), the steps'
+    launches and losses, every decode through the loader."""
+    import shutil
+    import tempfile
+
+    import epipolarpose_tpu_torch.data.h36m as h36m_mod
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.core import create_train_state
+    from epipolarpose_tpu_torch.core import self_supervised as tss
+    from epipolarpose_tpu_torch.core.steps import configure_backends
+    from epipolarpose_tpu_torch.data.synthetic import write_synthetic_h36m
+    from epipolarpose_tpu_torch.models import get_model
+    from epipolarpose_tpu_torch.tools.dualcrop_headroom import _to_device
+    cfg = load_config(ROOT / "experiments/h36m/train_ss_r50_256_integral.yaml")
+    check(int(cfg.TRAIN.BATCH_SIZE) == SS_GROUPS, "unexpected SS config")
+    configure_backends(cfg)
+    cfg.DATASET.SUBSAMPLE = 1
+    cfg.TPU.NATIVE_LOADER = True
+    cfg.MODEL.PRETRAINED = ""              # a random teacher
+    cfg.TPU.SS_CONF_MIN = 0.0
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="epk_native_ss_"))
+    orig = h36m_mod.CAMERA_IDS
+    out = {}
+    try:
+        write_synthetic_h36m(str(tmp), cfg, num_frames=NATIVE_SS_FRAMES,
+                             jpeg=(JPEG_FIXTURES / JPEG_FRAMES[2]).read_bytes())
+        h36m_mod.CAMERA_IDS = ("0", "1", "2", "3")
+        ds = h36m_mod.H36MDataset(cfg, str(tmp), "train", is_train=True)
+        gen = torch.Generator().manual_seed(71)
+        model = get_model(cfg, True, gen)
+        teacher = tss.load_teacher(cfg, "cuda", gen)
+        state = create_train_state(cfg, model, steps_per_epoch=100,
+                                   device=torch.device("cuda"))
+        for scale in NATIVE_SS_SCALES:
+            cfg.TPU.SS_TEACHER_SCALE = scale
+            step = tss.make_ss_train_step(cfg, state.model, teacher,
+                                          device=torch.device("cuda"),
+                                          flip_pairs=ds.flip_pairs)
+            reset_decodes()
+            passes = []
+            for _ in range(NATIVE_SS_PASSES):
+                t0 = time.perf_counter()
+                batches = list(ds.view_batches(SS_GROUPS, seed=3,
+                                               augment=True))
+                passes.append(time.perf_counter() - t0)
+            load_s = sorted(passes)[len(passes) // 2]
+            d = decodes_by_library()
+            views = len(h36m_mod.CAMERA_IDS)
+            check(len(batches) == NATIVE_SS_FRAMES // SS_GROUPS
+                  and d["jpeg"] == 0 and not d["failed"]
+                  and d["total"] == NATIVE_SS_PASSES * NATIVE_SS_FRAMES
+                  * views, f"teacher scale {scale}: {len(batches)} "
+                  f"batches, decodes {d}")
+            side = int(cfg.MODEL.IMAGE_SIZE[0] * scale)
+            check(batches[0]["input"].shape[-3:-1] == (side, side)
+                  and batches[0]["input_aug"].shape[-3:-1] == (256, 256),
+                  f"crops {batches[0]['input'].shape}, "
+                  f"{batches[0]['input_aug'].shape}")
+            key = f"native_ss_{scale}"
+            reset_counts()
+            losses = []
+            for b in batches:
+                b.pop("joints_3d", None)
+                state, m = step(state, _to_device(b, torch.device("cuda")))
+                losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            c = res["paths"][key] = launch_counts()
+            steps = len(batches)
+            check(c["softargmax_fwd"] == c["softargmax_bwd"]
+                  == c["triangulate"] == c["teacher_decode"] == steps
+                  and c["matmul_stats"] == 0,
+                  f"{key}: {steps} steps launched {c}")
+            check(all(math.isfinite(v) and v > 0 for v in losses),
+                  f"losses {losses}")
+            out[scale] = dict(img_s=steps * SS_GROUPS * views / load_s,
+                              scales=d["native"], losses=losses,
+                              launches=dict(c))
+    finally:
+        h36m_mod.CAMERA_IDS = orig
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_native_loader(res: dict) -> None:
+    """The port's native loader on the card's host (module docstring,
+    phase 28)."""
+    import os
+    build = native_build(res)
+    fixtures = native_fixtures()
+    ms = native_frame_ms()
+    valid = native_valid(res)
+    ss = native_ss(res)
+    loaded = [m for m in IMAGE_LIBS if m in sys.modules]
+    check(not loaded, f"the native loader's paths imported {loaded}")
+    left = wait_for_no_processes(set(), seconds=5.0)
+    check(not left, f"processes still running: {left}")
+    nv, pv = valid["native_valid"], valid["pool_valid"]
+    res["native_loader"] = dict(build=build, fixtures=fixtures, ms=ms,
+                                valid={k: {f: v[f] for f in (
+                                    "samples_per_s", "validate_s", "perf",
+                                    "decoded", "shares")} for k, v in
+                                    (("native", nv), ("pool", pv))},
+                                boxes_x3=valid["boxes_x3"], ss=ss)
+    log(f"[native_loader] built in {build['build_s']:.2f} s with no "
+        f"libjpeg (jpeglib.h {'found' if build['jpeglib_h'] else 'absent'} "
+        f"on this host; links {', '.join(build['links'])}); "
+        f"{fixtures['hashes']} hashes of {fixtures['files']} fixtures met "
+        f"at 8/8 and their scales; ms a decode, one thread, at "
+        f"{'/'.join(map(str, NATIVE_SCALES))} eighths: " + "; ".join(
+            f"{k} " + " / ".join(f"{v[s]:.2f}" for s in NATIVE_SCALES)
+            for k, v in ms.items())
+        + f" ({os.cpu_count()} CPUs)")
+    for key, r in (("native", nv), ("pool", pv)):
+        log(f"[native_loader] 3DHP valid, TPU.NATIVE_LOADER "
+            f"{key == 'native'}: {r['samples_per_s']:.1f} samples/s "
+            f"({r['validate_s']:.3f} s), PCK3D@150 {r['perf']:.3f}; decodes "
+            f"{r['decoded']}; the decode (host upstream_wait_s) "
+            f"{r['shares']['host']['upstream_wait_s']:.1%} of the "
+            f"validation; {format_shares(r['shares'])}")
+    log(f"[native_loader] the loader alone, boxes x{NATIVE_BOX_GAIN}: "
+        f"{valid['boxes_x3']['img_s']:.1f} img/s, scale_num histogram "
+        f"{valid['boxes_x3']['scales']}")
+    for scale, r in ss.items():
+        log(f"[native_loader] SS dual crop at teacher scale {scale} from "
+            f"the 1000 x 1000 frame: loader {r['img_s']:.1f} img/s (student "
+            f"images), scale_num histogram {r['scales']}; "
+            f"{len(r['losses'])} SS steps, losses " + ", ".join(
+                f"{v:.4f}" for v in r["losses"]) + f"; launches "
+            f"{r['launches']}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4562,7 +4926,8 @@ def main() -> int:
               ("warp", phase_warp), ("remat", phase_remat),
               ("ddp", phase_ddp), ("fused", phase_fused),
               ("export", phase_export), ("user_tools", phase_user_tools),
-              ("spatial", phase_spatial), ("processes", phase_processes)]
+              ("spatial", phase_spatial), ("processes", phase_processes),
+              ("native_loader", phase_native_loader)]
     failed = []
     for i, (name, fn) in enumerate(phases, 1):
         if failed and failed[0] == "build":
@@ -4695,6 +5060,14 @@ def main() -> int:
         f"valid {hp['samples_per_s']:.1f} samples/s, PCK3D@150 "
         f"{hp['perf']:.3f}; warp ms " + ", ".join(
             f"{k} {v:.3f}" for k, v in wp["ms"].items()))
+    nl = res["native_loader"]
+    log(f"native loader (no libjpeg): 3DHP valid "
+        f"{nl['valid']['native']['samples_per_s']:.1f} samples/s against "
+        f"the pool route's {nl['valid']['pool']['samples_per_s']:.1f}; the "
+        f"loader alone at boxes x{NATIVE_BOX_GAIN} "
+        f"{nl['boxes_x3']['img_s']:.1f} img/s; SS dual crop loader img/s "
+        + " / ".join(f"{nl['ss'][s]['img_s']:.1f}" for s in NATIVE_SS_SCALES)
+        + " at teacher scale " + " / ".join(map(str, NATIVE_SS_SCALES)))
     rm, dp = res["remat"], res["ddp"]
     log(f"r152@384 batch {R152_BATCH} bf16: ms a step {rm['False']['ms']:.2f}"
         f" / {rm['True']['ms']:.2f} with REMAT, peak GB "

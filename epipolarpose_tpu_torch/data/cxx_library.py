@@ -2,7 +2,8 @@
 with ctypes: the native loader's and the JPEG decoder's common part.
 
 The library goes into ``epipolarpose_tpu_torch/_build/<name>-<key>/``,
-where ``key`` hashes the source, the flags and ``g++ --version``: a
+where ``key`` hashes the source, the files it includes, the flags and
+``g++ --version``: a
 changed source builds anew, an unchanged one loads at once. The build
 writes a temporary file and renames it into place, so concurrent builds
 need no lock and no reader sees a half-written library. A failed build is
@@ -24,12 +25,14 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
 
 
 class CxxLibrary:
-    """One source, its flags and its exported C functions (name ->
-    (result type, argument types))."""
+    """One source, the files it includes, its flags and its exported C
+    functions (name -> (result type, argument types))."""
 
     def __init__(self, name: str, source: pathlib.Path, cxx_flags: tuple,
-                 ld_flags: tuple, signatures: dict, what: str):
+                 ld_flags: tuple, signatures: dict, what: str,
+                 includes: tuple = ()):
         self.name, self.source, self.what = name, source, what
+        self.includes = includes
         self.cxx_flags, self.ld_flags = cxx_flags, ld_flags
         self.signatures = signatures
         self._lock = threading.Lock()
@@ -37,12 +40,13 @@ class CxxLibrary:
         self._error: str | None = None
 
     def build_key(self, cxx_version: str) -> str:
-        """Content hash of the source, the flags and the compiler
-        version."""
+        """Content hash of the source, its includes, the flags and the
+        compiler version."""
         h = hashlib.sha256()
         h.update(cxx_version.encode())
         h.update(" ".join(self.cxx_flags + self.ld_flags).encode())
-        h.update(self.source.read_bytes())
+        for path in (self.source, *self.includes):
+            h.update(path.read_bytes())
         return h.hexdigest()[:24]
 
     def build(self) -> pathlib.Path:
@@ -59,8 +63,7 @@ class CxxLibrary:
             return lib
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f".{lib.name}.{os.getpid()}.{uuid.uuid4().hex}.tmp"
-        cmd = [cxx, *self.cxx_flags, str(self.source), *self.ld_flags, "-o",
-               str(tmp)]
+        cmd = self.command(cxx, tmp)
         try:
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
@@ -73,6 +76,11 @@ class CxxLibrary:
         finally:
             tmp.unlink(missing_ok=True)
         return lib
+
+    def command(self, cxx: str, out: pathlib.Path) -> list:
+        """The compiler call that builds the library into ``out``."""
+        return [cxx, *self.cxx_flags, str(self.source), *self.ld_flags, "-o",
+                str(out)]
 
     def load(self) -> ctypes.CDLL:
         """The loaded library (built on first use); RuntimeError when it

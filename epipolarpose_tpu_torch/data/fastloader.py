@@ -1,14 +1,21 @@
-"""ctypes binding for the native batch loader (``native/fastloader.cpp``).
+"""ctypes binding for the port's native batch loader
+(``epipolarpose_tpu_torch/native/fastloader.cpp``).
 
 The port's counterpart of the JAX package's ``data/fastloader.py``, with
-the same functions and C signatures. It builds its own copy of the
-library from ``native/fastloader.cpp`` with one ``g++`` call into
+the same functions, C signatures and crops, but no libjpeg: each frame is
+decoded by the port's own decoder (``native/jpegdec.cpp``, which the
+loader's source includes), at libjpeg's DCT scale ``scale_num``/8 when the
+crop shrinks the frame 2x or more, as the JAX loader decodes it. One
+``g++`` call builds it into
 ``epipolarpose_tpu_torch/_build/fastloader-<key>/`` (``data/cxx_library.py``;
-``key`` hashes the source, the flags and ``g++ --version``) and never
-writes into ``native/``. The flags name no ``-march``: the library may be built on
-one host and run on another. Without a compiler or ``jpeglib.h`` the build
-fails, :func:`available` is false and :func:`build_error` says why;
-callers then take the numpy route.
+``key`` hashes both sources, the flags and ``g++ --version``). The flags
+name no ``-march``, so the library may be built on one host and run on
+another, and no library but OpenMP's. Without a compiler the build fails,
+:func:`available` is false and :func:`build_error` says why; callers then
+take the numpy route.
+
+:func:`decode_counts` reads the library's counts of decodes by scale and
+of failures since :func:`reset_counts`.
 """
 
 from __future__ import annotations
@@ -18,12 +25,13 @@ import pathlib
 
 import numpy as np
 
+from epipolarpose_tpu_torch.data import jpeg
 from epipolarpose_tpu_torch.data.cxx_library import CxxLibrary
 
 PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = PKG_DIR.parent / "native" / "fastloader.cpp"
-CXX_FLAGS = ("-O3", "-fPIC", "-fopenmp", "-shared", "-Wall")
-LD_FLAGS = ("-ljpeg",)
+SOURCE = PKG_DIR / "native" / "fastloader.cpp"
+CXX_FLAGS = ("-O3", "-fPIC", "-fopenmp", "-shared", "-std=c++17", "-Wall")
+LD_FLAGS = ()
 
 _pv = ctypes.POINTER(ctypes.c_void_p)
 _ps = ctypes.POINTER(ctypes.c_size_t)
@@ -41,9 +49,11 @@ SIGNATURES = {
                                    _pu8)),
     "decode_warp2_sized_batch_u8": (_i, (_pv, _ps, _i, _pf, _pf, _i, _i, _i,
                                          _i, _pu8, _pu8)),
+    "epk_loader_counts": (None, (ctypes.POINTER(ctypes.c_int64),)),
+    "epk_loader_reset_counts": (None, ()),
 }
 _LIB = CxxLibrary("fastloader", SOURCE, CXX_FLAGS, LD_FLAGS, SIGNATURES,
-                  "native loader")
+                  "native loader", includes=(jpeg.SOURCE,))
 _load = _LIB.load
 
 
@@ -61,6 +71,23 @@ def build_error() -> str | None:
 def library_path() -> pathlib.Path | None:
     """Path of the loaded library, None when it is not loaded."""
     return _LIB.library_path()
+
+
+def decode_counts() -> dict:
+    """The library's decodes since :func:`reset_counts`: ``{"scale":
+    {scale_num: n}, "failed": n}``, scales with no decode left out; zeros
+    when the library is not loaded."""
+    counts = (ctypes.c_int64 * 9)()
+    if _LIB.library_path() is not None:
+        _load().epk_loader_counts(counts)
+    return {"scale": {s: int(counts[s]) for s in range(1, 9) if counts[s]},
+            "failed": int(counts[0])}
+
+
+def reset_counts() -> None:
+    """Set the library's counts of decodes and failures to 0."""
+    if _LIB.library_path() is not None:
+        _load().epk_loader_reset_counts()
 
 
 def _jpeg_ptrs(jpeg_buffers: list[bytes]):
@@ -143,44 +170,3 @@ def warp_batch(images_u8: np.ndarray, Ms: np.ndarray,
                       Ms.ctypes.data_as(_pf), W, H, out.ctypes.data_as(_pf),
                       ctypes.c_float(scale))
     return out
-
-
-def jpeg_size(buf: bytes) -> tuple[int, int]:
-    """(width, height) from a JPEG's frame header."""
-    if buf[:2] != b"\xff\xd8":
-        raise ValueError("not a JPEG")
-    i = 2
-    while i + 4 <= len(buf):
-        if buf[i] != 0xFF:
-            raise ValueError("malformed JPEG marker")
-        marker = buf[i + 1]
-        if marker == 0xFF:                      # fill byte
-            i += 1
-            continue
-        if marker in (0x01, *range(0xD0, 0xD9)):  # markers with no length
-            i += 2
-            continue
-        length = int.from_bytes(buf[i + 2:i + 4], "big")
-        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            if i + 9 > len(buf):
-                break
-            return (int.from_bytes(buf[i + 7:i + 9], "big"),
-                    int.from_bytes(buf[i + 5:i + 7], "big"))
-        i += 2 + length
-    raise ValueError("JPEG has no frame header")
-
-
-def decode(buf: bytes) -> np.ndarray:
-    """One JPEG -> (H, W, 3) uint8 RGB (an identity warp of the full
-    decode, which copies every pixel as decoded)."""
-    w, h = jpeg_size(buf)
-    eye = np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], np.float32)
-    lib = _load()
-    out = np.empty((1, h, w, 3), np.uint8)
-    ptrs, sizes = _jpeg_ptrs([buf])
-    failed = lib.decode_warp_batch_u8(ptrs, sizes, 1,
-                                      eye.ctypes.data_as(_pf), w, h,
-                                      out.ctypes.data_as(_pu8))
-    if failed:
-        raise IOError("JPEG decode failed")
-    return out[0]

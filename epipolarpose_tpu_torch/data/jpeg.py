@@ -1,11 +1,14 @@
-"""The port's baseline JPEG decoder (``native/jpegdec.cpp``) via ctypes.
+"""The port's JPEG decoder (``native/jpegdec.cpp``) via ctypes.
 
 It needs neither libjpeg nor OpenCV, only ``g++``: the card's machine has
 neither ``jpeglib.h`` nor OpenCV. Its RGB output equals libjpeg-turbo's
-default decode bit for bit (what ``cv2.imdecode`` and the native loader
-give). It refuses progressive, lossless, hierarchical and arithmetic-coded
-files, 12-bit samples and CMYK/YCCK with :class:`UnsupportedJpeg`, which
-names the mode; truncated or corrupt data raises ``IOError``.
+default decode bit for bit (what ``cv2.imdecode`` and the JAX package's
+native loader give), baseline and progressive, at full size and at
+libjpeg's DCT-scaled sizes ``scale_num``/8. It refuses lossless,
+hierarchical and arithmetic-coded files, 12-bit samples, CMYK/YCCK,
+progressive files that libjpeg would block-smooth and scales whose IDCT
+sizes it lacks with :class:`UnsupportedJpeg`, which names the mode;
+truncated or corrupt data raises ``IOError``.
 
 The library is built as the native loader's is (``data/cxx_library.py``):
 one ``g++`` call, no ``-march`` and no ``-ljpeg``, into
@@ -32,9 +35,9 @@ ERR_LEN = 256
 _i = ctypes.c_int
 _pi = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
-    "epk_jpeg_info": (_i, (ctypes.c_char_p, ctypes.c_size_t, _pi, _pi, _pi,
-                           ctypes.c_char_p, _i)),
-    "epk_jpeg_decode_rgb": (_i, (ctypes.c_char_p, ctypes.c_size_t,
+    "epk_jpeg_info": (_i, (ctypes.c_char_p, ctypes.c_size_t, _i, _pi, _pi,
+                           _pi, ctypes.c_char_p, _i)),
+    "epk_jpeg_decode_rgb": (_i, (ctypes.c_char_p, ctypes.c_size_t, _i,
                                  ctypes.c_void_p, _i, _i, ctypes.c_char_p,
                                  _i)),
 }
@@ -88,29 +91,32 @@ def _raise(status: int, err: ctypes.Array) -> None:
     raise IOError(f"JPEG decode failed: {msg}")
 
 
-def jpeg_info(buf: bytes) -> tuple[int, int, int]:
-    """(width, height, components) from a JPEG's headers; raises like
-    :func:`decode`."""
+def jpeg_info(buf: bytes, scale_num: int = 8) -> tuple[int, int, int]:
+    """(width, height, components) from a JPEG's headers, the size being
+    the output's at ``scale_num``/8; raises like :func:`decode`."""
     lib = _LIB.load()
     w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     err = ctypes.create_string_buffer(ERR_LEN)
-    status = lib.epk_jpeg_info(buf, len(buf), ctypes.byref(w),
+    status = lib.epk_jpeg_info(buf, len(buf), scale_num, ctypes.byref(w),
                                ctypes.byref(h), ctypes.byref(c), err, ERR_LEN)
     if status:
         _raise(status, err)
     return w.value, h.value, c.value
 
 
-def decode(buf: bytes) -> np.ndarray:
-    """One JPEG -> (H, W, 3) uint8 RGB; grayscale is replicated into three
+def decode(buf: bytes, scale_num: int = 8) -> np.ndarray:
+    """One JPEG -> (H, W, 3) uint8 RGB at libjpeg's DCT scale
+    ``scale_num``/8 (8: full size; the size is ``ceil(W * scale_num / 8)``
+    by ``ceil(H * scale_num / 8)``); grayscale is replicated into three
     channels. Raises :class:`UnsupportedJpeg` for a mode it refuses and
     ``IOError`` for truncated or corrupt data."""
     global _count
-    w, h, _ = jpeg_info(buf)
+    w, h, _ = jpeg_info(buf, scale_num)
     out = np.empty((h, w, 3), np.uint8)
     err = ctypes.create_string_buffer(ERR_LEN)
-    status = _LIB.load().epk_jpeg_decode_rgb(buf, len(buf), out.ctypes.data,
-                                             w, h, err, ERR_LEN)
+    status = _LIB.load().epk_jpeg_decode_rgb(buf, len(buf), scale_num,
+                                             out.ctypes.data, w, h, err,
+                                             ERR_LEN)
     if status:
         _raise(status, err)
     with _count_lock:

@@ -2,12 +2,12 @@
 
 The port's copy of the JAX package's ``data/zipreader.py``: H36M images
 ship as per-subject zips, read through a per-process handle cache.
-:func:`imread` decodes a JPEG with the native loader (libjpeg) where it is
-built, else with the port's own decoder (``data/jpeg.py``), which needs
-neither libjpeg nor OpenCV; both give libjpeg-turbo's bits. OpenCV,
-imported only then, reads what is not a JPEG and the JPEG modes the
-port's decoder refuses (progressive, arithmetic, ...). A JPEG that the
-decoder accepts never reaches OpenCV.
+:func:`imread` decodes every JPEG with the port's own decoder
+(``data/jpeg.py``, the one the native loader includes), which needs
+neither libjpeg nor OpenCV and gives libjpeg-turbo's bits, baseline and
+progressive. OpenCV, imported only then, reads what is not a JPEG and the
+JPEG modes the decoder refuses (arithmetic coding, 12-bit, CMYK, ...). A
+JPEG that the decoder accepts never reaches OpenCV.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import zipfile
 
 import numpy as np
 
-from epipolarpose_tpu_torch.data import fastloader, jpeg
+from epipolarpose_tpu_torch.data import jpeg
 
 _cache: dict[str, zipfile.ZipFile] = {}
 _lock = threading.Lock()
@@ -71,14 +71,10 @@ def imread(path: str, rgb: bool = False) -> np.ndarray:
     if path.endswith(JPEG_SUFFIXES):
         img = None
         try:
-            if fastloader.available():
-                img = fastloader.decode(buf)
-            elif jpeg.available():
+            if jpeg.available():
                 img = jpeg.decode(buf)
             else:
-                why = (f"the native loader ({fastloader.build_error()}) and "
-                       f"the port's decoder ({jpeg.build_error()}) are not "
-                       "built")
+                why = f"the port's decoder is not built ({jpeg.build_error()})"
         except jpeg.UnsupportedJpeg as e:
             why = f"the port's JPEG decoder refuses its mode, {e.mode}"
         except (ValueError, IOError) as e:

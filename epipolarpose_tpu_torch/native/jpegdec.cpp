@@ -1,29 +1,43 @@
-// jpegdec: a baseline JPEG decoder in standard C++17, no libjpeg.
+// jpegdec: a JPEG decoder in standard C++17, no libjpeg.
 //
 // Its RGB output equals libjpeg-turbo's default decode bit for bit (what
-// OpenCV's imdecode and the native loader's libjpeg give): the same
-// Huffman decode, the integer IDCT of jidctint.c (jpeg_idct_islow) with
-// its range-limit table, the "fancy" triangle upsampling of jdsample.c
-// (h2v1, h2v2, h1v2; plain replication for other factors and for
-// components two samples wide or less), the fixed-point YCbCr -> RGB of
-// jdcolor.c, and libjpeg's colour-space guess (JFIF, Adobe APP14, the
-// component ids). Grayscale is replicated into three channels.
+// OpenCV's imdecode and the JAX package's native loader give), at full
+// size and at libjpeg's DCT-scaled sizes num/8: the same Huffman decode,
+// sequential and progressive; the integer IDCTs with their range-limit
+// table (jidctint.c jpeg_idct_islow at 8x8 and its 3x3 and 6x6 kernels,
+// jidctred.c's reduced 4x4, 2x2 and 1x1, which drop the highest
+// coefficient rows); jdmaster.c's choice of IDCT size per component
+// (chroma scaled up by IDCT where that makes upsampling 1:1); the "fancy"
+// triangle upsampling of jdsample.c (h2v1, h2v2, h1v2; plain replication
+// for other factors, for components two samples wide or less, and at
+// scale 1/8); the fixed-point YCbCr -> RGB of jdcolor.c, and libjpeg's
+// colour-space guess (JFIF, Adobe APP14, the component ids). Grayscale is
+// replicated into three channels.
 //
-// Supported: SOF0 and SOF1 at 8-bit precision with 1 or 3 components,
-// interleaved and non-interleaved scans, any integral sampling factors,
-// DQT with 8- or 16-bit entries, DRI with RST0-7. Refused with a status
-// that names the mode: progressive, lossless, hierarchical, arithmetic
-// coding, 12-bit samples, CMYK/YCCK and other component counts. Truncated
-// or corrupt data is an error: every read is bounds-checked, a scan that
-// runs past its data fails, and images over 2^28 pixels are refused
-// before any allocation. EXIF orientation is not applied (libjpeg does
-// not apply it either).
+// Supported: SOF0, SOF1 and SOF2 (progressive, Huffman-coded) at 8-bit
+// precision with 1 or 3 components, interleaved and non-interleaved
+// scans, any integral sampling factors, DQT with 8- or 16-bit entries,
+// DRI with RST0-7, output scales num/8 whose IDCT sizes are among 1, 2, 3,
+// 4, 6 and 8 (every num of 1-4 and 8 for the common samplings). Refused
+// with a status that names the mode: lossless, hierarchical, arithmetic
+// coding, 12-bit samples, CMYK/YCCK and other component counts, other IDCT
+// sizes, and progressive files that end with some of AC coefficients 1-9
+// unfinished (libjpeg smooths those blocks, jdcoefct.c; this decoder does
+// not). Truncated or corrupt data is an error: every read is
+// bounds-checked, a scan that runs past its data fails, a scan with bad
+// progression parameters fails, and images over 2^28 pixels (or whose
+// padded sample planes exceed 3 * 2^28 samples) are refused before any
+// allocation. EXIF orientation is not applied (libjpeg does not apply it
+// either).
 //
 // C interface (status 0 ok, 1 corrupt or truncated, 2 unsupported mode,
-// 3 bad arguments; ``err`` receives the message):
-//   int epk_jpeg_info(buf, n, &w, &h, &comps, err, errlen)
-//   int epk_jpeg_decode_rgb(buf, n, out, w, h, err, errlen)
-// Thread-safe: no mutable global state, so callers may decode in parallel.
+// 3 bad arguments; ``err`` receives the message; ``scale_num`` in 1..8
+// selects the output scale scale_num/8, 8 the full size):
+//   int epk_jpeg_info(buf, n, scale_num, &w, &h, &comps, err, errlen)
+//   int epk_jpeg_decode_rgb(buf, n, scale_num, out, w, h, err, errlen)
+// where w, h are the output size, ceil(W * scale_num / 8) and likewise
+// for H. Thread-safe: no mutable global state, so callers may decode in
+// parallel. C++ callers that include this file may use epk::decode_rgb.
 
 #include <algorithm>
 #include <cstdint>
@@ -50,12 +64,15 @@ struct Failure {
 
 constexpr int64_t kMaxPixels = int64_t(1) << 28;
 
-// zig-zag index -> natural (row-major) index of an 8x8 block
-constexpr int kNatural[64] = {
+// zig-zag index -> natural (row-major) index of an 8x8 block, with
+// libjpeg's 16 extra entries (jutils.c jpeg_natural_order) that send a
+// run past the band's end to coefficient 63
+constexpr int kNatural[80] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
 // ------------------------------------------------------------------ tables
 // jdmaster.c prepare_range_limit_table, post-IDCT part: indexed by the
@@ -114,30 +131,69 @@ void ycc_rgb_row(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
 }
 
 // ------------------------------------------------------------------- IDCT
-// jidctint.c jpeg_idct_islow, transcribed: CONST_BITS 13, PASS1_BITS 2,
-// 64-bit JLONG products, the quantizer as a 16-bit multiplier (libjpeg-
-// turbo's ISLOW_MULT_TYPE), and both zero shortcuts.
+// The quantizer is a 16-bit multiplier (libjpeg-turbo's ISLOW_MULT_TYPE),
+// products and sums are 64-bit (JLONG), and the zero shortcuts are
+// libjpeg's: each kernel gives its bits exactly.
 constexpr int kConstBits = 13;
 constexpr int kPass1Bits = 2;
+constexpr int64_t F0_211164243 = 1730;
 constexpr int64_t F0_298631336 = 2446;
 constexpr int64_t F0_390180644 = 3196;
+constexpr int64_t F0_509795579 = 4176;
 constexpr int64_t F0_541196100 = 4433;
+constexpr int64_t F0_601344887 = 4926;
+constexpr int64_t F0_720959822 = 5906;
 constexpr int64_t F0_765366865 = 6270;
+constexpr int64_t F0_850430095 = 6967;
 constexpr int64_t F0_899976223 = 7373;
+constexpr int64_t F1_061594337 = 8697;
 constexpr int64_t F1_175875602 = 9633;
+constexpr int64_t F1_272758580 = 10426;
+constexpr int64_t F1_451774981 = 11893;
 constexpr int64_t F1_501321110 = 12299;
 constexpr int64_t F1_847759065 = 15137;
 constexpr int64_t F1_961570560 = 16069;
 constexpr int64_t F2_053119869 = 16819;
+constexpr int64_t F2_172734803 = 17799;
 constexpr int64_t F2_562915447 = 20995;
 constexpr int64_t F3_072711026 = 25172;
+constexpr int64_t F3_624509785 = 29692;
+// jidctint.c's FIX(x) for the 3- and 6-point kernels
+constexpr int64_t F0_366025404 = 2998;
+constexpr int64_t F0_707106781 = 5793;
+constexpr int64_t F1_224744871 = 10033;
 
 inline int64_t descale(int64_t x, int n) {
     return (x + (int64_t(1) << (n - 1))) >> n;
 }
 
-void idct_islow(const int16_t* coef, const int16_t* quant, uint8_t* out,
-                int stride) {
+// LEFT_SHIFT: a shift of the two's-complement bits, as libjpeg's macro
+inline int64_t lshift(int64_t x, int n) {
+    return static_cast<int64_t>(static_cast<uint64_t>(x) << n);
+}
+
+inline int64_t dq(const int16_t* in, const int16_t* q, int i) {
+    return int64_t(in[i]) * q[i];
+}
+
+inline uint8_t limit_at(const uint8_t* limit, int64_t v) {
+    return limit[static_cast<int>(v) & 1023];
+}
+
+// the DC-only column of pass 1: DEQUANTIZE(dc) << PASS1_BITS, in int
+inline int dc_pass1(const int16_t* in, const int16_t* q) {
+    return static_cast<int>(
+        static_cast<uint32_t>(int(in[0]) * int(q[0])) << kPass1Bits);
+}
+
+// An IDCT of one block (coefficients and quantizer in natural order) into
+// ``size`` rows of ``size`` samples at ``out``, rows ``stride`` apart.
+using Idct = void (*)(const int16_t* coef, const int16_t* quant,
+                      uint8_t* out, int stride);
+
+// jidctint.c jpeg_idct_islow
+void idct_8x8(const int16_t* coef, const int16_t* quant, uint8_t* out,
+              int stride) {
     const uint8_t* limit = idct_limit().t;
     int ws[64];
     for (int c = 0; c < 8; ++c) {
@@ -146,27 +202,26 @@ void idct_islow(const int16_t* coef, const int16_t* quant, uint8_t* out,
         int* w = ws + c;
         if (in[8] == 0 && in[16] == 0 && in[24] == 0 && in[32] == 0 &&
             in[40] == 0 && in[48] == 0 && in[56] == 0) {
-            const int dc = static_cast<int>(
-                static_cast<uint32_t>(int(in[0]) * int(q[0])) << kPass1Bits);
+            const int dc = dc_pass1(in, q);
             for (int r = 0; r < 8; ++r) w[r * 8] = dc;
             continue;
         }
-        int64_t z2 = int64_t(in[16]) * q[16];
-        int64_t z3 = int64_t(in[48]) * q[48];
+        int64_t z2 = dq(in, q, 16);
+        int64_t z3 = dq(in, q, 48);
         int64_t z1 = (z2 + z3) * F0_541196100;
         int64_t tmp2 = z1 + z3 * (-F1_847759065);
         int64_t tmp3 = z1 + z2 * F0_765366865;
-        z2 = int64_t(in[0]) * q[0];
-        z3 = int64_t(in[32]) * q[32];
+        z2 = dq(in, q, 0);
+        z3 = dq(in, q, 32);
         int64_t tmp0 = (z2 + z3) * (int64_t(1) << kConstBits);
         int64_t tmp1 = (z2 - z3) * (int64_t(1) << kConstBits);
         const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
         const int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
 
-        tmp0 = int64_t(in[56]) * q[56];
-        tmp1 = int64_t(in[40]) * q[40];
-        tmp2 = int64_t(in[24]) * q[24];
-        tmp3 = int64_t(in[8]) * q[8];
+        tmp0 = dq(in, q, 56);
+        tmp1 = dq(in, q, 40);
+        tmp2 = dq(in, q, 24);
+        tmp3 = dq(in, q, 8);
         z1 = tmp0 + tmp3;
         z2 = tmp1 + tmp2;
         z3 = tmp0 + tmp2;
@@ -202,9 +257,8 @@ void idct_islow(const int16_t* coef, const int16_t* quant, uint8_t* out,
         uint8_t* o = out + static_cast<size_t>(r) * stride;
         if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[4] == 0 && w[5] == 0 &&
             w[6] == 0 && w[7] == 0) {
-            const uint8_t v =
-                limit[static_cast<int>(descale(w[0], kPass1Bits + 3)) & 1023];
-            std::memset(o, v, 8);
+            std::memset(o, limit_at(limit, descale(w[0], kPass1Bits + 3)),
+                        8);
             continue;
         }
         int64_t z2 = w[2], z3 = w[6];
@@ -241,14 +295,237 @@ void idct_islow(const int16_t* coef, const int16_t* quant, uint8_t* out,
         tmp3 += z1 + z4;
 
         constexpr int s = kConstBits + kPass1Bits + 3;
-        o[0] = limit[static_cast<int>(descale(tmp10 + tmp3, s)) & 1023];
-        o[7] = limit[static_cast<int>(descale(tmp10 - tmp3, s)) & 1023];
-        o[1] = limit[static_cast<int>(descale(tmp11 + tmp2, s)) & 1023];
-        o[6] = limit[static_cast<int>(descale(tmp11 - tmp2, s)) & 1023];
-        o[2] = limit[static_cast<int>(descale(tmp12 + tmp1, s)) & 1023];
-        o[5] = limit[static_cast<int>(descale(tmp12 - tmp1, s)) & 1023];
-        o[3] = limit[static_cast<int>(descale(tmp13 + tmp0, s)) & 1023];
-        o[4] = limit[static_cast<int>(descale(tmp13 - tmp0, s)) & 1023];
+        o[0] = limit_at(limit, descale(tmp10 + tmp3, s));
+        o[7] = limit_at(limit, descale(tmp10 - tmp3, s));
+        o[1] = limit_at(limit, descale(tmp11 + tmp2, s));
+        o[6] = limit_at(limit, descale(tmp11 - tmp2, s));
+        o[2] = limit_at(limit, descale(tmp12 + tmp1, s));
+        o[5] = limit_at(limit, descale(tmp12 - tmp1, s));
+        o[3] = limit_at(limit, descale(tmp13 + tmp0, s));
+        o[4] = limit_at(limit, descale(tmp13 - tmp0, s));
+    }
+}
+
+// jidctint.c jpeg_idct_6x6: cK is sqrt(2) cos(K pi / 12)
+void idct_6x6(const int16_t* coef, const int16_t* quant, uint8_t* out,
+              int stride) {
+    const uint8_t* limit = idct_limit().t;
+    int ws[36];
+    for (int c = 0; c < 6; ++c) {
+        const int16_t* in = coef + c;
+        const int16_t* q = quant + c;
+        int64_t tmp0 = lshift(dq(in, q, 0), kConstBits);
+        tmp0 += int64_t(1) << (kConstBits - kPass1Bits - 1);
+        int64_t tmp10 = dq(in, q, 32) * F0_707106781;            // c4
+        int64_t tmp1 = tmp0 + tmp10;
+        const int64_t tmp11 =
+            (tmp0 - tmp10 - tmp10) >> (kConstBits - kPass1Bits);
+        tmp0 = dq(in, q, 16) * F1_224744871;                     // c2
+        tmp10 = tmp1 + tmp0;
+        const int64_t tmp12 = tmp1 - tmp0;
+
+        const int64_t z1 = dq(in, q, 8), z2 = dq(in, q, 24),
+                      z3 = dq(in, q, 40);
+        tmp1 = (z1 + z3) * F0_366025404;                         // c5
+        tmp0 = tmp1 + lshift(z1 + z2, kConstBits);
+        const int64_t tmp2 = tmp1 + lshift(z3 - z2, kConstBits);
+        tmp1 = lshift(z1 - z2 - z3, kPass1Bits);
+
+        constexpr int s = kConstBits - kPass1Bits;
+        ws[6 * 0 + c] = static_cast<int>((tmp10 + tmp0) >> s);
+        ws[6 * 5 + c] = static_cast<int>((tmp10 - tmp0) >> s);
+        ws[6 * 1 + c] = static_cast<int>(tmp11 + tmp1);
+        ws[6 * 4 + c] = static_cast<int>(tmp11 - tmp1);
+        ws[6 * 2 + c] = static_cast<int>((tmp12 + tmp2) >> s);
+        ws[6 * 3 + c] = static_cast<int>((tmp12 - tmp2) >> s);
+    }
+    for (int r = 0; r < 6; ++r) {
+        const int* w = ws + 6 * r;
+        uint8_t* o = out + static_cast<size_t>(r) * stride;
+        int64_t tmp0 = int64_t(w[0]) + (int64_t(1) << (kPass1Bits + 2));
+        tmp0 = lshift(tmp0, kConstBits);
+        int64_t tmp10 = int64_t(w[4]) * F0_707106781;
+        int64_t tmp1 = tmp0 + tmp10;
+        const int64_t tmp11 = tmp0 - tmp10 - tmp10;
+        tmp0 = int64_t(w[2]) * F1_224744871;
+        tmp10 = tmp1 + tmp0;
+        const int64_t tmp12 = tmp1 - tmp0;
+
+        const int64_t z1 = w[1], z2 = w[3], z3 = w[5];
+        tmp1 = (z1 + z3) * F0_366025404;
+        tmp0 = tmp1 + lshift(z1 + z2, kConstBits);
+        const int64_t tmp2 = tmp1 + lshift(z3 - z2, kConstBits);
+        tmp1 = lshift(z1 - z2 - z3, kConstBits);
+
+        constexpr int s = kConstBits + kPass1Bits + 3;
+        o[0] = limit_at(limit, (tmp10 + tmp0) >> s);
+        o[5] = limit_at(limit, (tmp10 - tmp0) >> s);
+        o[1] = limit_at(limit, (tmp11 + tmp1) >> s);
+        o[4] = limit_at(limit, (tmp11 - tmp1) >> s);
+        o[2] = limit_at(limit, (tmp12 + tmp2) >> s);
+        o[3] = limit_at(limit, (tmp12 - tmp2) >> s);
+    }
+}
+
+// jidctred.c jpeg_idct_4x4: column 4 and row term 4 are dropped
+void idct_4x4(const int16_t* coef, const int16_t* quant, uint8_t* out,
+              int stride) {
+    const uint8_t* limit = idct_limit().t;
+    int ws[8 * 4] = {};
+    for (int c = 0; c < 8; ++c) {
+        if (c == 4) continue;
+        const int16_t* in = coef + c;
+        const int16_t* q = quant + c;
+        int* w = ws + c;
+        if (in[8] == 0 && in[16] == 0 && in[24] == 0 && in[40] == 0 &&
+            in[48] == 0 && in[56] == 0) {
+            const int dc = dc_pass1(in, q);
+            for (int r = 0; r < 4; ++r) w[8 * r] = dc;
+            continue;
+        }
+        const int64_t tmp0 = lshift(dq(in, q, 0), kConstBits + 1);
+        const int64_t tmp2 =
+            dq(in, q, 16) * F1_847759065 + dq(in, q, 48) * -F0_765366865;
+        const int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+
+        const int64_t z1 = dq(in, q, 56), z2 = dq(in, q, 40),
+                      z3 = dq(in, q, 24), z4 = dq(in, q, 8);
+        const int64_t o0 = z1 * -F0_211164243 + z2 * F1_451774981 +
+                           z3 * -F2_172734803 + z4 * F1_061594337;
+        const int64_t o2 = z1 * -F0_509795579 + z2 * -F0_601344887 +
+                           z3 * F0_899976223 + z4 * F2_562915447;
+
+        constexpr int s = kConstBits - kPass1Bits + 1;
+        w[8 * 0] = static_cast<int>(descale(tmp10 + o2, s));
+        w[8 * 3] = static_cast<int>(descale(tmp10 - o2, s));
+        w[8 * 1] = static_cast<int>(descale(tmp12 + o0, s));
+        w[8 * 2] = static_cast<int>(descale(tmp12 - o0, s));
+    }
+    for (int r = 0; r < 4; ++r) {
+        const int* w = ws + 8 * r;
+        uint8_t* o = out + static_cast<size_t>(r) * stride;
+        if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[5] == 0 && w[6] == 0 &&
+            w[7] == 0) {
+            std::memset(o, limit_at(limit, descale(w[0], kPass1Bits + 3)),
+                        4);
+            continue;
+        }
+        const int64_t tmp0 = lshift(w[0], kConstBits + 1);
+        const int64_t tmp2 =
+            int64_t(w[2]) * F1_847759065 + int64_t(w[6]) * -F0_765366865;
+        const int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+
+        const int64_t z1 = w[7], z2 = w[5], z3 = w[3], z4 = w[1];
+        const int64_t o0 = z1 * -F0_211164243 + z2 * F1_451774981 +
+                           z3 * -F2_172734803 + z4 * F1_061594337;
+        const int64_t o2 = z1 * -F0_509795579 + z2 * -F0_601344887 +
+                           z3 * F0_899976223 + z4 * F2_562915447;
+
+        constexpr int s = kConstBits + kPass1Bits + 3 + 1;
+        o[0] = limit_at(limit, descale(tmp10 + o2, s));
+        o[3] = limit_at(limit, descale(tmp10 - o2, s));
+        o[1] = limit_at(limit, descale(tmp12 + o0, s));
+        o[2] = limit_at(limit, descale(tmp12 - o0, s));
+    }
+}
+
+// jidctint.c jpeg_idct_3x3: cK is sqrt(2) cos(K pi / 6)
+void idct_3x3(const int16_t* coef, const int16_t* quant, uint8_t* out,
+              int stride) {
+    const uint8_t* limit = idct_limit().t;
+    int ws[9];
+    for (int c = 0; c < 3; ++c) {
+        const int16_t* in = coef + c;
+        const int16_t* q = quant + c;
+        int64_t tmp0 = lshift(dq(in, q, 0), kConstBits);
+        tmp0 += int64_t(1) << (kConstBits - kPass1Bits - 1);
+        const int64_t tmp12 = dq(in, q, 16) * F0_707106781;      // c2
+        const int64_t tmp10 = tmp0 + tmp12;
+        const int64_t tmp2 = tmp0 - tmp12 - tmp12;
+        const int64_t odd = dq(in, q, 8) * F1_224744871;         // c1
+
+        constexpr int s = kConstBits - kPass1Bits;
+        ws[3 * 0 + c] = static_cast<int>((tmp10 + odd) >> s);
+        ws[3 * 2 + c] = static_cast<int>((tmp10 - odd) >> s);
+        ws[3 * 1 + c] = static_cast<int>(tmp2 >> s);
+    }
+    for (int r = 0; r < 3; ++r) {
+        const int* w = ws + 3 * r;
+        uint8_t* o = out + static_cast<size_t>(r) * stride;
+        int64_t tmp0 = int64_t(w[0]) + (int64_t(1) << (kPass1Bits + 2));
+        tmp0 = lshift(tmp0, kConstBits);
+        const int64_t tmp12 = int64_t(w[2]) * F0_707106781;
+        const int64_t tmp10 = tmp0 + tmp12;
+        const int64_t tmp2 = tmp0 - tmp12 - tmp12;
+        const int64_t odd = int64_t(w[1]) * F1_224744871;
+
+        constexpr int s = kConstBits + kPass1Bits + 3;
+        o[0] = limit_at(limit, (tmp10 + odd) >> s);
+        o[2] = limit_at(limit, (tmp10 - odd) >> s);
+        o[1] = limit_at(limit, tmp2 >> s);
+    }
+}
+
+// jidctred.c jpeg_idct_2x2: columns 2, 4, 6 and even row terms but the
+// DC are dropped
+void idct_2x2(const int16_t* coef, const int16_t* quant, uint8_t* out,
+              int stride) {
+    const uint8_t* limit = idct_limit().t;
+    int ws[8 * 2] = {};
+    for (int c = 0; c < 8; ++c) {
+        if (c == 2 || c == 4 || c == 6) continue;
+        const int16_t* in = coef + c;
+        const int16_t* q = quant + c;
+        int* w = ws + c;
+        if (in[8] == 0 && in[24] == 0 && in[40] == 0 && in[56] == 0) {
+            const int dc = dc_pass1(in, q);
+            w[0] = w[8] = dc;
+            continue;
+        }
+        const int64_t tmp10 = lshift(dq(in, q, 0), kConstBits + 2);
+        const int64_t tmp0 = dq(in, q, 56) * -F0_720959822 +
+                             dq(in, q, 40) * F0_850430095 +
+                             dq(in, q, 24) * -F1_272758580 +
+                             dq(in, q, 8) * F3_624509785;
+        constexpr int s = kConstBits - kPass1Bits + 2;
+        w[0] = static_cast<int>(descale(tmp10 + tmp0, s));
+        w[8] = static_cast<int>(descale(tmp10 - tmp0, s));
+    }
+    for (int r = 0; r < 2; ++r) {
+        const int* w = ws + 8 * r;
+        uint8_t* o = out + static_cast<size_t>(r) * stride;
+        if (w[1] == 0 && w[3] == 0 && w[5] == 0 && w[7] == 0) {
+            o[0] = o[1] = limit_at(limit, descale(w[0], kPass1Bits + 3));
+            continue;
+        }
+        const int64_t tmp10 = lshift(w[0], kConstBits + 2);
+        const int64_t tmp0 =
+            int64_t(w[7]) * -F0_720959822 + int64_t(w[5]) * F0_850430095 +
+            int64_t(w[3]) * -F1_272758580 + int64_t(w[1]) * F3_624509785;
+        constexpr int s = kConstBits + kPass1Bits + 3 + 2;
+        o[0] = limit_at(limit, descale(tmp10 + tmp0, s));
+        o[1] = limit_at(limit, descale(tmp10 - tmp0, s));
+    }
+}
+
+// jidctred.c jpeg_idct_1x1: the block's mean, one eighth of the DC
+void idct_1x1(const int16_t* coef, const int16_t* quant, uint8_t* out,
+              int /*stride*/) {
+    const int dc = int(coef[0]) * int(quant[0]);
+    out[0] = limit_at(idct_limit().t, descale(dc, 3));
+}
+
+Idct idct_of_size(int size) {
+    switch (size) {
+        case 1: return idct_1x1;
+        case 2: return idct_2x2;
+        case 3: return idct_3x3;
+        case 4: return idct_4x4;
+        case 6: return idct_6x6;
+        case 8: return idct_8x8;
+        default:
+            fail(kUnsupported, "unsupported JPEG mode: IDCT size " +
+                                   std::to_string(size));
     }
 }
 
@@ -422,26 +699,49 @@ inline int extend(int v, int s) {
     return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
 }
 
+// v << n on the two's-complement bits, kept to a coefficient's 16 bits
+inline int16_t coef_shift(int v, int n) {
+    return static_cast<int16_t>(static_cast<uint32_t>(v) << n);
+}
+
 // ------------------------------------------------------------------ frame
 struct Component {
     int id = 0, h = 1, v = 1, tq = 0;
     int td = 0, ta = 0;             // Huffman tables of the current scan
-    int dw = 0, dh = 0;             // downsampled width and height
     int bw = 0, bh = 0;             // blocks of a non-interleaved scan
+    int gbw = 0, gbh = 0;           // blocks of the MCU-padded grid
+    int ssize = 8;                  // IDCT output size (jdmaster.c)
+    int sw = 0, sh = 0;             // downsampled size at that scale
     int stride = 0, rows = 0;       // plane size (MCU-padded)
+    Idct idct = nullptr;
     bool quant_latched = false, decoded = false;
     int16_t quant[64] = {};         // natural order
     std::vector<uint8_t> plane;
+    std::vector<int16_t> coef;      // progressive: every block, natural order
+    int coef_bits[64];              // progressive: Al of the last scan, -1 none
     int last_dc = 0;
+
+    int16_t* block(int bx, int by) {
+        return coef.data() +
+               (static_cast<size_t>(by) * gbw + static_cast<size_t>(bx)) * 64;
+    }
+    void idct_block(const int16_t* blk, int bx, int by) {
+        idct(blk, quant,
+             plane.data() + static_cast<size_t>(by) * ssize * stride +
+                 static_cast<size_t>(bx) * ssize,
+             stride);
+    }
 };
 
 struct Decoder {
     const uint8_t* buf;
     const uint8_t* end;
     const uint8_t* p;
+    const int scale_num;            // output scale scale_num / 8
 
     int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
-    bool have_frame = false;
+    int out_w = 0, out_h = 0;       // output size at the scale
+    bool have_frame = false, progressive = false;
     Component comp[3];
     uint16_t qt[4][64] = {};        // natural order
     bool qt_defined[4] = {};
@@ -450,9 +750,11 @@ struct Decoder {
     bool saw_jfif = false, saw_adobe = false;
     int adobe_transform = 0;
     int mcux = 0, mcuy = 0;
+    int eobrun = 0;                 // progressive AC scans
     mutable std::vector<int> colsum;   // the h2v2 upsampler's row of sums
 
-    Decoder(const uint8_t* b, size_t n) : buf(b), end(b + n), p(b) {}
+    Decoder(const uint8_t* b, size_t n, int scale)
+        : buf(b), end(b + n), p(b), scale_num(scale) {}
 
     int u8() {
         if (p >= end) corrupt("truncated JPEG (inside a marker segment)");
@@ -542,7 +844,7 @@ struct Decoder {
 
     void read_sof(int marker) {
         static const char* const kModes[16] = {
-            nullptr, nullptr, "progressive (SOF2)", "lossless (SOF3)",
+            nullptr, nullptr, nullptr, "lossless (SOF3)",
             nullptr, "hierarchical (SOF5)", "hierarchical progressive (SOF6)",
             "hierarchical lossless (SOF7)", nullptr,
             "arithmetic coding (SOF9)",
@@ -552,10 +854,11 @@ struct Decoder {
             "hierarchical progressive arithmetic coding (SOF14)",
             "hierarchical lossless arithmetic coding (SOF15)"};
         const int kind = marker - 0xC0;
-        if (kind != 0 && kind != 1)
+        if (kind > 2)
             fail(kUnsupported, std::string("unsupported JPEG mode: ") +
                                    kModes[kind]);
         if (have_frame) corrupt("more than one frame header");
+        progressive = kind == 2;
         auto [s, e] = segment();
         if (e - s < 6) corrupt("truncated frame header");
         const int precision = s[0];
@@ -596,21 +899,51 @@ struct Decoder {
         }
         mcux = (width + 8 * hmax - 1) / (8 * hmax);
         mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+        // the padded sample planes (and a progressive file's coefficient
+        // buffer, two bytes a sample) are bounded before any allocation
+        int64_t padded = 0;
+        for (int c = 0; c < ncomp; ++c)
+            padded += int64_t(mcux) * comp[c].h * mcuy * comp[c].v * 64;
+        if (padded > 3 * kMaxPixels)
+            fail(kUnsupported, "image of " + std::to_string(width) + "x" +
+                                   std::to_string(height) +
+                                   " pixels pads to over 3 * 2^28 samples");
+        // jdmaster.c jpeg_calc_output_dimensions: the output size, then
+        // each component's IDCT size, doubled while that keeps its
+        // upsampling integral
+        out_w = static_cast<int>((int64_t(width) * scale_num + 7) / 8);
+        out_h = static_cast<int>((int64_t(height) * scale_num + 7) / 8);
         for (int c = 0; c < ncomp; ++c) {
             Component& k = comp[c];
             if (hmax % k.h || vmax % k.v)
                 fail(kUnsupported,
                      "unsupported JPEG mode: non-integral sampling factors");
-            k.dw = static_cast<int>((int64_t(width) * k.h + hmax - 1) / hmax);
-            k.dh = static_cast<int>((int64_t(height) * k.v + vmax - 1) / vmax);
-            k.bw = (k.dw + 7) / 8;
-            k.bh = (k.dh + 7) / 8;
-            k.stride = mcux * k.h * 8;
-            k.rows = mcuy * k.v * 8;
+            const int64_t dw = (int64_t(width) * k.h + hmax - 1) / hmax;
+            const int64_t dh = (int64_t(height) * k.v + vmax - 1) / vmax;
+            k.bw = static_cast<int>((dw + 7) / 8);
+            k.bh = static_cast<int>((dh + 7) / 8);
+            k.gbw = mcux * k.h;
+            k.gbh = mcuy * k.v;
+            int ss = scale_num;
+            while (ss < 8 && (hmax * scale_num) % (k.h * ss * 2) == 0 &&
+                   (vmax * scale_num) % (k.v * ss * 2) == 0)
+                ss *= 2;
+            k.ssize = ss;
+            k.idct = idct_of_size(ss);
+            k.sw = static_cast<int>((int64_t(width) * k.h * ss +
+                                     int64_t(hmax) * 8 - 1) /
+                                    (int64_t(hmax) * 8));
+            k.sh = static_cast<int>((int64_t(height) * k.v * ss +
+                                     int64_t(vmax) * 8 - 1) /
+                                    (int64_t(vmax) * 8));
+            k.stride = k.gbw * ss;
+            k.rows = k.gbh * ss;
+            std::fill(k.coef_bits, k.coef_bits + 64, -1);
         }
         have_frame = true;
     }
 
+    // ------------------------------------------------ sequential blocks
     void decode_block(BitReader& br, Component& k, int bx, int by) {
         int16_t block[64] = {};
         const Huffman& dc = dc_tab[k.td];
@@ -634,10 +967,94 @@ struct Decoder {
                 i += 15;
             }
         }
-        idct_islow(block, k.quant,
-                   k.plane.data() + static_cast<size_t>(by) * 8 * k.stride +
-                       static_cast<size_t>(bx) * 8,
-                   k.stride);
+        k.idct_block(block, bx, by);
+    }
+
+    // ----------------------------------------------- progressive blocks
+    // jdphuff.c decode_mcu_DC_first, one block
+    void dc_first(BitReader& br, Component& k, int16_t* blk, int al) {
+        const int s = br.decode(dc_tab[k.td]);
+        int diff = 0;
+        if (s) diff = extend(br.bits(s), s);
+        k.last_dc = static_cast<int>(static_cast<uint32_t>(k.last_dc) +
+                                     static_cast<uint32_t>(diff));
+        blk[0] = coef_shift(k.last_dc, al);
+    }
+
+    // decode_mcu_DC_refine, one block: the next bit of the DC
+    static void dc_refine(BitReader& br, int16_t* blk, int al) {
+        if (br.bits(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+    }
+
+    // decode_mcu_AC_first
+    void ac_first(BitReader& br, const Huffman& tab, int16_t* blk, int ss,
+                  int se, int al) {
+        if (eobrun > 0) {
+            --eobrun;
+            return;
+        }
+        for (int k = ss; k <= se; ++k) {
+            const int rs = br.decode(tab);
+            int r = rs >> 4;
+            const int s = rs & 15;
+            if (s) {
+                k += r;
+                blk[kNatural[k]] = coef_shift(extend(br.bits(s), s), al);
+            } else if (r == 15) {
+                k += 15;                                 // ZRL
+            } else {                                     // EOBr
+                eobrun = 1 << r;
+                if (r) eobrun += br.bits(r);
+                --eobrun;
+                break;
+            }
+        }
+    }
+
+    // the correction bit of an already nonzero coefficient
+    static void refine(BitReader& br, int16_t& c, int p1) {
+        if (br.bits(1) && (c & p1) == 0)
+            c = static_cast<int16_t>(c >= 0 ? c + p1 : c - p1);
+    }
+
+    // decode_mcu_AC_refine
+    void ac_refine(BitReader& br, const Huffman& tab, int16_t* blk, int ss,
+                   int se, int al) {
+        const int p1 = 1 << al;
+        int k = ss;
+        if (eobrun == 0) {
+            for (; k <= se; ++k) {
+                const int rs = br.decode(tab);
+                int r = rs >> 4;
+                int s = rs & 15;
+                if (s) {
+                    // a newly nonzero coefficient (of size 1)
+                    s = br.bits(1) ? p1 : -p1;
+                } else if (r != 15) {
+                    eobrun = 1 << r;
+                    if (r) eobrun += br.bits(r);
+                    break;             // the rest is the EOB run's
+                }
+                // past r zero coefficients, correcting nonzero ones
+                do {
+                    int16_t& c = blk[kNatural[k]];
+                    if (c != 0) {
+                        refine(br, c, p1);
+                    } else if (--r < 0) {
+                        break;
+                    }
+                    ++k;
+                } while (k <= se);
+                if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+            }
+        }
+        if (eobrun > 0) {
+            for (; k <= se; ++k) {
+                int16_t& c = blk[kNatural[k]];
+                if (c != 0) refine(br, c, p1);
+            }
+            --eobrun;
+        }
     }
 
     void read_scan() {
@@ -647,6 +1064,22 @@ struct Decoder {
         const int ns = s[0];
         if (ns < 1 || ns > ncomp || e - s != 4 + 2 * ns)
             corrupt("bad scan header");
+        const int ss = s[1 + 2 * ns], se = s[2 + 2 * ns];
+        const int ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
+        const bool dc_band = ss == 0;
+        if (progressive) {
+            // jdphuff.c start_pass_phuff_decoder's checks
+            bool bad = dc_band ? se != 0 : (ss > se || se > 63 || ns != 1);
+            if (ah != 0 && al != ah - 1) bad = true;
+            if (al > 13) bad = true;
+            if (bad)
+                corrupt("bad progression parameters Ss=" + std::to_string(ss) +
+                        " Se=" + std::to_string(se) + " Ah=" +
+                        std::to_string(ah) + " Al=" + std::to_string(al));
+        }
+        // which tables the scan decodes with
+        const bool need_dc = !progressive || (dc_band && ah == 0);
+        const bool need_ac = !progressive || !dc_band;
         Component* in_scan[3];
         for (int i = 0; i < ns; ++i) {
             const int id = s[1 + 2 * i], t = s[2 + 2 * i];
@@ -659,7 +1092,8 @@ struct Decoder {
             k->td = t >> 4;
             k->ta = t & 15;
             if (k->td > 3 || k->ta > 3) corrupt("bad Huffman table id");
-            if (!dc_tab[k->td].defined || !ac_tab[k->ta].defined)
+            if ((need_dc && !dc_tab[k->td].defined) ||
+                (need_ac && !ac_tab[k->ta].defined))
                 corrupt("scan uses an undefined Huffman table");
             if (!k->quant_latched) {
                 // libjpeg latches the table when the component's first
@@ -670,8 +1104,14 @@ struct Decoder {
                     k->quant[j] = static_cast<int16_t>(qt[k->tq][j]);
                 k->quant_latched = true;
             }
-            if (k->plane.empty())
+            if (progressive) {
+                if (k->coef.empty())
+                    k->coef.assign(static_cast<size_t>(k->gbw) * k->gbh * 64,
+                                   0);
+                for (int c = ss; c <= se; ++c) k->coef_bits[c] = al;
+            } else if (k->plane.empty()) {
                 k->plane.assign(static_cast<size_t>(k->stride) * k->rows, 0);
+            }
             k->last_dc = 0;
             in_scan[i] = k;
         }
@@ -681,7 +1121,22 @@ struct Decoder {
         for (int i = 0; i < ns; ++i) blocks += in_scan[i]->h * in_scan[i]->v;
         if (ns > 1 && blocks > 10) corrupt("too many blocks in an MCU");
 
+        // one block of the scan at (bx, by) of component k
+        auto unit = [&](BitReader& br, Component& k, int bx, int by) {
+            if (!progressive) return decode_block(br, k, bx, by);
+            int16_t* blk = k.block(bx, by);
+            if (dc_band) {
+                if (ah == 0) dc_first(br, k, blk, al);
+                else dc_refine(br, blk, al);
+            } else if (ah == 0) {
+                ac_first(br, ac_tab[k.ta], blk, ss, se, al);
+            } else {
+                ac_refine(br, ac_tab[k.ta], blk, ss, se, al);
+            }
+        };
+
         BitReader br(p, end);
+        eobrun = 0;
         const int64_t nx = ns == 1 ? in_scan[0]->bw : mcux;
         const int64_t ny = ns == 1 ? in_scan[0]->bh : mcuy;
         const int64_t total = nx * ny;
@@ -697,22 +1152,43 @@ struct Decoder {
                 br.restart_at(q + 1);
                 next_rst = (next_rst + 1) & 7;
                 for (int i = 0; i < ns; ++i) in_scan[i]->last_dc = 0;
+                eobrun = 0;
             }
             const int mx = static_cast<int>(m % nx), my = static_cast<int>(m / nx);
             if (ns == 1) {
-                decode_block(br, *in_scan[0], mx, my);
+                unit(br, *in_scan[0], mx, my);
             } else {
                 for (int i = 0; i < ns; ++i) {
                     Component& k = *in_scan[i];
                     for (int y = 0; y < k.v; ++y)
                         for (int x = 0; x < k.h; ++x)
-                            decode_block(br, k, mx * k.h + x, my * k.v + y);
+                            unit(br, k, mx * k.h + x, my * k.v + y);
                 }
             }
             if (br.overrun()) corrupt("truncated or corrupt entropy-coded data");
         }
         for (int i = 0; i < ns; ++i) in_scan[i]->decoded = true;
         p = br.byte_align_to_marker();
+    }
+
+    // jdcoefct.c smoothing_ok: libjpeg smooths the blocks of a progressive
+    // file when some of AC coefficients 1-9 are unfinished (and their
+    // quantizers nonzero); this decoder refuses such a file
+    void refuse_smoothed() const {
+        static const int kQ[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+        bool useful = false;
+        for (int c = 0; c < ncomp; ++c) {
+            const Component& k = comp[c];
+            for (int i : kQ)
+                if (k.quant[i] == 0) return;
+            if (k.coef_bits[0] < 0) return;
+            for (int i = 1; i < 10; ++i)
+                if (k.coef_bits[i] != 0) useful = true;
+        }
+        if (useful)
+            fail(kUnsupported,
+                 "unsupported JPEG mode: progressive with unfinished AC "
+                 "coefficients (libjpeg block smoothing)");
     }
 
     // parse markers from where the last call stopped: up to the frame
@@ -759,23 +1235,39 @@ struct Decoder {
         if (headers_only) return;
         for (int c = 0; c < ncomp; ++c)
             if (!comp[c].decoded) corrupt("a component has no scan");
+        if (progressive) {
+            // the coefficient buffer through the IDCTs, as jdcoefct.c's
+            // decompress_data: the component's own blocks
+            refuse_smoothed();
+            for (int c = 0; c < ncomp; ++c) {
+                Component& k = comp[c];
+                k.plane.assign(static_cast<size_t>(k.stride) * k.rows, 0);
+                for (int by = 0; by < k.bh; ++by)
+                    for (int bx = 0; bx < k.bw; ++bx)
+                        k.idct_block(k.block(bx, by), bx, by);
+                std::vector<int16_t>().swap(k.coef);
+            }
+        }
     }
 
     // -------------------------------------------------------- upsampling
-    // component row ``y`` of the image (clamped as libjpeg replicates the
-    // first and last rows for context)
+    // component row ``r`` (clamped as libjpeg replicates the first and
+    // last rows for context)
     const uint8_t* crow(const Component& k, int r) const {
-        r = std::min(std::max(r, 0), k.dh - 1);
+        r = std::min(std::max(r, 0), k.sh - 1);
         return k.plane.data() + static_cast<size_t>(r) * k.stride;
     }
 
-    // output row ``y`` of component ``k`` (``width`` samples): the plane's
-    // row at full size, else upsampled into ``out``
+    // output row ``y`` of component ``k`` (``out_w`` samples): the plane's
+    // row at full size, else upsampled into ``out`` (jdsample.c; no fancy
+    // upsampling when the smallest IDCT size is 1)
     const uint8_t* upsample_row(const Component& k, int y, uint8_t* out) const {
-        const int fh = hmax / k.h, fv = vmax / k.v;
-        const int dw = k.dw;
+        const int fh = hmax * scale_num / (k.h * k.ssize);
+        const int fv = vmax * scale_num / (k.v * k.ssize);
+        const int dw = k.sw;
+        const bool fancy = scale_num > 1;
         if (fh == 1 && fv == 1) return crow(k, y);
-        if (fh == 2 && fv == 1 && dw > 2) {               // h2v1 fancy
+        if (fancy && fh == 2 && fv == 1 && dw > 2) {      // h2v1 fancy
             const uint8_t* in = crow(k, y);
             out[0] = in[0];
             out[1] = static_cast<uint8_t>((in[0] * 3 + in[1] + 2) >> 2);
@@ -789,7 +1281,7 @@ struct Decoder {
             out[2 * l + 1] = in[l];
             return out;
         }
-        if (fh == 1 && fv == 2) {                         // h1v2 fancy
+        if (fancy && fh == 1 && fv == 2) {                // h1v2 fancy
             const int i = y >> 1;
             const bool below = y & 1;
             const uint8_t* near = crow(k, i);
@@ -799,7 +1291,7 @@ struct Decoder {
                 out[c] = static_cast<uint8_t>((near[c] * 3 + far[c] + bias) >> 2);
             return out;
         }
-        if (fh == 2 && fv == 2 && dw > 2) {               // h2v2 fancy
+        if (fancy && fh == 2 && fv == 2 && dw > 2) {      // h2v2 fancy
             const int i = y >> 1;
             const bool below = y & 1;
             const uint8_t* near = crow(k, i);
@@ -823,14 +1315,14 @@ struct Decoder {
         // plain replication (jdsample.c int_upsample, h2v1_upsample,
         // h2v2_upsample)
         const uint8_t* in = crow(k, y / fv);
-        for (int x = 0; x < width; ++x) out[x] = in[x / fh];
+        for (int x = 0; x < out_w; ++x) out[x] = in[x / fh];
         return out;
     }
 
     void to_rgb(uint8_t* rgb) const {
-        const size_t W = static_cast<size_t>(width);
+        const size_t W = static_cast<size_t>(out_w);
         if (ncomp == 1) {
-            for (int y = 0; y < height; ++y) {
+            for (int y = 0; y < out_h; ++y) {
                 const uint8_t* in = crow(comp[0], y);   // 1x1 in an image of one component
                 uint8_t* o = rgb + y * W * 3;
                 for (size_t x = 0; x < W; ++x)
@@ -853,7 +1345,7 @@ struct Decoder {
         std::vector<uint8_t> rows(3 * pad);
         colsum.resize(pad);
         std::vector<uint8_t> rgbrow(3 * W);
-        for (int y = 0; y < height; ++y) {
+        for (int y = 0; y < out_h; ++y) {
             const uint8_t* r0 = upsample_row(comp[0], y, rows.data());
             const uint8_t* r1 = upsample_row(comp[1], y, rows.data() + pad);
             const uint8_t* r2 = upsample_row(comp[2], y, rows.data() + 2 * pad);
@@ -889,33 +1381,67 @@ int guarded(char* err, int errlen, Body&& body) {
     }
 }
 
+void check_scale(int scale_num) {
+    if (scale_num < 1 || scale_num > 8)
+        fail(kBadArgs, "scale_num " + std::to_string(scale_num) +
+                           " is not in 1..8");
+}
+
 }  // namespace
+
+namespace epk {
+
+// Decode ``buf`` at scale_num/8 into ``out`` (resized to h * w * 3 RGB):
+// a status as the C interface's; ``w``, ``h`` the output size and
+// ``full_w``, ``full_h`` the image's.
+inline int decode_rgb(const uint8_t* buf, size_t n, int scale_num,
+                      std::vector<uint8_t>& out, int& w, int& h, int& full_w,
+                      int& full_h, char* err = nullptr, int errlen = 0) {
+    return guarded(err, errlen, [&] {
+        check_scale(scale_num);
+        if (!buf) fail(kBadArgs, "null argument");
+        Decoder d(buf, n, scale_num);
+        d.run(true);
+        full_w = d.width;
+        full_h = d.height;
+        w = d.out_w;
+        h = d.out_h;
+        d.run(false);
+        out.resize(static_cast<size_t>(w) * h * 3);
+        d.to_rgb(out.data());
+    });
+}
+
+}  // namespace epk
 
 extern "C" {
 
-int epk_jpeg_info(const uint8_t* buf, size_t n, int* w, int* h, int* comps,
-                  char* err, int errlen) {
+int epk_jpeg_info(const uint8_t* buf, size_t n, int scale_num, int* w,
+                  int* h, int* comps, char* err, int errlen) {
     return guarded(err, errlen, [&] {
         if (!buf || !w || !h || !comps) fail(kBadArgs, "null argument");
-        Decoder d(buf, n);
+        check_scale(scale_num);
+        Decoder d(buf, n, scale_num);
         d.run(true);
-        *w = d.width;
-        *h = d.height;
+        *w = d.out_w;
+        *h = d.out_h;
         *comps = d.ncomp;
     });
 }
 
-int epk_jpeg_decode_rgb(const uint8_t* buf, size_t n, uint8_t* out, int w,
-                        int h, char* err, int errlen) {
+int epk_jpeg_decode_rgb(const uint8_t* buf, size_t n, int scale_num,
+                        uint8_t* out, int w, int h, char* err, int errlen) {
     return guarded(err, errlen, [&] {
         if (!buf || !out) fail(kBadArgs, "null argument");
-        Decoder d(buf, n);
+        check_scale(scale_num);
+        Decoder d(buf, n, scale_num);
         d.run(true);
-        if (d.width != w || d.height != h)
+        if (d.out_w != w || d.out_h != h)
             fail(kBadArgs, "output is " + std::to_string(w) + "x" +
                                std::to_string(h) + ", image is " +
-                               std::to_string(d.width) + "x" +
-                               std::to_string(d.height));
+                               std::to_string(d.out_w) + "x" +
+                               std::to_string(d.out_h) + " at " +
+                               std::to_string(scale_num) + "/8");
         d.run(false);
         d.to_rgb(out);
     });

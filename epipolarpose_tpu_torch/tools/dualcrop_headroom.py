@@ -15,9 +15,10 @@ the trade:
 A. the host loader's img/s (student images counted) and bytes shipped an
    image at teacher scales 1.0 and 0.5, through ``H36MDataset`` over a
    tree of 4-view frames. The route it takes is named: the native
-   loader's one decode and two warps where it is built, else the port's
-   own JPEG decoder (``native/jpegdec.cpp``) and the numpy warps on the
-   thread pool (the card's machine has no ``jpeglib.h``). Every frame of
+   loader's one decode (the port's own decoder, ``native/jpegdec.cpp``,
+   DCT-scaled where the crops allow) and two warps wherever ``g++``
+   builds it, the card's machine included, else the same decoder and the
+   numpy warps on the thread pool. Every frame of
    the tree is one JPEG, the repo's 1000 x 1000 H36M-sized fixture
    (:data:`FRAME_JPEG`), since the port writes no JPEG without OpenCV;
    the labels come from the synthetic rig and do not match it, which the
@@ -114,7 +115,8 @@ def loader_route() -> str:
     """Which route decodes and warps part A's JPEG records."""
     from epipolarpose_tpu_torch.data import fastloader, jpeg
     if fastloader.available():
-        return "native loader: one libjpeg decode + two warps"
+        return ("native loader: one decode by the port's decoder + two "
+                "warps")
     decoder = ("built" if jpeg.available()
                else f"not built: {jpeg.build_error()}")
     return (f"the port's JPEG decoder ({decoder}) + numpy warps on the "
@@ -126,7 +128,7 @@ def bench_loader(cfg, td: str, n_frames: int, groups: int, log) -> dict:
     """A: host dual-crop loader img/s (student images counted) and bytes
     shipped an image, both scales through the same dataset and tree.
     Returns ``{scale: {"img_s", "bytes_per_img"}, "route": str,
-    "decodes": the port decoder's decodes}``."""
+    "decodes": the port decoder's decodes through both libraries}``."""
     import epipolarpose_tpu_torch.data.h36m as h36m_mod
     from epipolarpose_tpu_torch.data import fastloader, jpeg
     from epipolarpose_tpu_torch.data.synthetic import write_synthetic_h36m
@@ -139,7 +141,8 @@ def bench_loader(cfg, td: str, n_frames: int, groups: int, log) -> dict:
     orig = h36m_mod.CAMERA_IDS
     h36m_mod.CAMERA_IDS = ("0", "1", "2", "3")
     out: dict = {}
-    decodes = jpeg.decode_count()
+    decodes = jpeg.decode_count() + sum(
+        fastloader.decode_counts()["scale"].values())
     try:
         cfg.TPU.NATIVE_LOADER = fastloader.available()
         ds = h36m_mod.H36MDataset(cfg, root, "train", is_train=True)
@@ -168,7 +171,8 @@ def bench_loader(cfg, td: str, n_frames: int, groups: int, log) -> dict:
         cfg.TPU.NATIVE_LOADER = "auto"
         cfg.TPU.SS_TEACHER_SCALE = 1.0
         cfg.DATASET.SUBSAMPLE = sub
-    out["decodes"] = jpeg.decode_count() - decodes
+    out["decodes"] = jpeg.decode_count() + sum(
+        fastloader.decode_counts()["scale"].values()) - decodes
     return out
 
 

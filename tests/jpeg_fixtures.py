@@ -7,15 +7,19 @@ Frames are the port's synthetic renders (one Gaussian blob a joint, as
 noise so that every Huffman code length occurs. OpenCV and Pillow
 encode them (both with libjpeg-turbo), so the fixtures cover what those
 write: each sampling, grayscale, a restart interval, 16-bit quantization
-tables (SOF1), an Adobe RGB file, EXIF orientation and a progressive
-file, which the port refuses. Neither library writes a sequential image
-whose components arrive in separate scans, so :func:`encode_separate_scans`
-does (a small baseline encoder: float DCT, optimal Huffman tables; Y
-alone, then Cb and Cr alone or interleaved together).
+tables (SOF1), an Adobe RGB file, EXIF orientation and progressive files
+(OpenCV's and Pillow's optimized ones, grayscale, a restart interval, and
+a progressive twin of the 2048 x 2048 frame for the card's timing).
+Neither library writes a sequential image whose components arrive in
+separate scans, so :func:`encode_separate_scans` does (a small baseline
+encoder: float DCT, optimal Huffman tables; Y alone, then Cb and Cr alone
+or interleaved together).
 
 ``manifest.json`` gives each file's size, its mode and the sha256 of
 libjpeg-turbo's RGB decode (``cv2.imdecode``, EXIF orientation ignored,
-as the native loader ignores it).
+as the native loader ignores it), and ``scaled_rgb_sha256``, the same at
+libjpeg's DCT scales ``scale_num``/8 (:func:`libjpeg_rgb`): 1, 2 and 4
+for every file, 3 for files whose sides are multiples of 8.
 """
 
 from __future__ import annotations
@@ -80,14 +84,48 @@ def pil_encode(rgb: np.ndarray, **kwargs) -> bytes:
     return bio.getvalue()
 
 
-def libjpeg_rgb(buf: bytes) -> np.ndarray:
-    """libjpeg-turbo's RGB decode through OpenCV, EXIF orientation
-    ignored."""
+# OpenCV's reduced reads set libjpeg's scale_denom: 1/8, 2/8, 4/8
+SCALES = (1, 2, 4)
+# the scale OpenCV cannot ask for, read through the JAX native loader
+SCALE_3 = 3
+
+
+def libjpeg_rgb(buf: bytes, scale_num: int = 8) -> np.ndarray:
+    """libjpeg-turbo's RGB decode at its DCT scale ``scale_num``/8, EXIF
+    orientation ignored: OpenCV's (reduced) read at 1, 2, 4 and 8; at 3
+    the JAX package's native loader (the system's libjpeg-turbo) through
+    :func:`libjpeg_rgb_3_8`."""
     import cv2
+    if scale_num == SCALE_3:
+        return libjpeg_rgb_3_8(buf)
+    flag = {1: cv2.IMREAD_REDUCED_COLOR_8, 2: cv2.IMREAD_REDUCED_COLOR_4,
+            4: cv2.IMREAD_REDUCED_COLOR_2, 8: cv2.IMREAD_COLOR}[scale_num]
     img = cv2.imdecode(np.frombuffer(buf, np.uint8),
-                       cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
+                       flag | cv2.IMREAD_IGNORE_ORIENTATION)
     assert img is not None
     return np.ascontiguousarray(img[..., ::-1])
+
+
+def libjpeg_rgb_3_8(buf: bytes) -> np.ndarray:
+    """libjpeg-turbo's 3/8 decode of a frame whose sides are multiples of
+    8, read back through the JAX native loader's crop by
+    ``x' = 0.375 x - 0.3125`` (and so for y): its shrink of 8/3 picks
+    ``scale_num`` 3 (8 / 2.6666666666666665 rounds to 3.0 in double), and
+    the remap onto the scaled grid samples the 3/8 decode at whole
+    pixels. Raises ValueError for other sides, RuntimeError where that
+    loader cannot build."""
+    from epipolarpose_tpu.data import fastloader as jfast
+    from epipolarpose_tpu_torch.data.jpeg import jpeg_info
+    w, h, _ = jpeg_info(buf)
+    if w % 8 or h % 8:
+        raise ValueError(f"{w}x{h}: a 3/8 read needs sides that are "
+                         "multiples of 8")
+    if not jfast.available():
+        raise RuntimeError("the JAX native loader cannot build here")
+    M = np.array([[[0.375, 0.0, -0.3125], [0.0, 0.375, -0.3125]]],
+                 np.float32)
+    return jfast.decode_warp_batch([buf], M, (w * 3 // 8, h * 3 // 8),
+                                   dtype=np.uint8)[0]
 
 
 def rgb_sha256(rgb: np.ndarray) -> str:
@@ -360,7 +398,22 @@ def fixture_set() -> dict:
         "EXIF orientation 6 (OpenCV rotates; libjpeg and the port do not)")
     out["progressive_64x48.jpg"] = (
         cv2_encode(render(48, 64, seed=18), 90, progressive=True),
-        "refused: progressive (SOF2)")
+        "progressive (SOF2) 4:2:0 q90, OpenCV's scans")
+    out["progressive_pil_444_56x40.jpg"] = (
+        pil_encode(render(40, 56, seed=19, noise=12.0), quality=85,
+                   subsampling=0, progressive=True, optimize=True),
+        "progressive (SOF2) 4:4:4, Pillow's optimized tables")
+    out["progressive_gray_48x32.jpg"] = (
+        cv2_encode(render(32, 48, seed=20)[..., 0], 90, progressive=True),
+        "progressive (SOF2) grayscale")
+    out["progressive_restart_422_72x40.jpg"] = (
+        cv2_encode(render(40, 72, seed=21), 90, "422", restart=2,
+                   progressive=True),
+        "progressive (SOF2) 4:2:2, restart interval 2")
+    out["3dhp_studio_progressive_2048x2048.jpg"] = (
+        cv2_encode(render(2048, 2048, seed=0, noise=1.2), 90,
+                   progressive=True),
+        "progressive (SOF2) 4:2:0 q90, the 3dhp_studio frame's twin")
     return out
 
 
@@ -370,9 +423,14 @@ def write_fixtures(root: pathlib.Path = FIXTURE_DIR) -> dict:
     for name, (buf, mode) in fixture_set().items():
         (root / name).write_bytes(buf)
         rgb = libjpeg_rgb(buf)
+        scales = SCALES + ((SCALE_3,) if rgb.shape[0] % 8 == 0
+                           and rgb.shape[1] % 8 == 0 else ())
         manifest[name] = {"width": int(rgb.shape[1]),
                           "height": int(rgb.shape[0]), "bytes": len(buf),
-                          "mode": mode, "rgb_sha256": rgb_sha256(rgb)}
+                          "mode": mode, "rgb_sha256": rgb_sha256(rgb),
+                          "scaled_rgb_sha256": {
+                              str(s): rgb_sha256(libjpeg_rgb(buf, s))
+                              for s in sorted(scales)}}
     (root / "manifest.json").write_text(json.dumps(manifest, indent=1) + "\n")
     return manifest
 

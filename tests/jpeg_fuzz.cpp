@@ -4,9 +4,10 @@
 //   jpeg_fuzz <mutations per file> <file.jpg>...
 //
 // Each file is decoded as given and then with seeded mutations (bytes
-// overwritten in the headers or anywhere, or the file truncated). Every
-// call must return a status without a memory or undefined-behaviour
-// fault; prints "ok <decoded> refused <errors>".
+// overwritten in the headers or anywhere, or the file truncated), at full
+// size and again at a DCT scale of 1/8 to 4/8. Every call must return a
+// status without a memory or undefined-behaviour fault; prints
+// "ok <decoded> refused <errors> scaled <decoded at the scale>".
 #include "jpegdec.cpp"
 
 #include <fstream>
@@ -17,7 +18,7 @@ int main(int argc, char** argv) {
     if (argc < 3) return 2;
     const int per_file = std::atoi(argv[1]);
     std::mt19937 rng(1234);
-    long ok = 0, refused = 0;
+    long ok = 0, refused = 0, scaled = 0;
     for (int f = 2; f < argc; ++f) {
         std::ifstream in(argv[f], std::ios::binary);
         const std::vector<uint8_t> file((std::istreambuf_iterator<char>(in)),
@@ -38,7 +39,7 @@ int main(int argc, char** argv) {
             }
             int w = 0, h = 0, c = 0;
             char err[256];
-            if (epk_jpeg_info(m.data(), m.size(), &w, &h, &c, err, 256)) {
+            if (epk_jpeg_info(m.data(), m.size(), 8, &w, &h, &c, err, 256)) {
                 ++refused;
                 continue;
             }
@@ -47,13 +48,20 @@ int main(int argc, char** argv) {
                 continue;
             }
             std::vector<uint8_t> out(size_t(w) * h * 3);
-            if (epk_jpeg_decode_rgb(m.data(), m.size(), out.data(), w, h,
+            if (epk_jpeg_decode_rgb(m.data(), m.size(), 8, out.data(), w, h,
                                     err, 256))
                 ++refused;
             else
                 ++ok;
+            const int s = 1 + it % 4;
+            if (epk_jpeg_info(m.data(), m.size(), s, &w, &h, &c, err, 256))
+                continue;
+            std::vector<uint8_t> small(size_t(w) * h * 3);
+            if (!epk_jpeg_decode_rgb(m.data(), m.size(), s, small.data(), w,
+                                     h, err, 256))
+                ++scaled;
         }
     }
-    std::printf("ok %ld refused %ld\n", ok, refused);
+    std::printf("ok %ld refused %ld scaled %ld\n", ok, refused, scaled);
     return 0;
 }

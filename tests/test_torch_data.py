@@ -9,16 +9,20 @@
 - ``imgproc.resize_bilinear_u8`` vs ``cv2.resize(INTER_LINEAR)``: OpenCV
   rounds its weights to 1/2048 and the port does not: within one grey
   level.
-- The native loader: the port's build (no ``-march``) against the JAX
-  package's (``-march=native``): uint8 crops bit for bit; float32 crops
-  within one float32 spacing at 1.0 (the JAX build fuses multiply-adds).
+- The native loader: the port's build (its own decoder, no libjpeg, no
+  ``-march``, its geometry and warp cloned for FMA) against the JAX
+  package's (libjpeg, ``-march=native``): uint8 crops bit for bit;
+  float32 crops within one float32 spacing at 1.0.
 - The synthetic datasets: the port projects the rig in float32 torch and
   the JAX package in float32 XLA, a few float32 spacings apart: records
   within 1e-4 absolute or 1e-6 relative, images within one grey level at
   a few pixels. From the same records, images, crops (64 px wide: exact),
   augmentation affines, flips and cameras are equal.
 - On-disk trees written by the JAX writers: records, view groups and
-  batches equal.
+  batches equal; with the native loader on both sides, on the tree as
+  written (crops that pick DCT scales 2/8 and 3/8) and re-encoded
+  progressive, and the dual crop of ``view_batches`` at
+  ``SS_TEACHER_SCALE`` 1.0 and 0.5 (``_dual_batch_native``): equal bits.
 """
 
 import json
@@ -43,6 +47,7 @@ from epipolarpose_tpu_torch.config import load_config
 from epipolarpose_tpu_torch.data import fastloader as tfast
 from epipolarpose_tpu_torch.data import get_dataset
 from epipolarpose_tpu_torch.data import h36m as th36m
+from epipolarpose_tpu_torch.data import jpeg as tjpeg
 from epipolarpose_tpu_torch.data.mpi3dhp import (MPI3DHPDataset,
                                                  write_synthetic_3dhp)
 from epipolarpose_tpu_torch.data import mpii as tmpii
@@ -224,17 +229,23 @@ def jpegs(tmp_path_factory):
 
 
 def test_native_loader_builds_into_the_port(jpegs):
-    if not jfast.available():
-        pytest.skip("no g++ or jpeglib.h: the native loader cannot build")
+    """The port's loader builds from the port's source with no libjpeg
+    (``g++`` alone), and decodes as OpenCV does."""
     assert tfast.available(), tfast.build_error()
     path = tfast.library_path()
     assert path.parent.parent == ROOT / "epipolarpose_tpu_torch/_build"
-    assert "-march=native" not in " ".join(tfast.CXX_FLAGS)
+    assert tfast.SOURCE == ROOT / "epipolarpose_tpu_torch/native/fastloader.cpp"
+    flags = " ".join(tfast.CXX_FLAGS + tfast.LD_FLAGS)
+    assert "-march=native" not in flags and "-ljpeg" not in flags
+    eye = np.array([[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]], np.float32)
     for b in jpegs:
         want = cv2.cvtColor(cv2.imdecode(np.frombuffer(b, np.uint8), 1),
                             cv2.COLOR_BGR2RGB)
-        assert tfast.jpeg_size(b) == want.shape[1::-1]
-        np.testing.assert_array_equal(tfast.decode(b), want)
+        w, h, _ = tjpeg.jpeg_info(b)
+        assert (w, h) == want.shape[1::-1]
+        # an identity crop copies every decoded pixel
+        np.testing.assert_array_equal(
+            tfast.decode_warp_batch([b], eye, (w, h))[0], want)
 
 
 @pytest.mark.parametrize("route", ["u8", "f32", "warp2", "warp_batch"])
@@ -424,6 +435,81 @@ def test_h36m_tree_reads_as_in_jax(h36m_tree, subsample, native):
     for a, b in zip(jd.view_batches(1, seed=1, augment=True),
                     td.view_batches(1, seed=1, augment=True)):
         _assert_batches_equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def h36m_progressive_tree(h36m_tree, tmp_path_factory):
+    """``h36m_tree`` with every frame re-encoded progressive by OpenCV."""
+    import shutil
+    root = tmp_path_factory.mktemp("h36m_progressive")
+    shutil.copytree(h36m_tree, root, dirs_exist_ok=True)
+    src = pathlib.Path(h36m_tree) / "images" / "S1.zip"
+    dst = root / "images" / "S1.zip"
+    with zipfile.ZipFile(src) as zin, zipfile.ZipFile(dst, "w") as zout:
+        for name in zin.namelist():
+            img = cv2.imdecode(np.frombuffer(zin.read(name), np.uint8), 1)
+            ok, enc = cv2.imencode(".jpg", img, [
+                cv2.IMWRITE_JPEG_QUALITY, 95, cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+            zout.writestr(name, enc.tobytes())
+    for split in ("train", "valid"):
+        path = root / "annot" / f"{split}.json"
+        path.write_text(path.read_text().replace(str(src), str(dst)))
+    return str(root)
+
+
+def _native_h36m(tree, **dataset):
+    jcfg, tcfg = _configs(**dataset)
+    for cfg in (jcfg, tcfg):
+        cfg.TPU.NATIVE_LOADER = True
+    return (jh36m.H36MDataset(jcfg, tree, "valid", is_train=True),
+            th36m.H36MDataset(tcfg, tree, "valid", is_train=True))
+
+
+@pytest.mark.parametrize("tree", ["scaled", "progressive"])
+def test_h36m_native_batches_match_jax(tree, h36m_tree,
+                                       h36m_progressive_tree):
+    """The port's loader (its decoder, no libjpeg) against the JAX
+    package's (libjpeg) on the written tree, whose 64 px crops of 1024 px
+    frames pick scales 2/8 and 3/8, and on its progressive twin."""
+    if not jfast.available():
+        pytest.skip("no jpeglib.h: the JAX native loader cannot build")
+    root = h36m_progressive_tree if tree == "progressive" else h36m_tree
+    if tree == "progressive":
+        name = json.loads((pathlib.Path(root) / "annot/valid.json"
+                           ).read_text())[0]["image"]
+        assert b"\xff\xc2" in tzip.read_file_bytes(name)     # SOF2
+    jd, td = _native_h36m(root)
+    tfast.reset_counts()
+    _assert_batches_equal(jd.get_batch([0, 3, 2, 9], seed=7),
+                          td.get_batch([0, 3, 2, 9], seed=7))
+    for a, b in zip(jd.view_batches(2, seed=1, augment=True),
+                    td.view_batches(2, seed=1, augment=True)):
+        _assert_batches_equal(a, b)
+    counts = tfast.decode_counts()
+    assert counts["failed"] == 0 and sum(counts["scale"].values()) == 4 + 16
+    assert 8 not in counts["scale"] and len(counts["scale"]) >= 2
+
+
+@pytest.mark.parametrize("teacher_scale", [1.0, 0.5])
+def test_h36m_dual_crop_native_matches_jax(teacher_scale, h36m_tree):
+    """``_dual_batch_native`` (one decode, two warps; the clean crop at
+    ``SS_TEACHER_SCALE`` of the size) with ``TPU.NATIVE_LOADER: true``,
+    against the JAX dataset's: equal bits."""
+    if not jfast.available():
+        pytest.skip("no jpeglib.h: the JAX native loader cannot build")
+    jd, td = _native_h36m(h36m_tree)
+    flat = [i for g in td.view_groups[:3] for i in g]
+    tfast.reset_counts()
+    a = jd._dual_batch_native(flat, seed_clean=4, seed_aug=9,
+                              teacher_scale=teacher_scale)
+    b = td._dual_batch_native(flat, seed_clean=4, seed_aug=9,
+                              teacher_scale=teacher_scale)
+    assert a is not None and b is not None
+    side = int(64 * teacher_scale)
+    assert b["input"].shape == (12, side, side, 3)
+    assert b["input_aug"].shape == (12, 64, 64, 3)
+    _assert_batches_equal(a, b)
+    assert sum(tfast.decode_counts()["scale"].values()) == 12
 
 
 def test_mpii_tree_reads_as_in_jax(tmp_path):

@@ -2,15 +2,20 @@
 against libjpeg-turbo, bit for bit.
 
 Two libjpeg-turbo builds are the reference: OpenCV's (``cv2.imdecode``,
-converted to RGB, EXIF orientation ignored) and the system's, through the
-native loader built from ``native/fastloader.cpp``. Every committed
-fixture (``tests/data/jpeg/``, its manifest's hashes included) and every
-seeded case (each sampling and grayscale at four sizes and three
-qualities, restart intervals, 16-bit quantization tables, components in
-separate scans, chroma interleaved in a scan of its own, saturated
-pixels, Pillow's optimized Huffman tables) must decode to equal arrays. Truncated or corrupt bytes
-raise IOError; refused modes name themselves; neither the source nor the
-build names libjpeg.
+converted to RGB, EXIF orientation ignored; its reduced reads for the DCT
+scales 1/8, 2/8 and 4/8) and the system's, through the JAX package's
+native loader (``native/fastloader.cpp``, libjpeg; its crop by 3/8 reads
+the 3/8 decode, ``jpeg_fixtures.libjpeg_rgb_3_8``). Every committed
+fixture (``tests/data/jpeg/``, its manifest's hashes at every scale
+included) and every seeded case (each sampling and grayscale at four
+sizes and three qualities, restart intervals, 16-bit quantization
+tables, components in separate scans, chroma interleaved in a scan of its
+own, saturated pixels, Pillow's optimized Huffman tables, progressive
+files of OpenCV and Pillow in 4:2:0, 4:4:4, 4:2:2, grayscale and with a
+restart interval) must decode to equal arrays, at full size and at the
+scales 1/8, 2/8 and 4/8; 3/8 on the cases whose sides are multiples of 8.
+Truncated or corrupt bytes raise IOError; refused modes name themselves;
+neither the source nor the build names libjpeg.
 """
 
 import io
@@ -30,9 +35,15 @@ MANIFEST = json.loads((jf.FIXTURE_DIR / "manifest.json").read_text())
 
 
 def _native_decode(buf: bytes):
-    """The system libjpeg-turbo's decode, or None where the native loader
-    cannot build (no g++ or jpeglib.h)."""
-    return fastloader.decode(buf) if fastloader.available() else None
+    """The system libjpeg-turbo's decode through the JAX package's native
+    loader (an identity warp), or None where it cannot build (no g++ or
+    jpeglib.h)."""
+    from epipolarpose_tpu.data import fastloader as jfast
+    if not jfast.available():
+        return None
+    w, h, _ = jpeg.jpeg_info(buf)
+    eye = np.array([[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]], np.float32)
+    return jfast.decode_warp_batch([buf], eye, (w, h), dtype=np.uint8)[0]
 
 
 def _assert_decodes_as_libjpeg(buf: bytes, name: str):
@@ -70,14 +81,57 @@ def test_manifest_matches_libjpeg_here():
     assert total < 1.5e6
 
 
-@pytest.mark.parametrize("name", sorted(n for n, e in MANIFEST.items()
-                                        if not e["mode"].startswith("refused")))
+def test_manifest_scaled_hashes_match_libjpeg_here():
+    """Every file's hashes at 1/8, 2/8 and 4/8 (OpenCV), and at 3/8 where
+    its sides are multiples of 8 (the JAX native loader; skipped where it
+    cannot build, after the others)."""
+    third = []
+    for name, entry in MANIFEST.items():
+        buf = (jf.FIXTURE_DIR / name).read_bytes()
+        scales = entry["scaled_rgb_sha256"]
+        square8 = entry["width"] % 8 == 0 and entry["height"] % 8 == 0
+        want = ["1", "2", "3", "4"] if square8 else ["1", "2", "4"]
+        assert sorted(scales) == want, name
+        for s, digest in scales.items():
+            if s == "3":
+                third.append((name, buf, digest))
+                continue
+            rgb = jf.libjpeg_rgb(buf, int(s))
+            assert rgb.shape == (-(-entry["height"] * int(s) // 8),
+                                 -(-entry["width"] * int(s) // 8), 3), name
+            assert jf.rgb_sha256(rgb) == digest, (name, s)
+    for name, buf, digest in third:
+        try:
+            rgb = jf.libjpeg_rgb_3_8(buf)
+        except RuntimeError as e:
+            pytest.skip(f"3/8 unchecked: {e}")
+        assert jf.rgb_sha256(rgb) == digest, (name, "3")
+
+
+DECODED = sorted(n for n, e in MANIFEST.items()
+                 if not e["mode"].startswith("refused"))
+
+
+@pytest.mark.parametrize("name", DECODED)
 def test_fixture_decodes_as_libjpeg(name):
     buf = (jf.FIXTURE_DIR / name).read_bytes()
     got = _assert_decodes_as_libjpeg(buf, name)
     assert jf.rgb_sha256(got) == MANIFEST[name]["rgb_sha256"]
-    assert jpeg.jpeg_info(buf) == (got.shape[1], got.shape[0],
-                                   1 if name.startswith("gray") else 3)
+    comps = 1 if "grayscale" in MANIFEST[name]["mode"] else 3
+    assert jpeg.jpeg_info(buf) == (got.shape[1], got.shape[0], comps)
+
+
+@pytest.mark.parametrize("name", DECODED)
+def test_fixture_decodes_to_the_manifest_at_each_scale(name):
+    """The manifest's libjpeg-turbo hashes at each DCT scale (what the
+    card's host checks), and the size ``jpeg_info`` gives for it."""
+    buf = (jf.FIXTURE_DIR / name).read_bytes()
+    entry = MANIFEST[name]
+    for s, digest in entry["scaled_rgb_sha256"].items():
+        got = jpeg.decode(buf, int(s))
+        assert jf.rgb_sha256(got) == digest, (name, s)
+        assert jpeg.jpeg_info(buf, int(s))[:2] == (got.shape[1],
+                                                   got.shape[0])
 
 
 def test_exif_orientation_is_not_applied():
@@ -98,7 +152,17 @@ def _seeded_cases():
         "separate_scans_420_restart", "separate_scans_422_chroma_together",
         "separate_scans_440_chroma_together_restart", "saturated-q100-444",
         "saturated-q50-420", "saturated-q5-420", "pil_optimized_huffman",
-        "pil_q100_444", "pil_gray"]
+        "pil_q100_444", "pil_gray"] + PROGRESSIVE_CASES
+
+
+# progressive files: OpenCV's scans (jcparam.c jpeg_simple_progression)
+# and Pillow's with optimized tables, 4:2:0, 4:4:4, 4:2:2, grayscale, a
+# restart interval; sides multiples of 8 (the 3/8 read) and not
+PROGRESSIVE_CASES = [f"prog_{lib}_{s}_{h}x{w}" for lib in ("cv2", "pil")
+                     for s in ("420", "444", "422", "gray")
+                     for h, w in ((48, 64), (37, 53))] + [
+    "prog_cv2_420_restart-3", "prog_cv2_444_restart-1",
+    "prog_saturated_420"]
 
 
 def _seeded(case: str) -> bytes:
@@ -128,6 +192,8 @@ def _seeded(case: str) -> bytes:
         _, q, smp = case.split("-")
         img = np.random.default_rng(seed).integers(0, 2, (61, 83, 3)) * 255
         return jf.cv2_encode(img.astype(np.uint8), int(q[1:]), smp)
+    if case.startswith("prog_"):
+        return _progressive(case, seed)
     if case.startswith("pil_"):
         img = jf.render(47, 77, seed, noise=20.0)
         if case == "pil_gray":
@@ -143,20 +209,112 @@ def _seeded(case: str) -> bytes:
     return jf.cv2_encode(img, int(q[1:]), s)
 
 
+def _progressive(case: str, seed: int) -> bytes:
+    if case == "prog_saturated_420":
+        img = np.random.default_rng(seed).integers(0, 2, (61, 83, 3)) * 255
+        return jf.cv2_encode(img.astype(np.uint8), 75, "420",
+                             progressive=True)
+    _, lib, s, size = case.split("_")
+    if "-" in size:                            # a restart interval
+        n = int(size.split("-")[1])
+        return jf.cv2_encode(jf.render(75, 93, seed), 90, s, restart=n,
+                             progressive=True)
+    h, w = map(int, size.split("x"))
+    img = jf.render(h, w, seed, noise=12.0)
+    if lib == "cv2":
+        if s == "gray":
+            return jf.cv2_encode(img[..., 1], 85, progressive=True)
+        return jf.cv2_encode(img, 85, s, progressive=True)
+    kw = dict(quality=85, progressive=True, optimize=True)
+    if s == "gray":
+        return jf.pil_encode(img[..., 1], **kw)
+    return jf.pil_encode(img, subsampling={"444": 0, "422": 1,
+                                           "420": 2}[s], **kw)
+
+
 @pytest.mark.parametrize("case", _seeded_cases())
 def test_seeded_case_decodes_as_libjpeg(case):
     buf = _seeded(case)
     if case == "sof1_16bit":
         assert b"\xff\xc1" in buf                  # SOF1 with 16-bit DQT
+    if case.startswith("prog"):
+        assert b"\xff\xc2" in buf                  # SOF2
     _assert_decodes_as_libjpeg(buf, case)
 
 
+@pytest.mark.parametrize("case", _seeded_cases())
+def test_seeded_case_decodes_as_libjpeg_at_each_scale(case):
+    """1/8 (IDCT 1x1, no fancy upsampling), 2/8 and 4/8 (jidctred.c's
+    reduced IDCTs, chroma scaled up by IDCT where that makes upsampling
+    1:1) against OpenCV's reduced reads."""
+    buf = _seeded(case)
+    for s in jf.SCALES:
+        np.testing.assert_array_equal(jpeg.decode(buf, s),
+                                      jf.libjpeg_rgb(buf, s),
+                                      err_msg=f"{case} at {s}/8")
+
+
+# every sampling, baseline and progressive, with sides multiples of 8
+THREE_EIGHTHS = [f"{mode}_{s}" for mode in ("baseline", "progressive")
+                 for s in jf.SAMPLINGS + ("gray",)] + [
+    "restart_420", "pil_progressive_444", "separate_scans_420"]
+
+
+def _three_eighths_case(case: str) -> bytes:
+    img = jf.render(48, 72, zlib.crc32(case.encode()), noise=12.0)
+    if case == "restart_420":
+        return jf.cv2_encode(img, 90, "420", restart=2)
+    if case == "pil_progressive_444":
+        return jf.pil_encode(img, quality=90, subsampling=0,
+                             progressive=True, optimize=True)
+    if case == "separate_scans_420":
+        return jf.encode_separate_scans(img, 85, (2, 2), restart=3)
+    mode, s = case.split("_")
+    kw = dict(progressive=mode == "progressive")
+    if s == "gray":
+        return jf.cv2_encode(img[..., 0], 90, **kw)
+    return jf.cv2_encode(img, 90, s, **kw)
+
+
+@pytest.mark.parametrize("case", THREE_EIGHTHS)
+def test_three_eighths_matches_the_jax_native_loader(case):
+    """3/8 (jidctint.c's 3x3, and 6x6 for 4:2:0 chroma) against the
+    system's libjpeg-turbo, read through the JAX native loader's exact
+    3/8 crop."""
+    buf = _three_eighths_case(case)
+    try:
+        want = jf.libjpeg_rgb_3_8(buf)
+    except RuntimeError as e:
+        pytest.skip(str(e))
+    got = jpeg.decode(buf, 3)
+    assert got.shape == (18, 27, 3)
+    np.testing.assert_array_equal(got, want, err_msg=case)
+
+
+def _scan_offsets(buf: bytes) -> list:
+    return [i for i in range(len(buf) - 1) if buf[i:i + 2] == b"\xff\xda"]
+
+
 @pytest.mark.parametrize("how", ["half", "headers", "before_eoi", "garbage",
-                                 "empty", "bad_huffman", "bad_rst"])
+                                 "empty", "bad_huffman", "bad_rst",
+                                 "progressive_half", "progressive_bad_band",
+                                 "progressive_bad_al"])
 def test_truncated_or_corrupt_bytes_raise(how):
     buf = jf.cv2_encode(jf.render(48, 64, 7), 90, restart=2)
     sos = buf.index(b"\xff\xda")
-    if how == "half":
+    if how.startswith("progressive"):
+        buf = jf.cv2_encode(jf.render(48, 64, 7), 90, restart=2,
+                            progressive=True)
+        # the second scan, an AC scan of one component: its header's Ss,
+        # Se and Ah/Al follow the marker, the length, Ns and one selector
+        ss = _scan_offsets(buf)[1] + 7
+    if how == "progressive_half":
+        bad = buf[:len(buf) // 2]
+    elif how == "progressive_bad_band":
+        bad = buf[:ss] + bytes([buf[ss + 1] + 1, buf[ss + 1]]) + buf[ss + 2:]
+    elif how == "progressive_bad_al":
+        bad = buf[:ss + 2] + b"\x0e" + buf[ss + 3:]        # Al 14
+    elif how == "half":
         bad = buf[:len(buf) // 2]
     elif how == "headers":
         bad = buf[:sos + 6]
@@ -182,13 +340,22 @@ def _refused_cases():
     img = jf.render(24, 32, 3)
     prog = jf.cv2_encode(img, 90, progressive=True)
     sof = prog.index(b"\xff\xc2")
+    # the file cut after its DC refinement scan: AC coefficients 1-9 are
+    # left unfinished, which libjpeg would block-smooth
+    unfinished = prog[:_scan_offsets(prog)[7]] + b"\xff\xd9"
+    sub44 = jf.encode_separate_scans(jf.render(64, 64, 3), 85, (4, 4))
     return {
-        "progressive": (prog, "progressive (SOF2)"),
+        "progressive": (prog[:sof + 1] + b"\xca" + prog[sof + 2:],
+                        "progressive arithmetic coding (SOF10)"),
         "arithmetic": (prog[:sof + 1] + b"\xc9" + prog[sof + 2:],
                        "arithmetic coding (SOF9)"),
         "12-bit": (prog[:sof + 1] + b"\xc0" + prog[sof + 2:sof + 4] + b"\x0c"
                    + prog[sof + 5:], "12-bit samples"),
         "cmyk": (_pil_cmyk(img), "CMYK/YCCK (4 components)"),
+        "block_smoothing": (unfinished, "progressive with unfinished AC "
+                            "coefficients (libjpeg block smoothing)"),
+        # 4x4-subsampled chroma at 3/8 needs a 12x12 IDCT
+        "idct_12": (sub44, "IDCT size 12"),
     }
 
 
@@ -200,13 +367,37 @@ def _pil_cmyk(rgb):
 
 
 @pytest.mark.parametrize("mode", ["progressive", "arithmetic", "12-bit",
-                                  "cmyk"])
+                                  "cmyk", "block_smoothing", "idct_12"])
 def test_refused_modes_are_named(mode):
     buf, named = _refused_cases()[mode]
     with pytest.raises(jpeg.UnsupportedJpeg) as e:
-        jpeg.decode(buf)
+        jpeg.decode(buf, 3 if mode == "idct_12" else 8)
     assert e.value.mode == named
     assert isinstance(e.value, IOError)
+    if mode == "idct_12":                      # other scales decode it
+        for s in (*jf.SCALES, 8):
+            np.testing.assert_array_equal(jpeg.decode(buf, s),
+                                          jf.libjpeg_rgb(buf, s))
+
+
+def test_unfinished_progressive_files_are_what_libjpeg_smooths():
+    """Each cut of a progressive file before its last scan is refused,
+    and the whole file decodes: the refusal is smoothing_ok's rule."""
+    prog = jf.cv2_encode(jf.render(40, 56, 5), 90, "444", progressive=True)
+    scans = _scan_offsets(prog)
+    assert len(scans) == 10
+    for k in scans[1:]:
+        with pytest.raises(jpeg.UnsupportedJpeg, match="block smoothing"):
+            jpeg.decode(prog[:k] + b"\xff\xd9")
+    np.testing.assert_array_equal(jpeg.decode(prog), jf.libjpeg_rgb(prog))
+
+
+@pytest.mark.parametrize("scale_num", [0, 9])
+def test_scales_outside_one_to_eight_are_bad_arguments(scale_num):
+    buf = (jf.FIXTURE_DIR / "s420_37x29.jpg").read_bytes()
+    with pytest.raises(IOError, match="not in 1..8") as e:
+        jpeg.decode(buf, scale_num)
+    assert not isinstance(e.value, jpeg.UnsupportedJpeg)
 
 
 def test_decode_counter_counts_decodes():
@@ -219,39 +410,47 @@ def test_decode_counter_counts_decodes():
     assert jpeg.decode_count() == 3
 
 
-def test_imread_takes_the_decoder_without_the_native_loader(tmp_path,
-                                                            monkeypatch):
+def test_imread_takes_the_decoder_without_the_native_loader(tmp_path):
+    """imread decodes with the port's decoder, never through the native
+    loader's library (which holds the same decoder)."""
     name = "h36m_1000x1000.jpg"
     path = tmp_path / name
     path.write_bytes((jf.FIXTURE_DIR / name).read_bytes())
-    monkeypatch.setattr(fastloader, "available", lambda: False)
     jpeg.reset_count()
+    fastloader.reset_counts()
     rgb = tzip.imread(str(path), rgb=True)
     bgr = tzip.imread(str(path))
     assert jpeg.decode_count() == 2
+    assert fastloader.decode_counts() == {"scale": {}, "failed": 0}
     assert jf.rgb_sha256(rgb) == MANIFEST[name]["rgb_sha256"]
     np.testing.assert_array_equal(bgr, rgb[..., ::-1])
 
 
 def test_imread_sends_a_refused_mode_to_opencv(tmp_path, monkeypatch):
-    """Progressive goes to OpenCV; without OpenCV it raises with the path
-    and the mode."""
-    name = "progressive_64x48.jpg"
-    path = tmp_path / name
-    path.write_bytes((jf.FIXTURE_DIR / name).read_bytes())
-    monkeypatch.setattr(fastloader, "available", lambda: False)
+    """CMYK goes to OpenCV; without OpenCV it raises with the path and the
+    mode. A progressive file no longer goes there."""
+    path = tmp_path / "cmyk_32x24.jpg"
+    path.write_bytes(_refused_cases()["cmyk"][0])
+    jpeg.reset_count()
     np.testing.assert_array_equal(tzip.imread(str(path), rgb=True),
                                   jf.libjpeg_rgb(path.read_bytes()))
+    prog = tmp_path / "progressive_64x48.jpg"
+    prog.write_bytes((jf.FIXTURE_DIR / prog.name).read_bytes())
+    want = jf.libjpeg_rgb(prog.read_bytes())
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(ImportError, match="progressive") as e:
+    np.testing.assert_array_equal(tzip.imread(str(prog), rgb=True), want)
+    assert jpeg.decode_count() == 1            # the refused CMYK not counted
+    with pytest.raises(ImportError, match="CMYK") as e:
         tzip.imread(str(path))
     assert str(path) in str(e.value) and "OpenCV" in str(e.value)
 
 
 def test_mutated_files_fail_cleanly_under_sanitizers(tmp_path):
-    """Mutated and truncated fixtures through the decoder built with
-    AddressSanitizer and UndefinedBehaviorSanitizer (``tests/jpeg_fuzz.cpp``):
-    every call returns a status, none faults."""
+    """Mutated and truncated fixtures, the progressive ones among them
+    (EOB runs, refinement scans), through the decoder built with
+    AddressSanitizer and UndefinedBehaviorSanitizer (``tests/jpeg_fuzz.cpp``),
+    each at full size and at a DCT scale of 1/8 to 4/8: every call
+    returns a status, none faults."""
     import shutil
     import subprocess
     cxx = shutil.which("g++")
@@ -267,11 +466,14 @@ def test_mutated_files_fail_cleanly_under_sanitizers(tmp_path):
         pytest.skip(f"g++ cannot build with sanitizers: {build.stderr[-300:]}")
     files = [str(jf.FIXTURE_DIR / n) for n, e in MANIFEST.items()
              if e["bytes"] < 5000]
+    progressive = [f for f in files if "progressive" in f]
+    assert len(progressive) >= 4
     run = subprocess.run([str(exe), "300", *files], capture_output=True,
                          text=True, timeout=120)
     assert run.returncode == 0, run.stderr[-2000:]
-    ok, refused = map(int, run.stdout.split()[1::2])
+    ok, refused, ok_scaled = map(int, run.stdout.split()[1::2])
     assert ok > len(files) and refused > len(files)
+    assert ok_scaled > len(files)
 
 
 def test_parallel_decodes_match_the_manifest():

@@ -15,12 +15,16 @@ package's.
   the card's route) against JAX with its native loader off (OpenCV's
   decode and ``warpAffine``): within one grey level, and equal bits
   outside the last W mod 16 columns (OpenCV's scalar tail). With the
-  native loader on, on both sides: equal.
+  native loader on, on both sides (the port's own decoder, no libjpeg,
+  against the JAX package's libjpeg): equal, on that tree (64 px crops
+  pick the DCT scale 2/8) and on a progressive twin at 64, 128 and 256 px
+  crops (2/8, 3/8, 8/8).
 - ``scripts.valid.main`` with ``--device cpu`` on
   ``valid_3dhp_transfer.yaml`` cut to the debug width, against JAX
-  ``validate`` with the same weights (``from_jax_variables``):
-  PCK3D@150 and AUC within one joint's share, MPJPE within 1e-4
-  relative (the crops are equal at 64 px).
+  ``validate`` with the same weights (``from_jax_variables``), the
+  native loader off on both sides, and on both sides on: PCK3D@150 and
+  AUC within one joint's share, MPJPE within 1e-4 relative (the crops
+  are equal at 64 px).
 """
 
 import pathlib
@@ -276,6 +280,34 @@ def test_batches_with_the_native_loader_match_jax(frames_tree):
         np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
 
 
+@pytest.fixture(scope="module")
+def progressive_tree(frames_tree, tmp_path_factory):
+    """``frames_tree`` with progressive frames (OpenCV's scans)."""
+    root = tmp_path_factory.mktemp("progressive")
+    shutil.copytree(frames_tree, root, dirs_exist_ok=True)
+    for ts, (h, w) in ((1, (2048, 2048)), (2, (1080, 1920))):
+        buf = jf.cv2_encode(jf.render(h, w, seed=ts), 90, progressive=True)
+        for f in range(8):
+            (root / f"TS{ts}" / "imageSequence" / f"img_{f + 1:06d}.jpg"
+             ).write_bytes(buf)
+    return root
+
+
+@pytest.mark.parametrize("crop,scale_num", [(64, 2), (128, 3), (256, 8)])
+def test_progressive_batches_with_the_native_loader_match_jax(
+        progressive_tree, crop, scale_num):
+    """The port's decoder in its loader against libjpeg on progressive
+    2048 x 2048 and 1920 x 1080 frames, at crops whose boxes pick the DCT
+    scales 2/8, 3/8 and 8/8."""
+    if not jfast.available():
+        pytest.skip("no jpeglib.h: the JAX native loader cannot build")
+    tfast.reset_counts()
+    jb, tb = _batches(progressive_tree, (crop, crop), native=True)
+    for k in jb:
+        np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
+    assert tfast.decode_counts() == {"scale": {scale_num: 14}, "failed": 0}
+
+
 # ------------------------------------------------------ the valid CLI
 class _State(NamedTuple):
     params: dict
@@ -284,15 +316,30 @@ class _State(NamedTuple):
 
 def test_valid_cli_matches_jax_validate(frames_tree, tmp_path, monkeypatch):
     """``valid_3dhp_transfer.yaml`` at the debug width (ResNet-18, 64 px,
-    DEPTH_DIM 8, flip test), float32, the same weights on both sides."""
+    DEPTH_DIM 8, flip test), float32, the same weights on both sides; the
+    port's decoder on the pool route against OpenCV's."""
     monkeypatch.setattr(tfast, "available", lambda: False)
+    _valid_case(frames_tree, tmp_path, native=False)
+
+
+def test_valid_cli_with_the_native_loader_matches_jax_validate(
+        frames_tree, tmp_path):
+    """The same with ``TPU.NATIVE_LOADER: true`` on both sides: the port's
+    loader (its decoder at 1/8 and 2/8, no libjpeg) against the JAX
+    package's (libjpeg); every frame through the loader."""
+    if not jfast.available():
+        pytest.skip("no jpeglib.h: the JAX native loader cannot build")
+    _valid_case(frames_tree, tmp_path, native=True)
+
+
+def _valid_case(frames_tree, tmp_path, native: bool):
     cfg = yaml.safe_load(TRANSFER.read_text())
     debug = yaml.safe_load(DEBUG_3D.read_text())
     cfg["MODEL"] = debug["MODEL"]
     cfg["DATASET"]["ROOT"] = str(frames_tree)
     cfg["TEST"]["BATCH_SIZE"] = 8
     cfg["WORKERS"] = 2
-    cfg["TPU"] = {"COMPUTE_DTYPE": "float32", "NATIVE_LOADER": False}
+    cfg["TPU"] = {"COMPUTE_DTYPE": "float32", "NATIVE_LOADER": native}
     cfg_path = tmp_path / "valid_3dhp_debug.yaml"
     cfg_path.write_text(yaml.safe_dump(cfg))
 
@@ -317,12 +364,21 @@ def test_valid_cli_matches_jax_validate(frames_tree, tmp_path, monkeypatch):
         _State(params, stats), jstep)
 
     jpeg.reset_count()
+    tfast.reset_counts()
     with quiet_cli():
         perf = valid_cli.main(["--cfg", str(cfg_path), "--model-file",
                                str(weights), "--device", "cpu",
                                "--modelDir", str(tmp_path / "out"),
                                "--logDir", str(tmp_path / "log")])
-    assert jpeg.decode_count() == 16        # 14 frames + the padded 2
+    # 14 frames + the padded 2, through the decoder or the loader
+    native_counts = tfast.decode_counts()
+    if native:
+        assert jpeg.decode_count() == 0 and native_counts["failed"] == 0
+        assert sum(native_counts["scale"].values()) == 16
+        assert set(native_counts["scale"]) <= {1, 2}
+    else:
+        assert jpeg.decode_count() == 16
+        assert native_counts == {"scale": {}, "failed": 0}
     preds = np.load(next((tmp_path / "out").rglob("pred.npz")))["preds"]
     _, tcfg = _configs()
     tcfg.DATASET.MAP_H36M_JOINTS = True
