@@ -113,7 +113,17 @@ card, then drives the port's paths through their entry points:
    manifest; ms a decode of the 2048 x 2048, 1920 x 1080 and 1000 x 1000
    frames, and the rate on 1, 2, 4 and 8 threads; ``demo --image`` on
    the 2048 x 2048 frame at ResNet-50@256, one decode through
-   ``imread``'s decoder and none through the native loader;
+   ``imread``'s decoder and none through the native loader; then every
+   file of ``tests/data/jpeg/modes`` (arithmetic coding, unfinished
+   progressive scans that libjpeg block-smooths, 4x4-subsampled chroma,
+   CMYK and YCCK, truncated data, a lost restart marker, coefficients past
+   16 bits, EXIF orientations 1-8) against its manifest's sha256 of
+   libjpeg-turbo 2.1's decode at 8/8 and 1/8-4/8 and libjpeg's warning,
+   ``imread`` against the JAX package's (OpenCV's) image from a path and
+   from a zip member; lossless, hierarchical and 12-bit refused by name,
+   nothing else; ms a decode of the arithmetic and block-smoothed twins
+   of the 2048 x 2048 frame; ``demo --image`` on the orientation-6 photo
+   (one decode, one soft-argmax launch, the crop upright);
 19. the H36M -> MPI-INF-3DHP transfer evaluation through the ``valid``
    CLI (``experiments/h36m/valid_3dhp_transfer.yaml`` unchanged,
    ``--dataDir`` at a tree of 2 x 129 frames: 256 records, 4 batches of
@@ -138,7 +148,7 @@ card, then drives the port's paths through their entry points:
    96);
 22. data parallelism at that config: two ranks sharing the card over
    ``gloo`` (``python3 chip_smoke.py --ddp-rank <dir>``, 24 crops each)
-   against one process of 48 for 2 steps in float32 with TF32 off and
+   against one process of 48 for a step in float32 with TF32 off and
    REMAT on (the ranks equal bit for bit; the losses and BN buffers
    against the one process, the gradients no further from a float64
    evaluation than the one process's), then their bf16 step timed
@@ -224,7 +234,14 @@ card, then drives the port's paths through their entry points:
    ``train_ss_r50_256_integral.yaml`` at each ``SS_TEACHER_SCALE``, 1.0
    and 0.5, fed by ``_dual_batch_native`` from the 1000 x 1000 frame
    (loader img/s, a soft-argmax forward and backward and a triangulation
-   a step).
+   a step); then every file of ``tests/data/jpeg/modes`` through the
+   loader at 8/8 to 1/8 against the JAX loader's crop hashes in its
+   manifest, failing only on the CMYK/YCCK files as that loader does,
+   the 4x4-subsampled frames at 3/8; the arithmetic-coded and
+   block-smoothed twins of the 2048 x 2048 frame as that tree through
+   ``valid`` (every frame through the loader, one soft-argmax launch a
+   batch), and two SS steps fed from the arithmetic twin (both soft-argmax
+   kernels and ``epk_triangulate_split`` a step).
 
 Kernel launch counters are set to 0 just before each path and read just
 after it (phases 22's and 26's rank processes report their own). Each phase checks
@@ -262,10 +279,10 @@ PHASE_LIMITS = {"build": 120.0, "softargmax": 30.0, "matmul_stats": 60.0,
                 "pose2d_data": 60.0, "image_libs": 1.0, "cli": 300.0,
                 "ss_convergence": 120.0, "ss_nocam": 150.0,
                 "pseudo_gt": 120.0, "loader_workers": 360.0,
-                "jpeg": 15.0, "mpi3dhp": 30.0, "warp": 15.0,
+                "jpeg": 25.0, "mpi3dhp": 30.0, "warp": 15.0,
                 "remat": 150.0, "ddp": 420.0, "fused": 300.0,
                 "export": 90.0, "user_tools": 90.0, "spatial": 150.0,
-                "processes": 30.0, "native_loader": 90.0}
+                "processes": 30.0, "native_loader": 65.0}
 
 # H36M left/right joint pairs (the JAX package's data/h36m.py FLIP_PAIRS)
 H36M_FLIP_PAIRS = ((1, 4), (2, 5), (3, 6), (11, 14), (12, 15), (13, 16))
@@ -2542,6 +2559,15 @@ JPEG_FIXTURES = ROOT / "tests" / "data" / "jpeg"
 JPEG_FRAMES = ("3dhp_studio_2048x2048.jpg", "3dhp_outdoor_1920x1080.jpg",
                "h36m_1000x1000.jpg")
 JPEG_REPS, JPEG_THREADS, JPEG_ROUNDS = 10, (1, 2, 4, 8), 16
+# the files of the modes OpenCV and Pillow do not write and of the ways a
+# file goes wrong (tests/jpeg_fixtures.py), with the arithmetic-coded and
+# the block-smoothed twins of the 2048 x 2048 frame, and the EXIF
+# orientation-6 photo that phase 18's second demo reads
+JPEG_MODES = JPEG_FIXTURES / "modes"
+MODE_TWINS = ("3dhp_studio_arith_2048x2048.jpg",
+              "3dhp_studio_smoothed_2048x2048.jpg")
+PORTRAIT = "exif_orientation6_40x24.jpg"
+TWIN_REPS = 10
 # the 3DHP tree: 2 sequences of 129 frames, the last of each invalid: 256
 # records, 4 batches of 64
 MPI3DHP_FRAMES = 129
@@ -2550,6 +2576,122 @@ WARP_CROPS = 64
 
 def jpeg_manifest() -> dict:
     return json.loads((JPEG_FIXTURES / "manifest.json").read_text())
+
+
+def modes_manifest() -> dict:
+    return json.loads((JPEG_MODES / "manifest.json").read_text())
+
+
+def rgb_sha(img) -> str:
+    import hashlib
+
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def jpeg_modes() -> dict:
+    """Every file of ``tests/data/jpeg/modes`` through the port's decoder
+    on this host (no libjpeg, no OpenCV): its manifest's sha256 of
+    libjpeg-turbo 2.1's decode at 8/8 and at 1/8-4/8 and libjpeg's
+    warning; ``imread``'s image against the JAX package's (OpenCV's,
+    EXIF orientation applied) from a plain path and from a ``zip@`` path,
+    whose truncated members it refuses; the refused set: lossless,
+    hierarchical and 12-bit, named, and nothing of the modes; ms a
+    decode (median of TWIN_REPS) of the arithmetic and block-smoothed
+    twins of the 2048 x 2048 frame (phase 18 times the frame itself)."""
+    import tempfile
+    import zipfile
+
+    from epipolarpose_tpu_torch.data import jpeg, zipreader
+    manifest = modes_manifest()
+    kinds: dict = {}
+    with tempfile.TemporaryDirectory(prefix="epk_modes_") as tmp:
+        archive = pathlib.Path(tmp) / "modes.zip"
+        with zipfile.ZipFile(archive, "w") as z:
+            for name in manifest:
+                z.write(JPEG_MODES / name, name)
+        for name, e in manifest.items():
+            buf = (JPEG_MODES / name).read_bytes()
+            for s in (8, 1, 2, 3, 4):
+                want = (e["rgb_sha256"] if s == 8
+                        else e["scaled_rgb_sha256"][str(s)])
+                try:
+                    img, kind = jpeg.decode(buf, s), None
+                except jpeg.JpegWarning as w:
+                    img, kind = w.image, "ended" if w.ended else "warned"
+                check(rgb_sha(img) == want, f"{name} at {s}/8: the decode "
+                      f"differs from libjpeg-turbo 2.1's")
+                if s == 8:
+                    check(kind == e["warning"], f"{name}: warning {kind}, "
+                          f"libjpeg gives {e['warning']}")
+                    kinds[str(kind)] = kinds.get(str(kind), 0) + 1
+            for path, key in ((str(JPEG_MODES / name), "imread_sha256"),
+                              (f"{archive}@/{name}", "imdecode_sha256")):
+                try:
+                    got = rgb_sha(zipreader.imread(path, rgb=True))
+                except IOError:
+                    got = None
+                check(got == e[key], f"{name}: imread of {path} differs "
+                      f"from the JAX package's")
+    base = (JPEG_FIXTURES / "s420_37x29.jpg").read_bytes()
+    sof = base.index(b"\xff\xc0")
+    refused = []
+    for mode, bad in (
+            ("lossless (SOF3)", base[:sof + 1] + b"\xc3" + base[sof + 2:]),
+            ("hierarchical (SOF5)", base[:sof + 1] + b"\xc5" + base[sof + 2:]),
+            ("12-bit samples", base[:sof + 4] + b"\x0c" + base[sof + 5:])):
+        try:
+            jpeg.decode(bad)
+            check(False, f"{mode} decoded; libjpeg refuses it")
+        except jpeg.UnsupportedJpeg as e:
+            check(e.mode == mode, f"refused as {e.mode}, not {mode}")
+            refused.append(mode)
+    ms = {}
+    for name in MODE_TWINS:
+        buf = (JPEG_MODES / name).read_bytes()
+        jpeg.decode(buf)
+        times = []
+        for _ in range(TWIN_REPS):
+            t = time.perf_counter()
+            jpeg.decode(buf)
+            times.append((time.perf_counter() - t) * 1e3)
+        ms[name] = dict(median=sorted(times)[len(times) // 2],
+                        min=min(times), bytes=len(buf))
+    return dict(files=len(manifest), warnings=kinds, refused=refused, ms=ms)
+
+
+def portrait_demo(res: dict, tmp: str) -> dict:
+    """``demo --image`` on the EXIF orientation-6 photo at ResNet-50@256:
+    one decode through imread, one soft-argmax launch, and the crop
+    upright: the photo stands 40 high and 24 wide once turned, so the
+    square crop's left and right eighths are padding (black) and its top
+    and bottom eighths are not (the other way round without the turn)."""
+    import numpy as np
+    from epipolarpose_tpu_torch.data import zipreader
+    from epipolarpose_tpu_torch.scripts import demo
+    from epipolarpose_tpu_torch.utils.vis import read_png
+    path = str(JPEG_MODES / PORTRAIT)
+    check(zipreader.imread(path).shape == (40, 24, 3),
+          "imread did not turn the orientation-6 photo upright")
+    reset_decodes()
+    c = res["paths"]["jpeg_portrait_demo"] = {}
+    shown = run_cli(demo.main, [
+        "--cfg", str(ROOT / "experiments/h36m/valid_r50_256_integral.yaml"),
+        "--image", path, "--out", tmp], c)
+    d = decodes_by_library()
+    check(d["jpeg"] == d["total"] == 1 and not d["failed"],
+          f"the portrait demo decoded {d}")
+    check(c["softargmax_fwd"] == 1, f"the portrait demo launched {c}")
+    png = shown["files"][0]
+    check_png(png, (258, 258))
+    img = read_png(png)
+    dark = img[1:-1, 1:-1, :3].max(-1) < 8          # inside the 1 px frame
+    band = dark.shape[1] // 8
+    sides = float(np.concatenate([dark[:, :band], dark[:, -band:]], 1).mean())
+    ends = float(np.concatenate([dark[:band], dark[-band:]], 0).mean())
+    check(sides > 0.8 and ends < 0.6, f"the crop is not upright: dark "
+          f"share {sides:.2f} at the sides, {ends:.2f} at the ends")
+    return dict(wall_s=c["wall_s"], dark_sides=sides, dark_ends=ends)
 
 
 def phase_jpeg(res: dict) -> None:
@@ -2623,10 +2765,14 @@ def phase_jpeg(res: dict) -> None:
         check(c["softargmax_fwd"] == 1, f"demo launched {c}")
         check_png(shown["files"][0], (258, 258))
         check(bool(np.isfinite(shown["pose3d"]).all()), "demo pose")
+    modes = jpeg_modes()
+    with tempfile.TemporaryDirectory(prefix="epk_demo_") as tmp:
+        portrait = portrait_demo(res, tmp)
     loaded = [m for m in IMAGE_LIBS if m in sys.modules]
     check(not loaded, f"the JPEG path imported {loaded}")
     res["jpeg"] = dict(build_s=build_s, ms=ms, threads=threads,
-                       refused=refused, demo_wall_s=c["wall_s"])
+                       refused=refused, demo_wall_s=c["wall_s"],
+                       modes=modes, portrait=portrait)
     log(f"[jpeg] {len(manifest) - len(refused)} fixtures decode to "
         f"libjpeg-turbo's sha256 on this host"
         + "".join(f", {k} refused ({v})" for k, v in refused.items())
@@ -2639,24 +2785,37 @@ def phase_jpeg(res: dict) -> None:
             f"Mpix/s (x{v['speedup']:.2f})" for n, v in threads.items())
         + f" ({os.cpu_count()} CPUs); demo --image {JPEG_FRAMES[0]} at "
         f"ResNet-50@256 in {c['wall_s']:.2f} s, one decode, one launch")
+    log(f"[jpeg] modes: {modes['files']} files of tests/data/jpeg/modes "
+        f"decode to libjpeg-turbo 2.1's sha256 at 8/8 and 1/8-4/8 (warnings "
+        f"{modes['warnings']}), imread gives the JAX package's image from a "
+        f"path and a zip member; refused only "
+        + ", ".join(modes["refused"]) + "; ms a decode (median / min of "
+        f"{TWIN_REPS}): " + ", ".join(
+            f"{k} {v['median']:.2f} / {v['min']:.2f} ({v['bytes']} bytes)"
+            for k, v in modes["ms"].items())
+        + f"; demo --image {PORTRAIT} upright (dark share "
+        f"{portrait['dark_sides']:.2f} at the sides, "
+        f"{portrait['dark_ends']:.2f} at the ends) in "
+        f"{portrait['wall_s']:.2f} s, one decode, one launch")
 
 
-def make_3dhp_tree(tmp: pathlib.Path, cfg):
+def make_3dhp_tree(tmp: pathlib.Path, cfg, frames=None):
     """Phase 19's 3DHP tree under ``tmp``: annotations from
     ``write_synthetic_3dhp``, the 2048 x 2048 fixture as every TS1 frame
-    and the 1920 x 1080 one as every TS2 frame (the pixels do not match
-    the poses; the route and its rate are what is checked). Returns its
-    dataset."""
+    and the 1920 x 1080 one as every TS2 frame, or the two files of
+    ``frames`` (the pixels do not match the poses; the route and its rate
+    are what is checked). Returns its dataset."""
     import shutil
     from epipolarpose_tpu_torch.data.mpi3dhp import (MPI3DHPDataset,
                                                      write_synthetic_3dhp)
     tree = tmp / cfg.DATASET.ROOT
     write_synthetic_3dhp(str(tree), num_frames=MPI3DHP_FRAMES, seed=7)
-    for ts, frame in ((1, JPEG_FRAMES[0]), (2, JPEG_FRAMES[1])):
+    frames = frames or (JPEG_FIXTURES / JPEG_FRAMES[0],
+                        JPEG_FIXTURES / JPEG_FRAMES[1])
+    for ts, frame in ((1, frames[0]), (2, frames[1])):
         seq = tree / f"TS{ts}" / "imageSequence"
         for f in range(MPI3DHP_FRAMES):
-            shutil.copyfile(JPEG_FIXTURES / frame,
-                            seq / f"img_{f + 1:06d}.jpg")
+            shutil.copyfile(frame, seq / f"img_{f + 1:06d}.jpg")
     cfg.DATASET.ROOT = str(tree)
     ds = MPI3DHPDataset(cfg, str(tree), "test", is_train=False)
     check(len(ds) == 4 * EVAL_BATCH, f"{len(ds)} records")
@@ -2868,9 +3027,10 @@ R152_CONFIG = "h36m/train_fs_r152_384_integral.yaml"
 # steps timed after REMAT_WARMUP, then REMAT_TRACED traced; the ddp
 # phase: DDP_RANKS ranks of R152_BATCH crops against one process of
 # their global batch for DDP_STEPS steps, then DDP_TIMED bf16 steps
-# timed after DDP_WARMUP (1 after 1: the smoke's time; 3 after 2 before)
+# timed after DDP_WARMUP (1 after 1: the smoke's time; 3 after 2 before;
+# one step compared, two before, to make room for phases 18 and 28)
 R152_BATCH, REMAT_WARMUP, REMAT_TIMED, REMAT_TRACED = 24, 2, 3, 2
-DDP_RANKS, DDP_STEPS, DDP_WARMUP, DDP_TIMED = 2, 2, 1, 1
+DDP_RANKS, DDP_STEPS, DDP_WARMUP, DDP_TIMED = 2, 1, 1, 1
 # the CLIs at r152@384 with and without --distributed: 48 records, two
 # train steps of 24 and two eval batches
 DDP_CLI_SAMPLES = 48
@@ -3265,7 +3425,8 @@ def ddp_ranks_on_one_card(res: dict, tmp: pathlib.Path) -> None:
         f"twice the one process's); BN buffers after "
         f"step 1 worst {bname} at {bgap:.3g} of its largest entry (limit "
         f"1e-4); parameters after step {DDP_STEPS} max |d| {pmax:.3g} "
-        f"({2 * lr * DDP_STEPS:g} is two Adam steps of lr each way: the "
+        f"({2 * lr * DDP_STEPS:g} is {DDP_STEPS} Adam step(s) of lr each "
+        f"way: the "
         f"sign of near-zero gradients); the ranks equal bit for "
         f"bit; launches {counts['softargmax_fwd']} forward, "
         f"{counts['softargmax_bwd']} backward on the ranks")
@@ -4766,13 +4927,16 @@ def native_valid(res: dict) -> dict:
     return out
 
 
-def native_ss(res: dict) -> dict:
+def native_ss(res: dict, runs) -> dict:
     """A few SS steps of ``train_ss_r50_256_integral.yaml`` (a random
     bf16 teacher, its confidence gate ``TPU.SS_CONF_MIN`` at 0 so that
     its detections are trained on) fed by
-    ``H36MDataset._dual_batch_native`` through ``view_batches``, at each
-    teacher scale: loader img/s (student images counted), the steps'
-    launches and losses, every decode through the loader."""
+    ``H36MDataset._dual_batch_native`` through ``view_batches``: for each
+    ``(frame, scales, key, passes)`` of ``runs``, a tree whose frames are
+    that file, at each teacher scale of ``scales``, the loader's rate the
+    median of ``passes`` passes: loader img/s (student images counted),
+    the steps' launches (path ``<key>_<scale>``) and losses, every decode
+    through the loader. One model, teacher and state serve every run."""
     import shutil
     import tempfile
 
@@ -4795,63 +4959,135 @@ def native_ss(res: dict) -> dict:
     orig = h36m_mod.CAMERA_IDS
     out = {}
     try:
-        write_synthetic_h36m(str(tmp), cfg, num_frames=NATIVE_SS_FRAMES,
-                             jpeg=(JPEG_FIXTURES / JPEG_FRAMES[2]).read_bytes())
         h36m_mod.CAMERA_IDS = ("0", "1", "2", "3")
-        ds = h36m_mod.H36MDataset(cfg, str(tmp), "train", is_train=True)
         gen = torch.Generator().manual_seed(71)
         model = get_model(cfg, True, gen)
         teacher = tss.load_teacher(cfg, "cuda", gen)
         state = create_train_state(cfg, model, steps_per_epoch=100,
                                    device=torch.device("cuda"))
-        for scale in NATIVE_SS_SCALES:
-            cfg.TPU.SS_TEACHER_SCALE = scale
-            step = tss.make_ss_train_step(cfg, state.model, teacher,
-                                          device=torch.device("cuda"),
-                                          flip_pairs=ds.flip_pairs)
-            reset_decodes()
-            passes = []
-            for _ in range(NATIVE_SS_PASSES):
-                t0 = time.perf_counter()
-                batches = list(ds.view_batches(SS_GROUPS, seed=3,
-                                               augment=True))
-                passes.append(time.perf_counter() - t0)
-            load_s = sorted(passes)[len(passes) // 2]
-            d = decodes_by_library()
-            views = len(h36m_mod.CAMERA_IDS)
-            check(len(batches) == NATIVE_SS_FRAMES // SS_GROUPS
-                  and d["jpeg"] == 0 and not d["failed"]
-                  and d["total"] == NATIVE_SS_PASSES * NATIVE_SS_FRAMES
-                  * views, f"teacher scale {scale}: {len(batches)} "
-                  f"batches, decodes {d}")
-            side = int(cfg.MODEL.IMAGE_SIZE[0] * scale)
-            check(batches[0]["input"].shape[-3:-1] == (side, side)
-                  and batches[0]["input_aug"].shape[-3:-1] == (256, 256),
-                  f"crops {batches[0]['input'].shape}, "
-                  f"{batches[0]['input_aug'].shape}")
-            key = f"native_ss_{scale}"
-            reset_counts()
-            losses = []
-            for b in batches:
-                b.pop("joints_3d", None)
-                state, m = step(state, _to_device(b, torch.device("cuda")))
-                losses.append(float(m["loss"]))
-            torch.cuda.synchronize()
-            c = res["paths"][key] = launch_counts()
-            steps = len(batches)
-            check(c["softargmax_fwd"] == c["softargmax_bwd"]
-                  == c["triangulate"] == c["teacher_decode"] == steps
-                  and c["matmul_stats"] == 0,
-                  f"{key}: {steps} steps launched {c}")
-            check(all(math.isfinite(v) and v > 0 for v in losses),
-                  f"losses {losses}")
-            out[scale] = dict(img_s=steps * SS_GROUPS * views / load_s,
-                              scales=d["native"], losses=losses,
-                              launches=dict(c))
+        for frame, scales, key, passes in runs:
+            tree = tmp / key
+            write_synthetic_h36m(str(tree), cfg, num_frames=NATIVE_SS_FRAMES,
+                                 jpeg=frame.read_bytes())
+            ds = h36m_mod.H36MDataset(cfg, str(tree), "train", is_train=True)
+            for scale in scales:
+                cfg.TPU.SS_TEACHER_SCALE = scale
+                step = tss.make_ss_train_step(cfg, state.model, teacher,
+                                              device=torch.device("cuda"),
+                                              flip_pairs=ds.flip_pairs)
+                reset_decodes()
+                times = []
+                for _ in range(passes):
+                    t0 = time.perf_counter()
+                    batches = list(ds.view_batches(SS_GROUPS, seed=3,
+                                                   augment=True))
+                    times.append(time.perf_counter() - t0)
+                load_s = sorted(times)[len(times) // 2]
+                d = decodes_by_library()
+                views = len(h36m_mod.CAMERA_IDS)
+                check(len(batches) == NATIVE_SS_FRAMES // SS_GROUPS
+                      and d["jpeg"] == 0 and not d["failed"]
+                      and d["total"] == passes * NATIVE_SS_FRAMES * views,
+                      f"{key} at teacher scale {scale}: {len(batches)} "
+                      f"batches, decodes {d}")
+                side = int(cfg.MODEL.IMAGE_SIZE[0] * scale)
+                check(batches[0]["input"].shape[-3:-1] == (side, side)
+                      and batches[0]["input_aug"].shape[-3:-1] == (256, 256),
+                      f"crops {batches[0]['input'].shape}, "
+                      f"{batches[0]['input_aug'].shape}")
+                path_key = f"{key}_{scale}"
+                reset_counts()
+                losses = []
+                for b in batches:
+                    b.pop("joints_3d", None)
+                    state, m = step(state, _to_device(b, torch.device("cuda")))
+                    losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                c = res["paths"][path_key] = launch_counts()
+                steps = len(batches)
+                check(c["softargmax_fwd"] == c["softargmax_bwd"]
+                      == c["triangulate"] == c["teacher_decode"] == steps
+                      and c["matmul_stats"] == 0,
+                      f"{path_key}: {steps} steps launched {c}")
+                check(all(math.isfinite(v) and v > 0 for v in losses),
+                      f"losses {losses}")
+                out[path_key] = dict(
+                    frame=frame.name, scale=scale,
+                    img_s=steps * SS_GROUPS * views / load_s,
+                    scales=d["native"], losses=losses, launches=dict(c))
     finally:
         h36m_mod.CAMERA_IDS = orig
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def native_modes(res: dict, ss: dict) -> dict:
+    """The files of ``tests/data/jpeg/modes`` through the port's loader on
+    this host: each through its manifest's affines (8/8 to 1/8) against
+    the JAX loader's crop hashes recorded there, failing only where that
+    loader failed (the CMYK/YCCK files, a mode its libjpeg refuses, named
+    as such), the truncated ones decoded with libjpeg's fill, the
+    4x4-subsampled frames counted at 3/8; then the arithmetic-coded and
+    block-smoothed twins of the 2048 x 2048 frame as phase 19's tree
+    through the ``valid`` CLI with ``TPU.NATIVE_LOADER`` true; and of
+    :func:`native_ss`'s runs ``ss``, the two SS steps fed from the
+    arithmetic twin (both soft-argmax kernels and
+    ``epk_triangulate_split`` a step)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.data import fastloader
+    manifest = modes_manifest()
+    crops = fails = warned = 0
+    third = {}
+    for name, e in manifest.items():
+        affines = np.asarray(e["loader_affines"], np.float32)
+        fastloader.reset_counts()
+        out = fastloader.decode_warp_batch(
+            [(JPEG_MODES / name).read_bytes()] * len(affines), affines,
+            (24, 24))
+        got = [rgb_sha(c) for c in out]
+        check(got == e["loader_crop_sha256"],
+              f"{name}: the loader's crops differ from the JAX loader's")
+        d = fastloader.decode_counts()
+        want_fail = len(affines) if e["loader"] == "fails" else 0
+        check(d["failed"] == d["unsupported"] == want_fail,
+              f"{name}: failures {d}")
+        crops += len(affines)
+        fails += d["failed"]
+        warned += d["warned"]
+        if name.startswith("s4x4_"):
+            third[name] = d["scale"].get(3, 0)
+            check(third[name] == 1, f"{name}: scales {d['scale']}")
+    src = "h36m/valid_3dhp_transfer.yaml"
+    cfg = load_config(ROOT / "experiments" / src)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="epk_modes_valid_"))
+    try:
+        ds = make_3dhp_tree(tmp, cfg, [JPEG_MODES / f for f in MODE_TWINS])
+        n = len(ds)
+        cfg_file = cli_yaml(tmp / "modes_3dhp.yaml", src,
+                            TPU={"NATIVE_LOADER": True})
+        valid = valid_3dhp(res, tmp, cfg_file, "modes_valid",
+                           res["cli_fs_final"])
+        d, c = valid["decoded"], valid["counts"]
+        check(valid["seen"] == n and d["jpeg"] == 0 and not d["failed"]
+              and sum(d["native"].values()) == n,
+              f"modes valid: {valid['seen']} samples, decodes {d}")
+        check(c["softargmax_fwd"] == n // EVAL_BATCH, f"modes valid "
+              f"launched {c}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    twin = ss["native_ss_arith_1.0"]
+    c = twin["launches"]
+    check(c["triangulate_split"] == c["softargmax_bwd"] > 0,
+          f"the SS steps on the arithmetic twin launched {c}")
+    return dict(files=len(manifest), crops=crops, failed=fails,
+                warned=warned, third=third,
+                valid={f: valid[f] for f in ("samples_per_s", "validate_s",
+                                            "perf", "decoded", "shares")},
+                ss=twin)
 
 
 def phase_native_loader(res: dict) -> None:
@@ -4862,7 +5098,11 @@ def phase_native_loader(res: dict) -> None:
     fixtures = native_fixtures()
     ms = native_frame_ms()
     valid = native_valid(res)
-    ss = native_ss(res)
+    ss = native_ss(res, [
+        (JPEG_FIXTURES / JPEG_FRAMES[2], NATIVE_SS_SCALES, "native_ss",
+         NATIVE_SS_PASSES),
+        (JPEG_MODES / MODE_TWINS[0], (1.0,), "native_ss_arith", 1)])
+    modes = native_modes(res, ss)
     loaded = [m for m in IMAGE_LIBS if m in sys.modules]
     check(not loaded, f"the native loader's paths imported {loaded}")
     left = wait_for_no_processes(set(), seconds=5.0)
@@ -4873,7 +5113,8 @@ def phase_native_loader(res: dict) -> None:
                                     "samples_per_s", "validate_s", "perf",
                                     "decoded", "shares")} for k, v in
                                     (("native", nv), ("pool", pv))},
-                                boxes_x3=valid["boxes_x3"], ss=ss)
+                                boxes_x3=valid["boxes_x3"], ss=ss,
+                                modes=modes)
     log(f"[native_loader] built in {build['build_s']:.2f} s with no "
         f"libjpeg (jpeglib.h {'found' if build['jpeglib_h'] else 'absent'} "
         f"on this host; links {', '.join(build['links'])}); "
@@ -4893,9 +5134,20 @@ def phase_native_loader(res: dict) -> None:
     log(f"[native_loader] the loader alone, boxes x{NATIVE_BOX_GAIN}: "
         f"{valid['boxes_x3']['img_s']:.1f} img/s, scale_num histogram "
         f"{valid['boxes_x3']['scales']}")
-    for scale, r in ss.items():
-        log(f"[native_loader] SS dual crop at teacher scale {scale} from "
-            f"the 1000 x 1000 frame: loader {r['img_s']:.1f} img/s (student "
+    mv = modes["valid"]
+    log(f"[native_loader] modes: {modes['crops']} crops of {modes['files']} "
+        f"files of tests/data/jpeg/modes equal the JAX loader's ("
+        f"{modes['failed']} failures, all CMYK/YCCK, as there; "
+        f"{modes['warned']} decodes with libjpeg's fill of truncated data; "
+        f"the 4x4-subsampled frames at 3/8 {modes['third']}); the "
+        f"arithmetic and block-smoothed 2048 x 2048 twins as the 3DHP tree "
+        f"through valid: {mv['samples_per_s']:.1f} samples/s, decodes "
+        f"{mv['decoded']}; SS on the arithmetic twin: loader "
+        f"{modes['ss']['img_s']:.1f} img/s, scale_num histogram "
+        f"{modes['ss']['scales']}, launches {modes['ss']['launches']}")
+    for key, r in ss.items():
+        log(f"[native_loader] {key}: SS dual crop at teacher scale "
+            f"{r['scale']} from {r['frame']}: loader {r['img_s']:.1f} img/s (student "
             f"images), scale_num histogram {r['scales']}; "
             f"{len(r['losses'])} SS steps, losses " + ", ".join(
                 f"{v:.4f}" for v in r["losses"]) + f"; launches "
@@ -5066,7 +5318,8 @@ def main() -> int:
         f"the pool route's {nl['valid']['pool']['samples_per_s']:.1f}; the "
         f"loader alone at boxes x{NATIVE_BOX_GAIN} "
         f"{nl['boxes_x3']['img_s']:.1f} img/s; SS dual crop loader img/s "
-        + " / ".join(f"{nl['ss'][s]['img_s']:.1f}" for s in NATIVE_SS_SCALES)
+        + " / ".join(f"{nl['ss'][f'native_ss_{s}']['img_s']:.1f}"
+                     for s in NATIVE_SS_SCALES)
         + " at teacher scale " + " / ".join(map(str, NATIVE_SS_SCALES)))
     rm, dp = res["remat"], res["ddp"]
     log(f"r152@384 batch {R152_BATCH} bf16: ms a step {rm['False']['ms']:.2f}"

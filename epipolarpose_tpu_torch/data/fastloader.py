@@ -14,8 +14,9 @@ another, and no library but OpenMP's. Without a compiler the build fails,
 :func:`available` is false and :func:`build_error` says why; callers then
 take the numpy route.
 
-:func:`decode_counts` reads the library's counts of decodes by scale and
-of failures since :func:`reset_counts`.
+:func:`decode_counts` reads the library's counts of decodes by scale, of
+failures and of the unsupported among them, and of decodes libjpeg would
+have warned about, since :func:`reset_counts`.
 """
 
 from __future__ import annotations
@@ -73,15 +74,29 @@ def library_path() -> pathlib.Path | None:
     return _LIB.library_path()
 
 
-def decode_counts() -> dict:
-    """The library's decodes since :func:`reset_counts`: ``{"scale":
-    {scale_num: n}, "failed": n}``, scales with no decode left out; zeros
-    when the library is not loaded."""
-    counts = (ctypes.c_int64 * 9)()
+COUNT_SLOTS = 11
+
+
+def _counts():
+    counts = (ctypes.c_int64 * COUNT_SLOTS)()
     if _LIB.library_path() is not None:
         _load().epk_loader_counts(counts)
+    return counts
+
+
+def decode_counts() -> dict:
+    """The library's decodes since :func:`reset_counts`: ``{"scale":
+    {scale_num: n}, "failed": n, "unsupported": n, "warned": n}``, scales
+    with no decode left out; zeros when the library is not loaded.
+    ``unsupported`` counts the failures of a mode that the JAX package's
+    loader (libjpeg) refuses too (lossless, hierarchical, 12-bit,
+    CMYK/YCCK), the rest of ``failed`` being corrupt data; ``warned`` the
+    decodes libjpeg warns about (a truncated file, decoded as libjpeg
+    fills it)."""
+    counts = _counts()
     return {"scale": {s: int(counts[s]) for s in range(1, 9) if counts[s]},
-            "failed": int(counts[0])}
+            "failed": int(counts[0]), "unsupported": int(counts[9]),
+            "warned": int(counts[10])}
 
 
 def reset_counts() -> None:
@@ -113,8 +128,9 @@ def decode_warp_batch(jpeg_buffers: list[bytes], Ms: np.ndarray,
                       dtype=np.uint8) -> np.ndarray:
     """Decode each JPEG and warp it through its (2, 3) source -> crop
     affine into an (W, H) = ``output_size`` crop: (N, H, W, 3) uint8, or
-    float32 in [0, 255 * scale]. A JPEG that fails to decode gives a zero
-    crop."""
+    float32 in [0, 255 * scale]. A JPEG that fails to decode (CMYK and
+    YCCK among them, as in the JAX package's loader) gives a zero crop; a
+    truncated one is decoded as libjpeg fills it."""
     lib = _load()
     n = len(jpeg_buffers)
     W, H = int(output_size[0]), int(output_size[1])

@@ -3,12 +3,18 @@
 It needs neither libjpeg nor OpenCV, only ``g++``: the card's machine has
 neither ``jpeglib.h`` nor OpenCV. Its RGB output equals libjpeg-turbo's
 default decode bit for bit (what ``cv2.imdecode`` and the JAX package's
-native loader give), baseline and progressive, at full size and at
-libjpeg's DCT-scaled sizes ``scale_num``/8. It refuses lossless,
-hierarchical and arithmetic-coded files, 12-bit samples, CMYK/YCCK,
-progressive files that libjpeg would block-smooth and scales whose IDCT
-sizes it lacks with :class:`UnsupportedJpeg`, which names the mode;
-truncated or corrupt data raises ``IOError``.
+native loader give), baseline, progressive and arithmetic-coded, grey,
+YCbCr, RGB, CMYK and YCCK (these two converted as OpenCV converts them),
+at full size and at libjpeg's DCT-scaled sizes ``scale_num``/8 for
+``scale_num`` 1-4 and 8. Progressive files whose coefficients stay
+unfinished are block-smoothed as libjpeg-turbo 2.1 (``flavour="libjpeg"``,
+the JAX package's native loader) or OpenCV's libjpeg-turbo 3.1
+(``"opencv"``, the JAX package's imread) smooths them. A file libjpeg decodes with a warning
+(a truncated file, a lost restart marker) raises :class:`JpegWarning`,
+which holds libjpeg's decode. It refuses lossless,
+hierarchical and 12-bit files, as libjpeg-turbo 2.1 does, with
+:class:`UnsupportedJpeg`, which names the mode; data it cannot decode
+raises ``IOError``.
 
 The library is built as the native loader's is (``data/cxx_library.py``):
 one ``g++`` call, no ``-march`` and no ``-ljpeg``, into
@@ -30,6 +36,13 @@ PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 SOURCE = PKG_DIR / "native" / "jpegdec.cpp"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 STATUS_UNSUPPORTED = 2
+# decoded, where libjpeg warns; STATUS_ENDED: the data ended before its EOI
+STATUS_WARNED, STATUS_ENDED = 4, 5
+# whose decode: libjpeg-turbo 2.1 as the JAX package's native loader calls
+# it, or OpenCV's imread (its bundled libjpeg-turbo 3.1): the block
+# smoothing of progressive files with unfinished coefficients differs, and
+# OpenCV keeps a one-scan image whose file goes wrong after that scan
+FLAVOURS = {"libjpeg": 0, "opencv": 1}
 ERR_LEN = 256
 
 _i = ctypes.c_int
@@ -38,8 +51,8 @@ SIGNATURES = {
     "epk_jpeg_info": (_i, (ctypes.c_char_p, ctypes.c_size_t, _i, _pi, _pi,
                            _pi, ctypes.c_char_p, _i)),
     "epk_jpeg_decode_rgb": (_i, (ctypes.c_char_p, ctypes.c_size_t, _i,
-                                 ctypes.c_void_p, _i, _i, ctypes.c_char_p,
-                                 _i)),
+                                 ctypes.c_void_p, _i, _i, _i,
+                                 ctypes.c_char_p, _i)),
 }
 _LIB = CxxLibrary("jpegdec", SOURCE, CXX_FLAGS, (), SIGNATURES,
                   "JPEG decoder")
@@ -55,6 +68,18 @@ class UnsupportedJpeg(IOError):
     def __init__(self, message: str):
         super().__init__(message)
         self.mode = message.split(": ", 1)[-1]
+
+
+class JpegWarning(IOError):
+    """A JPEG that libjpeg decodes with a warning (a scan that ends early,
+    a lost restart marker, data ending before its EOI marker, ...):
+    ``image`` is that decode, libjpeg's bits; ``ended`` is true when the
+    data ended before EOI, where OpenCV's reader gives no image."""
+
+    def __init__(self, message: str, image: np.ndarray, ended: bool):
+        super().__init__(message)
+        self.image = image
+        self.ended = ended
 
 
 def available() -> bool:
@@ -104,21 +129,30 @@ def jpeg_info(buf: bytes, scale_num: int = 8) -> tuple[int, int, int]:
     return w.value, h.value, c.value
 
 
-def decode(buf: bytes, scale_num: int = 8) -> np.ndarray:
+def decode(buf: bytes, scale_num: int = 8,
+           flavour: str = "libjpeg") -> np.ndarray:
     """One JPEG -> (H, W, 3) uint8 RGB at libjpeg's DCT scale
     ``scale_num``/8 (8: full size; the size is ``ceil(W * scale_num / 8)``
     by ``ceil(H * scale_num / 8)``); grayscale is replicated into three
-    channels. Raises :class:`UnsupportedJpeg` for a mode it refuses and
-    ``IOError`` for truncated or corrupt data."""
+    channels, CMYK and YCCK converted as OpenCV converts them. Where
+    libjpeg decodes with a warning it raises :class:`JpegWarning`, which
+    holds that decode (``.image``).
+    ``flavour`` names whose decode it gives (:data:`FLAVOURS`). Raises
+    :class:`UnsupportedJpeg` for a mode it refuses and ``IOError`` for
+    data it cannot decode."""
     global _count
     w, h, _ = jpeg_info(buf, scale_num)
     out = np.empty((h, w, 3), np.uint8)
     err = ctypes.create_string_buffer(ERR_LEN)
     status = _LIB.load().epk_jpeg_decode_rgb(buf, len(buf), scale_num,
-                                             out.ctypes.data, w, h, err,
+                                             out.ctypes.data, w, h,
+                                             FLAVOURS[flavour], err,
                                              ERR_LEN)
-    if status:
+    if status not in (0, STATUS_WARNED, STATUS_ENDED):
         _raise(status, err)
     with _count_lock:
         _count += 1
+    if status:
+        raise JpegWarning(err.value.decode(errors="replace"), out,
+                          status == STATUS_ENDED)
     return out

@@ -4,12 +4,15 @@
 // C functions and crops: a whole batch of JPEG decode -> bilinear affine
 // warp -> uint8 or float crops in one call, parallel over frames with
 // OpenMP. Each frame is decoded by the port's own decoder (jpegdec.cpp,
-// included below): at libjpeg's DCT scale scale_num/8 when the crop
-// shrinks the frame 2x or more, the affine then remapped onto the scaled
-// pixel grid. All matrices are the cv2-convention src->dst affines of
-// geometry.affine; inversion happens here. Out-of-bounds samples read as 0
-// (BORDER_CONSTANT). A frame that fails to decode gives a zero crop and
-// is counted in the call's result.
+// included below) as libjpeg-turbo 2.1 decodes it: at libjpeg's DCT scale
+// scale_num/8 when the crop shrinks the frame 2x or more, the affine then
+// remapped onto the scaled pixel grid. All matrices are the cv2-convention
+// src->dst affines of geometry.affine; inversion happens here.
+// Out-of-bounds samples read as 0 (BORDER_CONSTANT). A frame that fails to
+// decode gives a zero crop and is counted in the call's result; so do the
+// frames libjpeg refuses, CMYK and YCCK among them (the JAX package's
+// loader asks libjpeg for RGB, which it has no conversion to). A
+// truncated frame is decoded as libjpeg fills it, as that loader does.
 //
 // The crops' geometry and warp are float and double arithmetic, and the
 // JAX package's loader is built with -march=native, which fuses
@@ -18,8 +21,9 @@
 // variant is picked when the library loads (GCC's target_clones): the
 // same roundings as that build on any host, and no -march here.
 //
-// The library also counts its decodes by the scale that served them, and
-// its failures: epk_loader_counts / epk_loader_reset_counts.
+// The library also counts its decodes by the scale that served them, its
+// failures, and of these the modes libjpeg refuses too, and the decodes
+// libjpeg warns about: epk_loader_counts / epk_loader_reset_counts.
 
 #include "jpegdec.cpp"
 
@@ -34,24 +38,30 @@
 
 namespace {
 
-// [0] failed decodes, [s] decodes at scale s/8 (s in 1..8)
-std::atomic<int64_t> g_counts[9];
+// [0] failed decodes, [s] decodes at scale s/8 (s in 1..8); of the
+// failures, [9] those of a mode the JAX package's loader (libjpeg) refuses
+// too: lossless, hierarchical, 12-bit, CMYK/YCCK; of the decodes, [10]
+// those libjpeg warns about (a truncated file, a lost restart marker)
+constexpr int kCountSlots = 11;
+std::atomic<int64_t> g_counts[kCountSlots];
 
-// Decode one JPEG buffer to RGB uint8 at scale_num/8; 0 on success.
-// full_w/full_h report the unscaled size so the caller can fix up its
-// affine. A scale whose IDCT sizes the decoder lacks (a 4:4-subsampled
-// chroma plane at 3/8 needs 12x12) falls back to the full size.
+// Decode one JPEG buffer to RGB uint8 at scale_num/8, as libjpeg-turbo
+// 2.1 decodes it (its block smoothing); 0 on success, a decode libjpeg
+// warns about included. full_w/full_h report the unscaled size so the
+// caller can fix up its affine. A frame the decoder cannot decode at that
+// scale fails: it is never served at another.
 int decode_one(const uint8_t* buf, size_t size, std::vector<uint8_t>& out,
                int& w, int& h, int scale_num, int& full_w, int& full_h) {
-    int status = epk::decode_rgb(buf, size, scale_num, out, w, h, full_w,
-                                 full_h);
-    if (status == kUnsupported && scale_num != 8) {
-        scale_num = 8;
-        status = epk::decode_rgb(buf, size, 8, out, w, h, full_w, full_h);
-    }
-    g_counts[status == kOk ? scale_num : 0].fetch_add(
-        1, std::memory_order_relaxed);
-    return status;
+    const int status = epk::decode_rgb(buf, size, scale_num, out, w, h,
+                                       full_w, full_h, nullptr, 0,
+                                       /*cmyk=*/false, kLibjpeg);
+    const bool ok = status == kOk || status == kWarned || status == kEnded;
+    g_counts[ok ? scale_num : 0].fetch_add(1, std::memory_order_relaxed);
+    if (status == kUnsupported)
+        g_counts[9].fetch_add(1, std::memory_order_relaxed);
+    if (status == kWarned || status == kEnded)
+        g_counts[10].fetch_add(1, std::memory_order_relaxed);
+    return ok ? 0 : 1;
 }
 
 // Output-type adapters: float crops get the caller's scale (e.g. 1/255);
@@ -321,10 +331,11 @@ void warp_batch_u8(const uint8_t* src, int n, int sw, int sh,
                    out + size_t(i) * dh * dw * 3, dw, dh, scale);
 }
 
-// out[0]: failed decodes; out[s]: decodes at scale s/8, s in 1..8 (since
-// the last reset)
+// out[0]: failed decodes; out[s]: decodes at scale s/8, s in 1..8; out[9]:
+// failures of a mode libjpeg refuses too; out[10]: decodes with a libjpeg
+// warning (since the last reset)
 void epk_loader_counts(int64_t* out) {
-    for (int s = 0; s < 9; ++s)
+    for (int s = 0; s < kCountSlots; ++s)
         out[s] = g_counts[s].load(std::memory_order_relaxed);
 }
 

@@ -20,6 +20,25 @@ libjpeg-turbo's RGB decode (``cv2.imdecode``, EXIF orientation ignored,
 as the native loader ignores it), and ``scaled_rgb_sha256``, the same at
 libjpeg's DCT scales ``scale_num``/8 (:func:`libjpeg_rgb`): 1, 2 and 4
 for every file, 3 for files whose sides are multiples of 8.
+
+``modes/`` holds the files of the modes OpenCV and Pillow do not write
+and of the ways a file can go wrong (:func:`mode_fixture_set`):
+arithmetic coding, progressive files whose scans leave coefficients
+unfinished (libjpeg block-smooths them), 4x4-subsampled chroma (the 12x12
+IDCT at 3/8), CMYK and YCCK, truncated data, a lost restart marker,
+coefficients far out of range, a file without Huffman tables, and EXIF
+orientations 1-8 (both TIFF byte orders), written by
+``tests/jpeg_writer.c`` (the system's
+libjpeg, built here by ``gcc -ljpeg``) and Pillow. Its ``manifest.json``
+gives the sha256 of libjpeg-turbo 2.1's decode (the JAX package's native
+loader's library, through that program) at 8/8 and at each scale 1-4,
+the warning libjpeg gives (``warned``, or ``ended`` where the data ends
+before EOI), ``imread_sha256`` and ``imdecode_sha256``, the sha256 of
+what the JAX package's imread gives from a plain path and from a zip
+member (OpenCV from a file and from memory; null where it raises),
+``loader``, whether the JAX package's loader decodes the file, and
+``loader_crop_sha256``, the sha256 of its 24 x 24 crops through
+``loader_affines`` (:data:`LOADER_SHRINKS`).
 """
 
 from __future__ import annotations
@@ -28,10 +47,16 @@ import hashlib
 import io
 import json
 import pathlib
+import shutil
+import subprocess
+import tempfile
+import zlib
 
 import numpy as np
 
 FIXTURE_DIR = pathlib.Path(__file__).resolve().parent / "data" / "jpeg"
+MODES_DIR = FIXTURE_DIR / "modes"
+WRITER_SOURCE = pathlib.Path(__file__).resolve().parent / "jpeg_writer.c"
 
 # the frames of the datasets: MPI-INF-3DHP studio (TS1-4) and outdoor
 # (TS5-6) cameras, H36M
@@ -126,6 +151,16 @@ def libjpeg_rgb_3_8(buf: bytes) -> np.ndarray:
                  np.float32)
     return jfast.decode_warp_batch([buf], M, (w * 3 // 8, h * 3 // 8),
                                    dtype=np.uint8)[0]
+
+
+def port_rgb(buf: bytes, scale_num: int = 8,
+             flavour: str = "libjpeg") -> np.ndarray:
+    """The port's decode, also where libjpeg warns (``JpegWarning.image``)."""
+    from epipolarpose_tpu_torch.data import jpeg
+    try:
+        return jpeg.decode(buf, scale_num, flavour)
+    except jpeg.JpegWarning as w:
+        return w.image
 
 
 def rgb_sha256(rgb: np.ndarray) -> str:
@@ -435,11 +470,378 @@ def write_fixtures(root: pathlib.Path = FIXTURE_DIR) -> dict:
     return manifest
 
 
+# ------------------------------------------- libjpeg through jpeg_writer.c
+_TOOL: list = []
+
+
+def libjpeg_tool() -> pathlib.Path:
+    """``tests/jpeg_writer.c`` built against the system's libjpeg, once a
+    process, in a temporary directory; RuntimeError without gcc or
+    jpeglib.h."""
+    if not _TOOL:
+        gcc = shutil.which("gcc")
+        if gcc is None:
+            raise RuntimeError("jpeg_writer needs gcc")
+        exe = pathlib.Path(tempfile.mkdtemp(prefix="jpeg_writer_")) / "jpeg_writer"
+        run = subprocess.run([gcc, "-O2", str(WRITER_SOURCE), "-ljpeg", "-o",
+                              str(exe)], capture_output=True, text=True)
+        if run.returncode:
+            raise RuntimeError(f"jpeg_writer does not build: {run.stderr[-500:]}")
+        _TOOL.append(exe)
+    return _TOOL[0]
+
+
+def libjpeg_encode(pixels: np.ndarray, *options: str) -> bytes:
+    """libjpeg's encode of (H, W) grey, (H, W, 3) RGB or (H, W, 4) CMYK
+    pixels, with ``jpeg_writer encode``'s options."""
+    h, w = pixels.shape[:2]
+    c = 1 if pixels.ndim == 2 else pixels.shape[2]
+    run = subprocess.run(
+        [str(libjpeg_tool()), "encode", str(w), str(h), str(c), *options],
+        input=np.ascontiguousarray(pixels, np.uint8).tobytes(),
+        capture_output=True)
+    if run.returncode:
+        raise RuntimeError(f"jpeg_writer {options}: {run.stderr.decode()}")
+    return run.stdout
+
+
+def libjpeg_coefficients(table: np.ndarray, coefs: np.ndarray) -> bytes:
+    """libjpeg's greyscale file of quantized ``coefs`` (block rows, block
+    columns, 64 in natural order) under the quantization ``table``
+    (natural order; libjpeg keeps its entries to 32767)."""
+    bh, bw = coefs.shape[:2]
+    run = subprocess.run(
+        [str(libjpeg_tool()), "coefwrite", str(bw), str(bh)],
+        input=np.asarray(table, np.uint16).tobytes()
+        + np.asarray(coefs, np.int16).tobytes(), capture_output=True)
+    if run.returncode:
+        raise RuntimeError(f"jpeg_writer coefwrite: {run.stderr.decode()}")
+    return run.stdout
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """OpenCV's reading of libjpeg's CMYK samples (its
+    icvCvt_CMYK2BGR_8u_C4C3R, in RGB order): each of R, G, B is
+    ``k - ((255 - s) * k >> 8)`` of its C, M, Y sample ``s``."""
+    c = cmyk.astype(np.int32)
+    k = c[..., 3:]
+    return (k - (((255 - c[..., :3]) * k) >> 8)).astype(np.uint8)
+
+
+def libjpeg_decode(buf: bytes, scale_num: int = 8):
+    """The system libjpeg-turbo's decode of ``buf`` at ``scale_num``/8,
+    from memory as the JAX package's native loader reads it: (RGB, or the
+    RGB OpenCV makes of a four-component file's CMYK, or None where
+    libjpeg fails; libjpeg's warnings, one a line)."""
+    run = subprocess.run([str(libjpeg_tool()), "decode", str(scale_num)],
+                         input=buf, capture_output=True)
+    warnings = run.stderr.decode(errors="replace").strip()
+    if run.returncode:
+        return None, warnings
+    head, _, body = run.stdout.partition(b"\n")
+    w, h, c = map(int, head.split())
+    img = np.frombuffer(body, np.uint8).reshape(h, w, c)
+    return (cmyk_to_rgb(img) if c == 4 else img.copy()), warnings
+
+
+def opencv_rgb(buf: bytes, from_file: bool = True):
+    """What the JAX package's imread gives, as RGB (OpenCV's
+    ``IMREAD_COLOR``: EXIF orientation applied): from a plain path
+    (``cv2.imread``), or ``from_file`` false from a zip member
+    (``cv2.imdecode``); None where OpenCV gives no image."""
+    import cv2
+    if from_file:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = pathlib.Path(tmp) / "image.jpg"
+            path.write_bytes(buf)
+            img = cv2.imread(str(path), cv2.IMREAD_COLOR)
+    else:
+        img = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
+    return None if img is None else np.ascontiguousarray(img[..., ::-1])
+
+
+SAMPLING_FACTORS = {"444": "1x1,1x1,1x1", "420": "2x2,1x1,1x1",
+                    "422": "2x1,1x1,1x1", "411": "4x1,1x1,1x1",
+                    "4x4": "4x4,1x1,1x1"}
+# a scan a component: 4x4-subsampled luma fills 16 blocks of an MCU, over
+# the 10 an interleaved scan may hold
+SEPARATE_SCANS = "0:0-63:0:0;1:0-63:0:0;2:0-63:0:0"
+SEPARATE_PROGRESSIVE = ("0:0-0:0:0;1:0-0:0:0;2:0-0:0:0;0:1-5:0:0;"
+                        "0:6-63:0:0;1:1-63:0:0;2:1-63:0:0")
+# scan scripts that leave coefficients 1-9 unfinished (libjpeg smooths)
+UNFINISHED = {
+    "dc_only": "0,1,2:0-0:0:0",
+    "dc_al1": "0,1,2:0-0:0:1",
+    "ac5_al2": "0,1,2:0-0:0:0;0:1-5:0:2;1:1-63:0:0;2:1-63:0:0",
+    "refine": ("0,1,2:0-0:0:1;0:1-5:0:2;0:1-5:2:1;1:1-9:0:1;2:1-63:0:0;"
+               "0,1,2:0-0:1:0"),
+    "ac2": "0,1,2:0-0:0:0;0:1-2:0:0;1:1-2:0:0;2:1-2:0:0",
+    "gray_dc_al1": "0:0-0:0:1;0:1-9:0:1",
+    "4x4": "0:0-0:0:0;1:0-0:0:0;2:0-0:0:0;0:1-5:0:1;1:1-63:0:0",
+    # libjpeg's default progression without its last three scans
+    "frame": ("0,1,2:0-0:0:1;0:1-5:0:2;2:1-63:0:1;1:1-63:0:1;0:6-63:0:2;"
+              "0:1-63:2:1;0,1,2:0-0:1:0"),
+}
+
+
+def cut(buf: bytes, seed: int, eoi: bool = False) -> bytes:
+    """``buf`` cut inside the entropy-coded data of one of its scans, at
+    a seeded place (and EOI appended when ``eoi``)."""
+    rng = np.random.default_rng(seed)
+    sos = [i for i in range(len(buf) - 1) if buf[i:i + 2] == b"\xff\xda"]
+    k = int(rng.integers(len(sos)))
+    start = sos[k] + 2 + int.from_bytes(buf[sos[k] + 2:sos[k] + 4], "big")
+    stop = start                            # the scan's data ends at a marker
+    while not (buf[stop] == 0xFF and buf[stop + 1] not in (0x00, 0xFF)
+               and not 0xD0 <= buf[stop + 1] <= 0xD7):
+        stop += 1
+    at = start + int(rng.uniform(0.2, 0.9) * (stop - start))
+    return buf[:at] + (b"\xff\xd9" if eoi else b"")
+
+
+def mode_fixture_set(frames: bool = True) -> dict:
+    """name -> (bytes, mode) of ``modes/`` (module docstring); ``frames``
+    adds the arithmetic and the block-smoothed twins of the 2048 x 2048
+    frame, which the card's run times."""
+    out = {}
+    enc = libjpeg_encode
+    smp = SAMPLING_FACTORS
+
+    def img(h, w, name, noise=8.0):
+        return render(h, w, zlib.crc32(name.encode()), noise)
+
+    # arithmetic coding: sequential (SOF9) and progressive (SOF10), every
+    # sampling, restart intervals, conditioning tables other than T.81's
+    for kind, flags in (("seq", ()), ("prog", ("-prog",))):
+        for s, (h, w) in (("444", (32, 40)), ("420", (40, 48)),
+                          ("422", (40, 56)), ("411", (24, 64)),
+                          ("gray", (32, 48))):
+            name = f"arith_{kind}_{s}_{w}x{h}.jpg"
+            pix = img(h, w, name)
+            opts = ["-arith", *flags]
+            if s == "gray":
+                pix = pix[..., 1]
+            else:
+                opts += ["-samp", smp[s]]
+            out[name] = (enc(pix, *opts), f"arithmetic {kind} {s}")
+    name = "arith_seq_420_restart_dac_37x29.jpg"
+    out[name] = (enc(img(29, 37, name), "-arith", "-restart", "2", "-dac",
+                     "1,3,10"),
+                 "arithmetic seq 420, restart interval 2, DAC L1 U3 K10")
+    name = "arith_prog_422_restart_53x37.jpg"
+    out[name] = (enc(img(37, 53, name), "-arith", "-prog", "-samp",
+                     smp["422"], "-restart", "3"),
+                 "arithmetic prog 422, restart interval 3")
+    # unfinished progressive scans: libjpeg's block smoothing
+    for s, script, (h, w), extra in (
+            ("420", "dc_only", (48, 64), ()), ("444", "ac5_al2", (32, 40), ()),
+            ("422", "refine", (40, 56), ()), ("411", "ac2", (32, 64), ()),
+            ("gray", "gray_dc_al1", (32, 48), ()),
+            ("420", "refine", (40, 56), ("-restart", "2")),
+            ("420", "dc_al1", (48, 16), ()),         # two blocks wide
+            ("4x4", "4x4", (64, 64), ())):
+        name = f"smooth_{s}_{script}{'_restart' if extra else ''}_{w}x{h}.jpg"
+        pix = img(h, w, name)
+        opts = ["-prog", "-scans", UNFINISHED[script], *extra]
+        if s == "gray":
+            pix = pix[..., 1]
+        else:
+            opts += ["-samp", smp[s]]
+        out[name] = (enc(pix, *opts), f"progressive {s}, scans {script} "
+                     "(unfinished: libjpeg smooths)")
+    name = "smooth_arith_420_refine_48x40.jpg"
+    out[name] = (enc(img(40, 48, name), "-arith", "-prog", "-scans",
+                     UNFINISHED["refine"]),
+                 "arithmetic progressive 420, scans refine (unfinished)")
+    # 4x4-subsampled chroma: the 12x12 IDCT at 3/8
+    for kind, opts in (("seq", ("-scans", SEPARATE_SCANS)),
+                       ("prog", ("-prog", "-scans", SEPARATE_PROGRESSIVE)),
+                       ("arith", ("-arith", "-scans", SEPARATE_SCANS))):
+        name = f"s4x4_{kind}_64x48.jpg"
+        out[name] = (enc(img(48, 64, name), "-samp", smp["4x4"], *opts),
+                     f"4x4-subsampled chroma, {kind}, a scan a component")
+    # CMYK and YCCK
+    name = "cmyk_pil_adobe_40x32.jpg"
+    out[name] = (pil_cmyk(img(32, 40, name)),
+                 "CMYK, Adobe-inverted (Pillow)")
+    rng = np.random.default_rng(31)
+    cmyk = np.concatenate([img(40, 48, "cmyk"), rng.integers(
+        0, 256, (40, 48, 1)).astype(np.uint8)], -1)
+    out["ycck_420_48x40.jpg"] = (
+        enc(cmyk, "-ycck", "-samp", "2x2,1x1,1x1,2x2"),
+        "YCCK (Adobe transform 2), 4:2:0")
+    out["ycck_prog_48x40.jpg"] = (enc(cmyk, "-ycck", "-prog"),
+                                  "YCCK, progressive")
+    out["cmyk_no_adobe_48x40.jpg"] = (enc(cmyk, "-noadobe"),
+                                      "CMYK without an Adobe marker")
+    # truncated data: cut inside a scan, with and without EOI after it
+    for name, base, seed, eoi in (
+            ("trunc_420_ended_64x48.jpg",
+             cv2_encode(img(48, 64, "t420"), 90, "420"), 1, False),
+            ("trunc_411_eoi_64x48.jpg",
+             cv2_encode(img(48, 64, "t411"), 90, "411"), 2, True),
+            ("trunc_restart_ended_64x48.jpg",
+             cv2_encode(img(48, 64, "trst"), 90, "420", restart=2), 3, False),
+            ("trunc_prog_ended_64x48.jpg",
+             cv2_encode(img(48, 64, "tprog"), 90, "420", progressive=True),
+             4, False),
+            ("trunc_prog_eoi_56x40.jpg",
+             cv2_encode(img(40, 56, "tprog2"), 90, "422", progressive=True),
+             5, True),
+            ("trunc_arith_ended_48x40.jpg",
+             enc(img(40, 48, "tarith"), "-arith", "-restart", "2"), 6, False),
+            ("trunc_arith_prog_eoi_48x40.jpg",
+             enc(img(40, 48, "tarithp"), "-arith", "-prog"), 7, True),
+            ("trunc_gray_ended_48x32.jpg",
+             cv2_encode(img(32, 48, "tgray")[..., 0], 90), 8, False)):
+        out[name] = (cut(base, seed, eoi),
+                     f"truncated{' (EOI after the cut)' if eoi else ''}")
+    base = cv2_encode(img(48, 64, "rst"), 90, "420", restart=2)
+    sos = base.index(b"\xff\xda")
+    rst = base.index(b"\xff\xd1", sos)
+    out["restart_lost_64x48.jpg"] = (base[:rst + 1] + b"\xd5" + base[rst + 2:],
+                                     "RST5 where RST1 belongs (libjpeg "
+                                     "resynchronizes)")
+    # no DHT (a Motion-JPEG frame): libjpeg gives the standard tables
+    out["no_huffman_tables_64x48.jpg"] = (
+        without_dht(cv2_encode(img(48, 64, "mjpeg"), 90, "420")),
+        "baseline 4:2:0 without DHT (Motion-JPEG): T.81's standard tables")
+    # coefficients far out of range (as a corrupt scan decodes to): the
+    # IDCTs' 16-bit lanes in libjpeg-turbo's SIMD build
+    for q_max, lim in ((255, 1023), (32767, 60)):
+        name = f"idct_extremes_q{q_max}_64x48.jpg"
+        rng = np.random.default_rng(q_max)
+        table = rng.integers(1, q_max + 1, 64)
+        coefs = np.zeros((6, 8, 64), np.int64)
+        coefs[..., 0] = rng.integers(-1000, 1000, (6, 8))
+        coefs[..., 1:24] = rng.integers(-lim, lim + 1, (6, 8, 23))
+        coefs[::2, ::3, 1:] = 0                    # DC-only blocks
+        out[name] = (libjpeg_coefficients(table, coefs),
+                     f"greyscale, quantizers to {q_max}, coefficients to "
+                     f"{lim}: IDCT inputs past 16 bits")
+    # EXIF orientation 1-8 in a big-endian (MM) TIFF block, Pillow's
+    # default, and 6 and 8 (the portrait photos) little-endian (II)
+    from PIL import Image
+    for o, order in [*((o, ">") for o in range(1, 9)), (6, "<"), (8, "<")]:
+        exif = Image.Exif()
+        exif.endian = order
+        exif[0x0112] = o
+        name = f"exif_orientation{o}{'_ii' if order == '<' else ''}_40x24.jpg"
+        out[name] = (pil_encode(img(24, 40, name), quality=90,
+                                exif=exif.tobytes()),
+                     f"EXIF orientation {o}, "
+                     f"{'little' if order == '<' else 'big'}-endian TIFF")
+    if frames:
+        frame = render(2048, 2048, seed=0, noise=1.2)
+        out["3dhp_studio_arith_2048x2048.jpg"] = (
+            enc(frame, "-arith"), "arithmetic seq 420 q90, the 3dhp_studio "
+            "frame's twin")
+        out["3dhp_studio_smoothed_2048x2048.jpg"] = (
+            enc(frame, "-prog", "-scans", UNFINISHED["frame"]),
+            "progressive 420 q90 without its last scans (libjpeg "
+            "smooths), the 3dhp_studio frame's twin")
+    return out
+
+
+def without_dht(buf: bytes) -> bytes:
+    """``buf`` with its DHT segments before the first scan left out."""
+    out, pos = bytearray(buf[:2]), 2
+    while buf[pos + 1] != 0xDA:
+        end = pos + 2 + int.from_bytes(buf[pos + 2:pos + 4], "big")
+        if buf[pos + 1] != 0xC4:
+            out += buf[pos:end]
+        pos = end
+    return bytes(out + buf[pos:])
+
+
+def pil_cmyk(rgb: np.ndarray) -> bytes:
+    """Pillow's CMYK encode of RGB pixels (Adobe-inverted, its APP14)."""
+    from PIL import Image
+    bio = io.BytesIO()
+    Image.fromarray(rgb).convert("CMYK").save(bio, "JPEG", quality=90)
+    return bio.getvalue()
+
+
+def frame_components(buf: bytes) -> int:
+    """The component count of the frame header (the marker segments
+    walked from SOI)."""
+    pos = 2
+    while buf[pos] == 0xFF:
+        marker = buf[pos + 1]
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            return buf[pos + 9]
+        pos += 2 + int.from_bytes(buf[pos + 2:pos + 4], "big")
+    raise ValueError("no frame header before the first non-marker byte")
+
+
+def warning_kind(warnings: str) -> str | None:
+    """``ended`` where libjpeg found the data ending before EOI, else
+    ``warned`` for any other warning, None for none."""
+    if "Premature end of JPEG file" in warnings:
+        return "ended"
+    return "warned" if warnings else None
+
+
+# the native loader's crops of each file of modes/: 24 x 24, the frame
+# shrunk by each of these about its centre, so that the loader decodes at
+# 8/8, 4/8, 3/8, 2/8 and 1/8
+LOADER_SHRINKS = (1.0, 2.0, 2.7, 4.5, 9.0)
+LOADER_CROP = (24, 24)
+
+
+def loader_affines(w: int, h: int) -> np.ndarray:
+    """(len(LOADER_SHRINKS), 2, 3) float32 source -> crop affines."""
+    out = []
+    for shrink in LOADER_SHRINKS:
+        a = 1.0 / shrink
+        out.append([[a, 0.0, LOADER_CROP[0] / 2 - a * w / 2],
+                    [0.0, a, LOADER_CROP[1] / 2 - a * h / 2]])
+    return np.asarray(out, np.float32)
+
+
+def jax_loader_crops(buf: bytes, affines: np.ndarray) -> list:
+    """sha256 of the JAX package's native loader's uint8 crop of ``buf``
+    through each affine (a zero crop where it fails)."""
+    from epipolarpose_tpu.data import fastloader as jfast
+    crops = jfast.decode_warp_batch([buf] * len(affines), affines,
+                                    LOADER_CROP, dtype=np.uint8)
+    return [rgb_sha256(c) for c in crops]
+
+
+def mode_entry(buf: bytes, mode: str) -> dict:
+    rgb, warnings = libjpeg_decode(buf)
+    comps = frame_components(buf)
+    imread, imdecode = opencv_rgb(buf), opencv_rgb(buf, from_file=False)
+    affines = loader_affines(rgb.shape[1], rgb.shape[0])
+    return {"width": int(rgb.shape[1]), "height": int(rgb.shape[0]),
+            "bytes": len(buf), "mode": mode, "components": int(comps),
+            "rgb_sha256": rgb_sha256(rgb),
+            "scaled_rgb_sha256": {str(s): rgb_sha256(libjpeg_decode(buf, s)[0])
+                                  for s in (1, 2, 3, 4)},
+            "warning": warning_kind(warnings),
+            "imread_sha256": None if imread is None else rgb_sha256(imread),
+            "imdecode_sha256": (None if imdecode is None
+                                else rgb_sha256(imdecode)),
+            "loader": "fails" if comps == 4 else "decodes",
+            "loader_affines": [[float(v) for v in m.ravel()] for m in affines],
+            "loader_crop_sha256": jax_loader_crops(buf, affines)}
+
+
+def write_mode_fixtures(root: pathlib.Path = MODES_DIR) -> dict:
+    root.mkdir(parents=True, exist_ok=True)
+    manifest = {name: mode_entry(buf, mode)
+                for name, (buf, mode) in mode_fixture_set().items()}
+    for name, (buf, _) in mode_fixture_set().items():
+        (root / name).write_bytes(buf)
+    (root / "manifest.json").write_text(json.dumps(manifest, indent=1) + "\n")
+    return manifest
+
+
 if __name__ == "__main__":
     import sys
     sys.path.insert(0, str(FIXTURE_DIR.parents[2]))
-    m = write_fixtures()
-    total = sum(v["bytes"] for v in m.values())
-    for k, v in m.items():
-        print(f"{k}: {v['bytes']} bytes, {v['mode']}")
-    print(f"{len(m)} files, {total} bytes")
+    for m in (write_fixtures(), write_mode_fixtures()):
+        total = sum(v["bytes"] for v in m.values())
+        for k, v in m.items():
+            print(f"{k}: {v['bytes']} bytes, {v['mode']}")
+        print(f"{len(m)} files, {total} bytes")

@@ -5,14 +5,20 @@
 //
 // Each file is decoded as given and then with seeded mutations (bytes
 // overwritten in the headers or anywhere, or the file truncated), at full
-// size and again at a DCT scale of 1/8 to 4/8. Every call must return a
-// status without a memory or undefined-behaviour fault; prints
-// "ok <decoded> refused <errors> scaled <decoded at the scale>".
+// size and again at a DCT scale of 1/8 to 4/8, the two flavours
+// (libjpeg's, OpenCV's) in turn. Every call must return a status without a
+// memory or undefined-behaviour fault; prints "ok <decoded> refused
+// <errors> scaled <decoded at the scale>", a decode with a libjpeg warning
+// (status 4 or 5: a truncated file) counted as decoded.
 #include "jpegdec.cpp"
 
 #include <fstream>
 #include <iterator>
 #include <random>
+
+namespace {
+bool decoded(int status) { return status == 0 || status == 4 || status == 5; }
+}  // namespace
 
 int main(int argc, char** argv) {
     if (argc < 3) return 2;
@@ -39,6 +45,7 @@ int main(int argc, char** argv) {
             }
             int w = 0, h = 0, c = 0;
             char err[256];
+            const int flavour = it % 2;
             if (epk_jpeg_info(m.data(), m.size(), 8, &w, &h, &c, err, 256)) {
                 ++refused;
                 continue;
@@ -48,17 +55,17 @@ int main(int argc, char** argv) {
                 continue;
             }
             std::vector<uint8_t> out(size_t(w) * h * 3);
-            if (epk_jpeg_decode_rgb(m.data(), m.size(), 8, out.data(), w, h,
-                                    err, 256))
-                ++refused;
-            else
+            if (decoded(epk_jpeg_decode_rgb(m.data(), m.size(), 8, out.data(),
+                                            w, h, flavour, err, 256)))
                 ++ok;
+            else
+                ++refused;
             const int s = 1 + it % 4;
             if (epk_jpeg_info(m.data(), m.size(), s, &w, &h, &c, err, 256))
                 continue;
             std::vector<uint8_t> small(size_t(w) * h * 3);
-            if (!epk_jpeg_decode_rgb(m.data(), m.size(), s, small.data(), w,
-                                     h, err, 256))
+            if (decoded(epk_jpeg_decode_rgb(m.data(), m.size(), s, small.data(),
+                                            w, h, flavour, err, 256)))
                 ++scaled;
         }
     }

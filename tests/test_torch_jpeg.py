@@ -14,11 +14,15 @@ own, saturated pixels, Pillow's optimized Huffman tables, progressive
 files of OpenCV and Pillow in 4:2:0, 4:4:4, 4:2:2, grayscale and with a
 restart interval) must decode to equal arrays, at full size and at the
 scales 1/8, 2/8 and 4/8; 3/8 on the cases whose sides are multiples of 8.
-Truncated or corrupt bytes raise IOError; refused modes name themselves;
-neither the source nor the build names libjpeg.
+Truncated or corrupt bytes raise IOError (a truncated file's, which
+libjpeg decodes with a warning, holds that decode); lossless,
+hierarchical and 12-bit files are refused by name; the modes once refused
+decode as OpenCV decodes them; neither the source nor the build names
+libjpeg. ``tests/test_torch_image_modes.py`` holds the files of those
+modes (``tests/data/jpeg/modes/``) to libjpeg and to the JAX package's
+readers.
 """
 
-import io
 import json
 import sys
 import zlib
@@ -340,55 +344,88 @@ def _refused_cases():
     img = jf.render(24, 32, 3)
     prog = jf.cv2_encode(img, 90, progressive=True)
     sof = prog.index(b"\xff\xc2")
+    base = jf.cv2_encode(img, 90)
+    sof0 = base.index(b"\xff\xc0")
     # the file cut after its DC refinement scan: AC coefficients 1-9 are
-    # left unfinished, which libjpeg would block-smooth
+    # left unfinished, which libjpeg block-smooths
     unfinished = prog[:_scan_offsets(prog)[7]] + b"\xff\xd9"
     sub44 = jf.encode_separate_scans(jf.render(64, 64, 3), 85, (4, 4))
     return {
-        "progressive": (prog[:sof + 1] + b"\xca" + prog[sof + 2:],
-                        "progressive arithmetic coding (SOF10)"),
-        "arithmetic": (prog[:sof + 1] + b"\xc9" + prog[sof + 2:],
-                       "arithmetic coding (SOF9)"),
+        # refused, naming the mode, as libjpeg-turbo 2.1 refuses them
+        "lossless": (base[:sof0 + 1] + b"\xc3" + base[sof0 + 2:],
+                     "lossless (SOF3)"),
+        "hierarchical": (base[:sof0 + 1] + b"\xc5" + base[sof0 + 2:],
+                         "hierarchical (SOF5)"),
         "12-bit": (prog[:sof + 1] + b"\xc0" + prog[sof + 2:sof + 4] + b"\x0c"
                    + prog[sof + 5:], "12-bit samples"),
-        "cmyk": (_pil_cmyk(img), "CMYK/YCCK (4 components)"),
-        "block_smoothing": (unfinished, "progressive with unfinished AC "
-                            "coefficients (libjpeg block smoothing)"),
-        # 4x4-subsampled chroma at 3/8 needs a 12x12 IDCT
-        "idct_12": (sub44, "IDCT size 12"),
+        # decoded as libjpeg decodes them: Huffman data read as arithmetic
+        # coding (progressive, and sequential, whose later scans libjpeg
+        # refuses after the first), CMYK, block smoothing, the 12x12 IDCT
+        "progressive": (prog[:sof + 1] + b"\xca" + prog[sof + 2:], None),
+        "arithmetic": (prog[:sof + 1] + b"\xc9" + prog[sof + 2:], None),
+        "cmyk": (jf.pil_cmyk(img), None),
+        "block_smoothing": (unfinished, None),
+        "idct_12": (sub44, None),
     }
 
 
-def _pil_cmyk(rgb):
-    from PIL import Image
-    bio = io.BytesIO()
-    Image.fromarray(rgb).convert("CMYK").save(bio, "JPEG", quality=90)
-    return bio.getvalue()
+def _opencv_rgb(buf: bytes, scale_num: int):
+    """OpenCV's (reduced) read, RGB, EXIF orientation ignored; None where
+    it gives no image."""
+    flag = {1: cv2.IMREAD_REDUCED_COLOR_8, 2: cv2.IMREAD_REDUCED_COLOR_4,
+            4: cv2.IMREAD_REDUCED_COLOR_2, 8: cv2.IMREAD_COLOR}[scale_num]
+    img = cv2.imdecode(np.frombuffer(buf, np.uint8),
+                       flag | cv2.IMREAD_IGNORE_ORIENTATION)
+    return None if img is None else img[..., ::-1]
 
 
 @pytest.mark.parametrize("mode", ["progressive", "arithmetic", "12-bit",
-                                  "cmyk", "block_smoothing", "idct_12"])
+                                  "cmyk", "block_smoothing", "idct_12",
+                                  "lossless", "hierarchical"])
 def test_refused_modes_are_named(mode):
+    """Lossless, hierarchical and 12-bit files are refused, naming the
+    mode, as libjpeg-turbo 2.1 refuses them. The name is historical for
+    the others, which the decoder once refused: each decodes now to
+    OpenCV's bits at 1/8, 2/8, 4/8 and 8/8 (its flavour: libjpeg-turbo
+    3.1's block smoothing, and the first scan of a one-scan file kept),
+    and the 12x12 IDCT at 3/8 to the JAX native loader's 3/8 read."""
     buf, named = _refused_cases()[mode]
-    with pytest.raises(jpeg.UnsupportedJpeg) as e:
-        jpeg.decode(buf, 3 if mode == "idct_12" else 8)
-    assert e.value.mode == named
-    assert isinstance(e.value, IOError)
-    if mode == "idct_12":                      # other scales decode it
-        for s in (*jf.SCALES, 8):
-            np.testing.assert_array_equal(jpeg.decode(buf, s),
-                                          jf.libjpeg_rgb(buf, s))
+    if named:
+        with pytest.raises(jpeg.UnsupportedJpeg) as e:
+            jpeg.decode(buf)
+        assert e.value.mode == named
+        assert isinstance(e.value, IOError)
+        return
+    for s in (*jf.SCALES, 8):
+        np.testing.assert_array_equal(
+            jf.port_rgb(buf, s, "opencv"),
+            _opencv_rgb(buf, s), err_msg=f"{mode} at {s}/8")
+    if mode == "idct_12":
+        try:
+            want = jf.libjpeg_rgb_3_8(buf)
+        except RuntimeError as e:
+            pytest.skip(str(e))
+        np.testing.assert_array_equal(jpeg.decode(buf, 3), want)
 
 
 def test_unfinished_progressive_files_are_what_libjpeg_smooths():
-    """Each cut of a progressive file before its last scan is refused,
-    and the whole file decodes: the refusal is smoothing_ok's rule."""
+    """Each cut of a progressive file before its last scan leaves
+    coefficients unfinished, and libjpeg block-smooths it: OpenCV's bits
+    in its flavour at each scale, the JAX native loader's (libjpeg-turbo
+    2.1) at 3/8 in the default one; the whole file needs no smoothing."""
     prog = jf.cv2_encode(jf.render(40, 56, 5), 90, "444", progressive=True)
     scans = _scan_offsets(prog)
     assert len(scans) == 10
     for k in scans[1:]:
-        with pytest.raises(jpeg.UnsupportedJpeg, match="block smoothing"):
-            jpeg.decode(prog[:k] + b"\xff\xd9")
+        cut = prog[:k] + b"\xff\xd9"
+        for s in (*jf.SCALES, 8):
+            np.testing.assert_array_equal(
+                jpeg.decode(cut, s, flavour="opencv"), _opencv_rgb(cut, s))
+        try:
+            want = jf.libjpeg_rgb_3_8(cut)
+        except RuntimeError:
+            continue
+        np.testing.assert_array_equal(jpeg.decode(cut, 3), want)
     np.testing.assert_array_equal(jpeg.decode(prog), jf.libjpeg_rgb(prog))
 
 
@@ -421,36 +458,48 @@ def test_imread_takes_the_decoder_without_the_native_loader(tmp_path):
     rgb = tzip.imread(str(path), rgb=True)
     bgr = tzip.imread(str(path))
     assert jpeg.decode_count() == 2
-    assert fastloader.decode_counts() == {"scale": {}, "failed": 0}
+    assert fastloader.decode_counts() == {"scale": {}, "failed": 0,
+                                         "unsupported": 0, "warned": 0}
     assert jf.rgb_sha256(rgb) == MANIFEST[name]["rgb_sha256"]
     np.testing.assert_array_equal(bgr, rgb[..., ::-1])
 
 
 def test_imread_sends_a_refused_mode_to_opencv(tmp_path, monkeypatch):
-    """CMYK goes to OpenCV; without OpenCV it raises with the path and the
-    mode. A progressive file no longer goes there."""
-    path = tmp_path / "cmyk_32x24.jpg"
-    path.write_bytes(_refused_cases()["cmyk"][0])
+    """What is not a JPEG (a PNG) goes to OpenCV; a JPEG mode the decoder
+    refuses (12-bit) names itself when OpenCV is missing. CMYK and
+    progressive files no longer go there."""
+    png = tmp_path / "frame_32x24.png"
+    img = jf.render(24, 32, 3)
+    png.write_bytes(cv2.imencode(".png", img[..., ::-1])[1].tobytes())
+    twelve = tmp_path / "twelve_bit_32x24.jpg"
+    twelve.write_bytes(_refused_cases()["12-bit"][0])
+    cmyk = tmp_path / "cmyk_32x24.jpg"
+    cmyk.write_bytes(_refused_cases()["cmyk"][0])
     jpeg.reset_count()
-    np.testing.assert_array_equal(tzip.imread(str(path), rgb=True),
-                                  jf.libjpeg_rgb(path.read_bytes()))
+    np.testing.assert_array_equal(tzip.imread(str(png), rgb=True), img)
+    want_cmyk = _opencv_rgb(cmyk.read_bytes(), 8)
     prog = tmp_path / "progressive_64x48.jpg"
     prog.write_bytes((jf.FIXTURE_DIR / prog.name).read_bytes())
     want = jf.libjpeg_rgb(prog.read_bytes())
     monkeypatch.setitem(sys.modules, "cv2", None)
     np.testing.assert_array_equal(tzip.imread(str(prog), rgb=True), want)
-    assert jpeg.decode_count() == 1            # the refused CMYK not counted
-    with pytest.raises(ImportError, match="CMYK") as e:
-        tzip.imread(str(path))
-    assert str(path) in str(e.value) and "OpenCV" in str(e.value)
+    np.testing.assert_array_equal(tzip.imread(str(cmyk), rgb=True),
+                                  want_cmyk)
+    assert jpeg.decode_count() == 2            # the PNG not counted
+    with pytest.raises(ImportError, match="12-bit") as e:
+        tzip.imread(str(twelve))
+    assert str(twelve) in str(e.value) and "OpenCV" in str(e.value)
+    with pytest.raises(ImportError, match="not a JPEG"):
+        tzip.imread(str(png))
 
 
 def test_mutated_files_fail_cleanly_under_sanitizers(tmp_path):
     """Mutated and truncated fixtures, the progressive ones among them
-    (EOB runs, refinement scans), through the decoder built with
-    AddressSanitizer and UndefinedBehaviorSanitizer (``tests/jpeg_fuzz.cpp``),
-    each at full size and at a DCT scale of 1/8 to 4/8: every call
-    returns a status, none faults."""
+    (EOB runs, refinement scans) and those of ``modes/`` (arithmetic
+    coding, block smoothing, truncated data, 4x4 sampling, YCCK), through
+    the decoder built with AddressSanitizer and UndefinedBehaviorSanitizer
+    (``tests/jpeg_fuzz.cpp``), each at full size and at a DCT scale of 1/8
+    to 4/8, in both flavours: every call returns a status, none faults."""
     import shutil
     import subprocess
     cxx = shutil.which("g++")
@@ -468,12 +517,19 @@ def test_mutated_files_fail_cleanly_under_sanitizers(tmp_path):
              if e["bytes"] < 5000]
     progressive = [f for f in files if "progressive" in f]
     assert len(progressive) >= 4
-    run = subprocess.run([str(exe), "300", *files], capture_output=True,
-                         text=True, timeout=120)
-    assert run.returncode == 0, run.stderr[-2000:]
-    ok, refused, ok_scaled = map(int, run.stdout.split()[1::2])
-    assert ok > len(files) and refused > len(files)
-    assert ok_scaled > len(files)
+    modes = json.loads((jf.MODES_DIR / "manifest.json").read_text())
+    mode_files = [str(jf.MODES_DIR / n) for n, e in modes.items()
+                  if e["bytes"] < 5000]
+    for kind in ("arith_", "smooth_", "trunc_", "s4x4_", "ycck_"):
+        assert sum(kind in f for f in mode_files) >= 2, kind
+    # 300 mutations of each fixture, 60 of each file of modes/
+    for count, names in (("300", files), ("60", mode_files)):
+        run = subprocess.run([str(exe), count, *names], capture_output=True,
+                             text=True, timeout=120)
+        assert run.returncode == 0, run.stderr[-2000:]
+        ok, refused, ok_scaled = map(int, run.stdout.split()[1::2])
+        assert ok > len(names) and refused > len(names)
+        assert ok_scaled > len(names)
 
 
 def test_parallel_decodes_match_the_manifest():

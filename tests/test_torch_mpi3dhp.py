@@ -305,7 +305,8 @@ def test_progressive_batches_with_the_native_loader_match_jax(
     jb, tb = _batches(progressive_tree, (crop, crop), native=True)
     for k in jb:
         np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
-    assert tfast.decode_counts() == {"scale": {scale_num: 14}, "failed": 0}
+    assert tfast.decode_counts() == {"scale": {scale_num: 14}, "failed": 0,
+                                     "unsupported": 0, "warned": 0}
 
 
 # ------------------------------------------------------ the valid CLI
@@ -378,7 +379,8 @@ def _valid_case(frames_tree, tmp_path, native: bool):
         assert set(native_counts["scale"]) <= {1, 2}
     else:
         assert jpeg.decode_count() == 16
-        assert native_counts == {"scale": {}, "failed": 0}
+        assert native_counts == {"scale": {}, "failed": 0, "unsupported": 0,
+                                 "warned": 0}
     preds = np.load(next((tmp_path / "out").rglob("pred.npz")))["preds"]
     _, tcfg = _configs()
     tcfg.DATASET.MAP_H36M_JOINTS = True

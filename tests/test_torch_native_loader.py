@@ -12,8 +12,12 @@ port's decoder inside it, no libjpeg) against the JAX package's
   ``-march=native`` and fuses multiply-adds on an FMA host; the port's
   geometry and warp take their FMA clone there, so they are equal);
   ``warp_batch`` likewise.
-- The library's counts of decodes by scale and of failures; a failed
-  decode's zero crop; a scale whose IDCT the decoder lacks served at 8/8.
+- The library's counts of decodes by scale, of failures by kind and of
+  decodes with a libjpeg warning; a failed decode's zero crop; a
+  truncated frame's crop; 4x4-subsampled chroma decoded at 3/8.
+
+``tests/test_torch_image_modes.py`` holds the loader to the JAX one on
+the files of ``tests/data/jpeg/modes/``.
 """
 
 import subprocess
@@ -142,29 +146,42 @@ def test_the_decode_is_the_port_decoders():
 
 
 def test_counts_failures_and_their_zero_crops():
+    """A frame that fails (not a JPEG: corrupt; CMYK: a mode the JAX
+    loader's libjpeg refuses too) gives a zero crop and is counted, by
+    kind; a truncated frame is decoded as libjpeg fills it and counted
+    among the decodes with a warning, its crop the JAX loader's."""
     bufs = _frames(False)[:3]
     bad = bufs[1][:len(bufs[1]) // 2]               # truncated
-    M = _affines(4, 3.0, SIZE, seed=1)
+    cmyk = (jf.MODES_DIR / "ycck_420_48x40.jpg").read_bytes()
+    frames = [bufs[0], bad, bufs[2], b"not a jpeg", cmyk]
+    M = _affines(5, 3.0, SIZE, seed=1)
     tfast.reset_counts()
-    out = tfast.decode_warp_batch([bufs[0], bad, bufs[2], b"not a jpeg"], M,
-                                  SIZE)
-    assert not out[1].any() and not out[3].any()
-    assert out[0].any() and out[2].any()
-    assert tfast.decode_counts() == {"scale": {3: 2}, "failed": 2}
+    out = tfast.decode_warp_batch(frames, M, SIZE)
+    assert not out[3].any() and not out[4].any()
+    assert out[0].any() and out[1].any() and out[2].any()
+    assert tfast.decode_counts() == {"scale": {3: 3}, "failed": 2,
+                                     "unsupported": 1, "warned": 1}
+    from epipolarpose_tpu.data import fastloader as jfast
+    if jfast.available():
+        np.testing.assert_array_equal(
+            out, jfast.decode_warp_batch(frames, M, SIZE, dtype=np.uint8))
     tfast.reset_counts()
-    assert tfast.decode_counts() == {"scale": {}, "failed": 0}
+    assert tfast.decode_counts() == {"scale": {}, "failed": 0,
+                                     "unsupported": 0, "warned": 0}
 
 
 def test_a_scale_without_its_idct_is_served_at_full_size():
-    """4x4-subsampled chroma at 3/8 needs a 12x12 IDCT, which the decoder
-    lacks: the loader decodes that frame at 8/8 (the JAX loader, libjpeg,
-    would at 3/8) and warps the full decode."""
+    """The name is historical: 4x4-subsampled chroma at 3/8 needs
+    jidctint.c's 12x12 IDCT, which the decoder once lacked, and the loader
+    then decoded that frame at 8/8. It has the IDCT now, so the frame is
+    decoded at 3/8, as the JAX loader (libjpeg) decodes it, and counted
+    there; no frame is served at another scale than its affine's."""
     buf = jf.encode_separate_scans(jf.render(64, 64, 3), 85, (4, 4))
     M = _affines(1, 8 / 3, (24, 24), seed=2, rot=False)
     tfast.reset_counts()
     got = tfast.decode_warp_batch([buf], M, (24, 24))
-    assert tfast.decode_counts() == {"scale": {8: 1}, "failed": 0}
-    full = jpeg.decode(buf)
-    want = tfast.warp_batch(full[None], M, (24, 24), scale=1.0)
+    assert tfast.decode_counts() == {"scale": {3: 1}, "failed": 0,
+                                     "unsupported": 0, "warned": 0}
+    jfast = _jfast()
     np.testing.assert_array_equal(
-        got, np.clip(np.trunc(want + 0.5), 0, 255).astype(np.uint8))
+        got, jfast.decode_warp_batch([buf], M, (24, 24), dtype=np.uint8))
