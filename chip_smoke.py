@@ -241,7 +241,19 @@ card, then drives the port's paths through their entry points:
    block-smoothed twins of the 2048 x 2048 frame as that tree through
    ``valid`` (every frame through the loader, one soft-argmax launch a
    batch), and two SS steps fed from the arithmetic twin (both soft-argmax
-   kernels and ``epk_triangulate_split`` a step).
+   kernels and ``epk_triangulate_split`` a step);
+29. images that are not JPEG, on the card's host (no OpenCV): every file
+   of ``tests/data/images`` (PNG, PNM, BMP) through ``imread`` from a path
+   and a ``zip@`` member against its manifest's sha256 of OpenCV's image,
+   IOError where OpenCV gives none, ImageTooLarge where it raises; a
+   2048 x 2048 frame written here as PNG with filter types 0-4 row by row
+   (and all Paeth) decoded back to its bits, ms a decode split into the
+   inflate and the native pass, on 1 and 8 threads; ``demo --image`` on an
+   EXIF orientation-6 PNG portrait (upright, one soft-argmax launch); a
+   synthetic H36M tree of the 1000 x 1000 JPEG frame and its PNG twin
+   through ``valid`` on the pool route, whose predictions must be equal
+   bit for bit, every frame through the port's JPEG or PNG decoder and
+   none through OpenCV.
 
 Kernel launch counters are set to 0 just before each path and read just
 after it (phases 22's and 26's rank processes report their own). Each phase checks
@@ -282,7 +294,8 @@ PHASE_LIMITS = {"build": 120.0, "softargmax": 30.0, "matmul_stats": 60.0,
                 "jpeg": 25.0, "mpi3dhp": 30.0, "warp": 15.0,
                 "remat": 150.0, "ddp": 420.0, "fused": 300.0,
                 "export": 90.0, "user_tools": 90.0, "spatial": 150.0,
-                "processes": 30.0, "native_loader": 65.0}
+                "processes": 30.0, "native_loader": 65.0,
+                "image_formats": 30.0}
 
 # H36M left/right joint pairs (the JAX package's data/h36m.py FLIP_PAIRS)
 H36M_FLIP_PAIRS = ((1, 4), (2, 5), (3, 6), (11, 14), (12, 15), (13, 16))
@@ -2660,31 +2673,42 @@ def jpeg_modes() -> dict:
     return dict(files=len(manifest), warnings=kinds, refused=refused, ms=ms)
 
 
-def portrait_demo(res: dict, tmp: str) -> dict:
-    """``demo --image`` on the EXIF orientation-6 photo at ResNet-50@256:
-    one decode through imread, one soft-argmax launch, and the crop
-    upright: the photo stands 40 high and 24 wide once turned, so the
-    square crop's left and right eighths are padding (black) and its top
-    and bottom eighths are not (the other way round without the turn)."""
+def portrait_demo(res: dict, tmp: str, path: str | None = None,
+                  key: str = "jpeg_portrait_demo") -> dict:
+    """``demo --image`` on an EXIF orientation-6 photo at ResNet-50@256
+    (phase 18's JPEG, or the PNG at ``path``): one decode through imread
+    (the port's JPEG or PNG decoder, never OpenCV), one soft-argmax
+    launch, and the crop upright: the photo stands 40 high and 24 wide
+    once turned, so the square crop's left and right eighths are padding
+    (black) and its top and bottom eighths are not (the other way round
+    without the turn)."""
     import numpy as np
-    from epipolarpose_tpu_torch.data import zipreader
+    from epipolarpose_tpu_torch.data import png, zipreader
     from epipolarpose_tpu_torch.scripts import demo
     from epipolarpose_tpu_torch.utils.vis import read_png
-    path = str(JPEG_MODES / PORTRAIT)
+    path = str(path or JPEG_MODES / PORTRAIT)
     check(zipreader.imread(path).shape == (40, 24, 3),
-          "imread did not turn the orientation-6 photo upright")
+          f"imread did not turn the orientation-6 photo {path} upright")
     reset_decodes()
-    c = res["paths"]["jpeg_portrait_demo"] = {}
+    png.reset_count()
+    zipreader.reset_route_counts()
+    c = res["paths"][key] = {}
     shown = run_cli(demo.main, [
         "--cfg", str(ROOT / "experiments/h36m/valid_r50_256_integral.yaml"),
         "--image", path, "--out", tmp], c)
-    d = decodes_by_library()
-    check(d["jpeg"] == d["total"] == 1 and not d["failed"],
-          f"the portrait demo decoded {d}")
+    d, routes = decodes_by_library(), zipreader.route_counts()
+    if path.endswith(".png"):
+        check(png.decode_count() == 1 and d["total"] == 0
+              and routes["png"] == 1 and sum(routes.values()) == 1,
+              f"the PNG portrait demo decoded {d}, routes {routes}")
+    else:
+        check(d["jpeg"] == d["total"] == 1 and not d["failed"]
+              and routes["opencv"] == 0,
+              f"the portrait demo decoded {d}, routes {routes}")
     check(c["softargmax_fwd"] == 1, f"the portrait demo launched {c}")
-    png = shown["files"][0]
-    check_png(png, (258, 258))
-    img = read_png(png)
+    png_out = shown["files"][0]
+    check_png(png_out, (258, 258))
+    img = read_png(png_out)
     dark = img[1:-1, 1:-1, :3].max(-1) < 8          # inside the 1 px frame
     band = dark.shape[1] // 8
     sides = float(np.concatenate([dark[:, :band], dark[:, -band:]], 1).mean())
@@ -5154,6 +5178,244 @@ def phase_native_loader(res: dict) -> None:
             f"{r['launches']}")
 
 
+# ---------------------------------- images that are not JPEG (phase 29)
+IMAGE_FIXTURES = ROOT / "tests" / "data" / "images"
+PNG_FRAME, PNG_REPS, PNG_THREADS = 2048, 5, (1, 8)
+# the H36M trees: frames x 4 views = one eval batch of 64
+IMAGE_H36M_FRAMES = 16
+
+
+def image_fixture_reads() -> dict:
+    """Every file of ``tests/data/images`` through ``imread`` from a path
+    and from a ``zip@`` member: the manifest's sha256 of OpenCV's BGR
+    image (``cv2.imread`` and ``cv2.imdecode``), IOError where OpenCV
+    gives none, ImageTooLarge where it raises; the files the port leaves
+    to OpenCV raise NeedsOpenCV with the manifest's reason (not read:
+    this host has no OpenCV). Returns the outcomes counted."""
+    import tempfile
+    import zipfile
+
+    from epipolarpose_tpu_torch.data import imgformats, png, zipreader
+    manifest = json.loads((IMAGE_FIXTURES / "manifest.json").read_text())
+    outcomes = {"image": 0, "none": 0, "too_large": 0, "needs_opencv": 0}
+    with tempfile.TemporaryDirectory(prefix="epk_images_") as tmp:
+        archive = pathlib.Path(tmp) / "images.zip"
+        with zipfile.ZipFile(archive, "w") as z:
+            for name in manifest:
+                z.write(IMAGE_FIXTURES / name, name)
+        for name, e in manifest.items():
+            if e["needs_opencv"]:
+                try:
+                    png.decode((IMAGE_FIXTURES / name).read_bytes())
+                    check(False, f"{name} decoded; OpenCV's alone")
+                except imgformats.NeedsOpenCV as x:
+                    check(x.what == e["needs_opencv"], f"{name}: {x.what}")
+                outcomes["needs_opencv"] += 1
+                continue
+            for path, key in ((str(IMAGE_FIXTURES / name), "imread_sha256"),
+                              (f"{archive}@/{name}", "imdecode_sha256")):
+                try:
+                    got = rgb_sha(zipreader.imread(path))
+                except imgformats.ImageTooLarge:
+                    got = "raises"
+                except IOError:
+                    got = None
+                check(got == e[key], f"{path}: {got} is not OpenCV's "
+                      f"{e[key]}")
+                outcomes[{None: "none", "raises": "too_large"}.get(
+                    got, "image")] += 1
+    return outcomes
+
+
+def png_frame_ms() -> dict:
+    """The 2048 x 2048 frame, written here as PNG with filter types 0-4 row
+    by row and with Paeth on every row: its bits back, ms a decode
+    (median and min of PNG_REPS, split into the inflate and the native
+    pass), and frames/s on PNG_THREADS threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    sys.path.insert(0, str(ROOT / "tests"))
+    import image_fixtures
+    from epipolarpose_tpu_torch.data import png
+    img = image_fixtures.smooth_frame(PNG_FRAME, PNG_FRAME, seed=29)
+    out = {}
+    for key, filters in (("filters_0_4", (0, 1, 2, 3, 4)), ("paeth", (4,))):
+        buf = image_fixtures.png_bytes(img, 2, 8, filters=filters)
+        got, orientation = png.decode(buf)
+        check(orientation == 1 and np.array_equal(got, img),
+              f"the {key} PNG frame does not decode to its pixels")
+        runs = []
+        for _ in range(PNG_REPS):
+            times = {}
+            t = time.perf_counter()
+            png.decode(buf, times=times)
+            runs.append(((time.perf_counter() - t) * 1e3,
+                         times["inflate_ms"], times["native_ms"]))
+        runs.sort()
+        r = out[key] = dict(bytes=len(buf), ms=runs[len(runs) // 2][0],
+                            min_ms=runs[0][0],
+                            inflate_ms=runs[len(runs) // 2][1],
+                            native_ms=runs[len(runs) // 2][2])
+        if key == "filters_0_4":
+            work = [buf] * 16
+            for n in PNG_THREADS:
+                with ThreadPoolExecutor(n) as pool:
+                    t = time.perf_counter()
+                    list(pool.map(png.decode, work))
+                    r[f"frames_per_s_{n}"] = len(work) / (
+                        time.perf_counter() - t)
+    return out
+
+
+def png_portrait(tmp: pathlib.Path) -> str:
+    """Phase 18's orientation-6 photo (40 x 24 as stored) as a PNG with
+    an eXIf chunk of orientation 6."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import image_fixtures
+    from epipolarpose_tpu_torch.data import jpeg
+    rgb = jpeg.decode((JPEG_MODES / PORTRAIT).read_bytes(), flavour="opencv")
+    exif = image_fixtures.png_chunk(
+        b"eXIf", image_fixtures.tiff_orientation_block(6, "II"))
+    path = tmp / "portrait_exif6_40x24.png"
+    path.write_bytes(image_fixtures.png_bytes(rgb, 2, 8, filters=(1, 4),
+                                              before_idat=[exif]))
+    return str(path)
+
+
+def h36m_png_valid(res: dict, tmp: pathlib.Path) -> dict:
+    """A synthetic H36M tree whose frames are the 1000 x 1000 JPEG and
+    its twin whose frames are that JPEG's pixels as PNG (written by
+    ``utils/vis.py::write_png``), each through the ``valid`` CLI on the
+    pool route (``TPU.NATIVE_LOADER`` false) with phase 13's FS weights:
+    the predictions equal bit for bit; every frame through the port's
+    JPEG or PNG decoder, none through OpenCV."""
+    import numpy as np
+    import epipolarpose_tpu_torch.data.h36m as h36m_mod
+    from epipolarpose_tpu_torch.config import load_config
+    from epipolarpose_tpu_torch.data import jpeg, png, zipreader
+    from epipolarpose_tpu_torch.data.synthetic import write_synthetic_h36m
+    from epipolarpose_tpu_torch.scripts import valid
+    from epipolarpose_tpu_torch.utils.vis import write_png
+    src = "h36m/valid_r50_256_integral.yaml"
+    cfg = load_config(ROOT / "experiments" / src)
+    frame = (JPEG_FIXTURES / JPEG_FRAMES[2]).read_bytes()
+    png_file = tmp / "frame.png"
+    write_png(str(png_file), jpeg.decode(frame, flavour="opencv"))
+    out, preds = {}, {}
+    evaluate = h36m_mod.H36MDataset.evaluate
+
+    def keep(self, cfg, p, *a, **k):                # the CLI's predictions
+        preds[key] = np.array(p)
+        return evaluate(self, cfg, p, *a, **k)
+    h36m_mod.H36MDataset.evaluate = keep
+    try:
+        for key, kind in (("image_formats_jpeg", "jpeg"),
+                          ("image_formats_png", "png")):
+            data = tmp / key
+            tree = data / cfg.DATASET.ROOT
+            write_synthetic_h36m(str(tree), cfg,
+                                 num_frames=IMAGE_H36M_FRAMES,
+                                 camera_ids=h36m_mod.CAMERA_IDS, jpeg=frame)
+            if kind == "png":
+                _as_png_tree(tree, png_file.read_bytes())
+            cfg_file = cli_yaml(data / "valid.yaml", src,
+                                DATASET={"SUBSAMPLE": 1},
+                                TPU={"NATIVE_LOADER": False})
+            reset_decodes()
+            png.reset_count()
+            zipreader.reset_route_counts()
+            c = res["paths"][key] = {}
+            t0 = time.perf_counter()
+            perf = run_cli(valid.main, [
+                "--cfg", cfg_file, "--dataDir", str(data), "--model-file",
+                res["cli_fs_final"], "--modelDir", str(data / "out"),
+                "--logDir", str(data / "log")], c)
+            n = len(preds[key])
+            out[key] = dict(perf=perf, records=n, wall_s=time.perf_counter()
+                            - t0, routes=zipreader.route_counts(),
+                            jpeg=jpeg.decode_count(), png=png.decode_count(),
+                            launches=c["softargmax_fwd"])
+            want = {"jpeg": 0, "png": 0, "pnm": 0, "bmp": 0, "opencv": 0}
+            want[kind] = n
+            check(n == 4 * IMAGE_H36M_FRAMES and out[key]["routes"] == want
+                  and (jpeg.decode_count(), png.decode_count()) == (
+                      (n, 0) if kind == "jpeg" else (0, n)),
+                  f"{key}: {n} records, decodes {out[key]}")
+            check(c["softargmax_fwd"] == n // EVAL_BATCH and
+                  c["softargmax_bwd"] == c["triangulate"] == 0,
+                  f"{key} launched {c}")
+    finally:
+        h36m_mod.H36MDataset.evaluate = evaluate
+    a, b = preds["image_formats_jpeg"], preds["image_formats_png"]
+    check(a.shape == b.shape and np.array_equal(a, b)
+          and np.isfinite(a).all(),
+          "the PNG tree's predictions differ from the JPEG tree's")
+    return out
+
+
+def _as_png_tree(tree: pathlib.Path, png_bytes: bytes) -> None:
+    """Replace every frame of a synthetic H36M tree's zip with the PNG
+    bytes, named ``.png``, and point the annotations at them."""
+    import zipfile
+    zpath = tree / "images" / "S1.zip"
+    with zipfile.ZipFile(zpath) as z:
+        names = z.namelist()
+    with zipfile.ZipFile(zpath, "w") as z:
+        for name in names:
+            z.writestr(name[:-4] + ".png", png_bytes)
+    for annot in (tree / "annot").glob("*.json"):
+        text = annot.read_text()
+        if ".jpg" in text:
+            annot.write_text(text.replace(".jpg\"", ".png\""))
+
+
+def phase_image_formats(res: dict) -> None:
+    """Images that are not JPEG on the card's host (module docstring,
+    phase 29)."""
+    import shutil
+    import tempfile
+
+    from epipolarpose_tpu_torch.data import png
+    t0 = time.perf_counter()
+    check(png.available(), f"PNG decoder: {png.build_error()}")
+    load_s = time.perf_counter() - t0          # built at its first use
+    reads = image_fixture_reads()
+    ms = png_frame_ms()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="epk_image_formats_"))
+    try:
+        portrait = portrait_demo(res, str(tmp), png_portrait(tmp),
+                                 "png_portrait_demo")
+        trees = h36m_png_valid(res, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    loaded = [m for m in IMAGE_LIBS if m in sys.modules]
+    check(not loaded, f"the image formats' paths imported {loaded}")
+    res["image_formats"] = dict(load_s=load_s, reads=reads, ms=ms,
+                                portrait=portrait, trees=trees)
+    log(f"[image_formats] tests/data/images through imread from a path "
+        f"and a zip member: {reads} (OpenCV's image or refusal each time, "
+        f"no OpenCV on this host); PNG decoder {png.LIBRARY.library_path()} "
+        f"ready in {load_s:.2f} s")
+    for key, r in ms.items():
+        log(f"[image_formats] {PNG_FRAME} x {PNG_FRAME} PNG, {key} "
+            f"({r['bytes']} bytes): {r['ms']:.2f} ms a decode (min "
+            f"{r['min_ms']:.2f}; inflate {r['inflate_ms']:.2f}, native pass "
+            f"{r['native_ms']:.2f})" + "".join(
+                f", {n} threads {r[f'frames_per_s_{n}']:.2f} frames/s"
+                for n in PNG_THREADS if f"frames_per_s_{n}" in r))
+    log(f"[image_formats] demo --image on the orientation-6 PNG portrait "
+        f"upright (dark share {portrait['dark_sides']:.2f} at the sides, "
+        f"{portrait['dark_ends']:.2f} at the ends) in "
+        f"{portrait['wall_s']:.2f} s, one PNG decode, one launch")
+    for key, r in trees.items():
+        log(f"[image_formats] {key}: valid on {r['records']} records in "
+            f"{r['wall_s']:.2f} s, perf {r['perf']:.4f}, routes "
+            f"{r['routes']}, soft-argmax launches {r['launches']}")
+    log("[image_formats] the PNG tree's predictions equal the JPEG tree's "
+        "bit for bit")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5179,7 +5441,8 @@ def main() -> int:
               ("ddp", phase_ddp), ("fused", phase_fused),
               ("export", phase_export), ("user_tools", phase_user_tools),
               ("spatial", phase_spatial), ("processes", phase_processes),
-              ("native_loader", phase_native_loader)]
+              ("native_loader", phase_native_loader),
+              ("image_formats", phase_image_formats)]
     failed = []
     for i, (name, fn) in enumerate(phases, 1):
         if failed and failed[0] == "build":

@@ -3,16 +3,24 @@
 The port's copy of the JAX package's ``data/zipreader.py``: H36M images
 ship as per-subject zips, read through a per-process handle cache.
 :func:`imread` gives what the JAX package's imread (OpenCV's
-``IMREAD_COLOR``) gives, and decodes every JPEG with the port's own
-decoder (``data/jpeg.py``, the one the native loader includes), which
-needs neither libjpeg nor OpenCV: baseline, progressive and arithmetic
-coding, every sampling, CMYK and YCCK converted as OpenCV converts them,
-block smoothing as OpenCV's libjpeg-turbo does it, the EXIF orientation
-applied as OpenCV applies it, and a truncated file read as OpenCV reads
-it (decoded as libjpeg fills it from a plain path, refused from a zip
-member). OpenCV, imported only then, reads what is not a JPEG and the
-three JPEG modes the decoder refuses (lossless, hierarchical, 12-bit). A
-JPEG that the decoder accepts never reaches OpenCV.
+``IMREAD_COLOR``) gives, with the port's own decoders, which need neither
+OpenCV nor libjpeg nor libpng; it picks the decoder by the file's first
+bytes, as OpenCV does (``imgformats.sniff``), not by its name:
+
+- JPEG with ``data/jpeg.py`` (the decoder the native loader includes):
+  baseline, progressive and arithmetic coding, every sampling, CMYK and
+  YCCK converted as OpenCV converts them, block smoothing as OpenCV's
+  libjpeg-turbo does it, and a truncated file read as OpenCV reads it
+  (decoded as libjpeg fills it from a plain path, refused from a zip
+  member);
+- PNG with ``data/png.py``; PNM (P1-P6) and BMP with ``data/imgformats.py``;
+
+each with the EXIF orientation applied where OpenCV applies it (JPEG's
+APP1, PNG's eXIf). OpenCV, imported only then, reads every other format
+and the few files of these the port leaves to it (lossless, hierarchical
+and 12-bit JPEGs; animated PNGs whose first frame is not their default
+image, or that are damaged); a file the port's decoders take never
+reaches OpenCV.
 """
 
 from __future__ import annotations
@@ -23,10 +31,14 @@ import zipfile
 
 import numpy as np
 
-from epipolarpose_tpu_torch.data import jpeg
+from epipolarpose_tpu_torch.data import imgformats, jpeg, png
+from epipolarpose_tpu_torch.data.imgformats import tiff_orientation
 
 _cache: dict[str, zipfile.ZipFile] = {}
 _lock = threading.Lock()
+_routes = dict.fromkeys(("jpeg", "png", "pnm", "bmp", "opencv"), 0)
+# the names the native loader takes for JPEGs (joints_dataset.py), as the
+# JAX package's loader does
 JPEG_SUFFIXES = (".jpg", ".jpeg", ".JPG", ".JPEG")
 
 
@@ -93,31 +105,7 @@ def exif_orientation(buf: bytes) -> int:
         payload = buf[pos + 2:pos + length]
         pos += length
         if marker == 0xE1 and payload[:6] == b"Exif\0\0":
-            return _tiff_orientation(payload[6:])
-    return 1
-
-
-def _tiff_orientation(t: bytes) -> int:
-    order = {b"II": "little", b"MM": "big"}.get(t[:2])
-    if order is None or len(t) < 8:
-        return 1
-
-    def u(at: int, size: int) -> int | None:
-        if at + size > len(t):
-            return None
-        return int.from_bytes(t[at:at + size], order)
-    if u(2, 2) != 42:
-        return 1
-    ifd = u(4, 4)
-    count = u(ifd, 2)
-    for i in range(count or 0):
-        entry = ifd + 2 + 12 * i
-        tag = u(entry, 2)
-        if tag is None:
-            break
-        if tag == 0x0112:
-            value = u(entry + 8, 2)
-            return value if value is not None and 1 <= value <= 8 else 1
+            return tiff_orientation(payload[6:])
     return 1
 
 
@@ -134,44 +122,109 @@ def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
+def route_counts() -> dict:
+    """The images :func:`imread` decoded since the last
+    :func:`reset_route_counts`, by decoder: ``jpeg``, ``png``, ``pnm``,
+    ``bmp`` (the port's) and ``opencv``."""
+    with _lock:
+        return dict(_routes)
+
+
+def reset_route_counts() -> None:
+    with _lock:
+        for k in _routes:
+            _routes[k] = 0
+
+
+def _count(route: str) -> None:
+    with _lock:
+        _routes[route] += 1
+
+
+def _decode_jpeg(buf: bytes, path: str) -> tuple[np.ndarray | None, str]:
+    """The port's JPEG decode (RGB, upright) or, where OpenCV must read
+    the file, (None, why)."""
+    if not jpeg.available():
+        return None, f"the port's JPEG decoder is not built " \
+                     f"({jpeg.build_error()})"
+    try:
+        img = jpeg.decode(buf, flavour="opencv")
+    except jpeg.JpegWarning as e:
+        # OpenCV reads what libjpeg warns about, but from memory (a zip
+        # member) not a file whose data ends before EOI
+        if e.ended and is_zip_path(path):
+            raise IOError(f"failed to read image: {path}: {e}") from e
+        img = e.image
+    except jpeg.UnsupportedJpeg as e:
+        return None, f"a {e.mode.split(' ')[0]} JPEG"
+    except (ValueError, IOError) as e:
+        raise IOError(f"failed to read image: {path}: {e}") from e
+    return apply_orientation(img, exif_orientation(buf)), ""
+
+
+def _decode_port(kind: str, buf: bytes,
+                 path: str) -> tuple[np.ndarray | None, str]:
+    """The port's decode of a file ``sniff`` named: (RGB image, upright,
+    "") or (None, why OpenCV must read it)."""
+    if kind == "jpeg":
+        return _decode_jpeg(buf, path)
+    if kind == "png" and not png.available():
+        return None, f"the port's PNG decoder is not built " \
+                     f"({png.build_error()})"
+    try:
+        if kind == "png":
+            img, orientation = png.decode(buf, not is_zip_path(path))
+            return apply_orientation(img, orientation), ""
+        if kind == "pnm":
+            return imgformats.decode_pnm(buf), ""
+        return imgformats.decode_bmp(buf), ""
+    except imgformats.NeedsOpenCV as e:
+        return None, e.what
+    except imgformats.ImageTooLarge:
+        raise
+    except (ValueError, IOError) as e:
+        raise IOError(f"failed to read image: {path}: {e}") from e
+
+
 def imread(path: str, rgb: bool = False) -> np.ndarray:
     """(H, W, 3) uint8 image from a plain or ``zip@/inner`` path, BGR as
     OpenCV reads it unless ``rgb``, turned upright by its EXIF orientation.
-    Raises IOError when the image cannot be read (among them a zip
-    member whose JPEG data ends before its EOI marker: OpenCV decodes such
-    a file from a path, as libjpeg fills it, but not from memory), and
-    ImportError when it needs OpenCV (not a JPEG, or a lossless,
-    hierarchical or 12-bit JPEG) and OpenCV is not installed."""
+    The decoder is chosen by the file's first bytes, as OpenCV chooses it
+    (:func:`imgformats.sniff`), not by its name: JPEG, PNG, PNM and BMP
+    are the port's own, and give OpenCV's pixels; anything else, and the
+    few files of those formats the port leaves to OpenCV (lossless,
+    hierarchical and 12-bit JPEGs, some animated PNGs), goes to OpenCV.
+    Raises IOError when the image cannot be read, where OpenCV gives no
+    image (among them a zip member whose JPEG data ends before its EOI
+    marker: OpenCV decodes such a file from a path, as libjpeg fills it,
+    but not from memory); :class:`imgformats.ImageTooLarge`, an IOError,
+    over OpenCV's size limits, where OpenCV raises; and ImportError when
+    the file needs OpenCV and OpenCV is not installed, naming what the
+    file is."""
     buf = read_file_bytes(path)
-    why = "not a JPEG"
-    if path.endswith(JPEG_SUFFIXES):
-        img = None
-        try:
-            if jpeg.available():
-                img = jpeg.decode(buf, flavour="opencv")
-            else:
-                why = f"the port's decoder is not built ({jpeg.build_error()})"
-        except jpeg.JpegWarning as e:
-            # OpenCV reads what libjpeg warns about, but from memory (a
-            # zip member) not a file whose data ends before EOI
-            if e.ended and is_zip_path(path):
-                raise IOError(f"failed to read image: {path}: {e}") from e
-            img = e.image
-        except jpeg.UnsupportedJpeg as e:
-            why = f"the port's JPEG decoder refuses its mode, {e.mode}"
-        except (ValueError, IOError) as e:
-            raise IOError(f"failed to read image: {path}: {e}") from e
+    kind = imgformats.sniff(buf)
+    if kind is not None:
+        img, why = _decode_port(kind, buf, path)
         if img is not None:
-            img = apply_orientation(img, exif_orientation(buf))
+            _count(kind)
             return img if rgb else np.ascontiguousarray(img[..., ::-1])
+    else:
+        why = imgformats.format_name(buf)
     try:
         import cv2
     except ImportError as e:
-        raise ImportError(f"cannot decode {path}: {why}, and OpenCV (cv2) "
-                          "is not installed") from e
-    img = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
+        raise ImportError(f"cannot decode {path}: {why}, which only "
+                          "OpenCV reads here, and OpenCV (cv2) is not "
+                          "installed") from e
+    # as the JAX package reads: from memory for a zip member, else the
+    # file (OpenCV shows an APNG's default image from one, not the other)
+    if is_zip_path(path):
+        img = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
+    else:
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
     if img is None:
         raise IOError(f"failed to read image: {path}")
+    _count("opencv")
     if rgb:
         img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
     return img

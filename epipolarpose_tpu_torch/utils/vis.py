@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``utils/vis.py``. The card's machine has
 no OpenCV, PIL or matplotlib, so everything is drawn in numpy and written
-by a small PNG encoder (``zlib`` and ``struct``): joints are filled discs,
+by a small PNG encoder (``zlib`` and ``struct``) and read back by the
+port's PNG decoder (``data/png.py``): joints are filled discs,
 bones are line segments, heatmaps take OpenCV's JET colours (within one
 grey level of ``cv2.COLORMAP_JET``), and the 3D skeleton is an
 orthographic two-panel drawing, front (x, -y) and side (z, -y). File
@@ -18,6 +19,7 @@ import zlib
 
 import numpy as np
 
+from epipolarpose_tpu_torch.data import png
 from epipolarpose_tpu_torch.data.imgproc import resize_bilinear_u8
 from epipolarpose_tpu_torch.data.joints_dataset import (IMAGENET_MEAN,
                                                         IMAGENET_STD)
@@ -60,35 +62,35 @@ def write_png(file_name: str, img: np.ndarray) -> None:
 
 
 def read_png(file_name: str) -> np.ndarray:
-    """Read a PNG that :func:`write_png` wrote, checking the signature,
-    every chunk's CRC and the IHDR size. Raises ValueError otherwise."""
+    """Read a PNG with the port's PNG decoder (``data/png.py``), after
+    checking the signature, IHDR and every chunk's CRC: (H, W, 3) RGB, or
+    (H, W) for a grey PNG (what :func:`write_png` writes comes back as it
+    was). Raises ValueError otherwise."""
     with open(file_name, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{file_name}: not a PNG signature")
-    pos, header, idat = 8, None, b""
-    while pos < len(data):
+    pos, header = 8, None
+    while pos + 8 <= len(data):
         n, = struct.unpack(">I", data[pos:pos + 4])
         kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
-        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+        crc = data[pos + 8 + n:pos + 12 + n]
+        if len(crc) < 4 or struct.pack(
+                ">I", zlib.crc32(kind + body) & 0xFFFFFFFF) != crc:
             raise ValueError(f"{file_name}: bad CRC in {kind!r}")
-        if kind == b"IHDR":
+        if kind == b"IHDR" and n == 13:
             header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat += body
         pos += 12 + n
-    if header is None or header[2] != 8 or header[3] not in (0, 2):
-        raise ValueError(f"{file_name}: not an 8-bit RGB or grey PNG")
-    w, h, channels = header[0], header[1], 3 if header[3] == 2 else 1
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8)
-    if rows.size != h * (w * channels + 1):
-        raise ValueError(f"{file_name}: IDAT does not hold {w}x{h} pixels")
-    rows = rows.reshape(h, w * channels + 1)
-    if rows[:, 0].any():
-        raise ValueError(f"{file_name}: filtered rows are not supported")
-    img = rows[:, 1:].reshape((h, w, channels) if channels == 3 else (h, w))
-    return img.copy()
+    if header is None:
+        raise ValueError(f"{file_name}: no IHDR")
+    try:
+        img, _ = png.decode(data)
+    except IOError as e:
+        raise ValueError(f"{file_name}: {e}") from e
+    if img.shape[:2] != (header[1], header[0]):
+        raise ValueError(f"{file_name}: IDAT does not hold "
+                         f"{header[0]}x{header[1]} pixels")
+    return img[..., 0].copy() if header[3] in (0, 4) else img
 
 
 # ------------------------------------------------------------- drawing

@@ -465,9 +465,10 @@ def test_imread_takes_the_decoder_without_the_native_loader(tmp_path):
 
 
 def test_imread_sends_a_refused_mode_to_opencv(tmp_path, monkeypatch):
-    """What is not a JPEG (a PNG) goes to OpenCV; a JPEG mode the decoder
-    refuses (12-bit) names itself when OpenCV is missing. CMYK and
-    progressive files no longer go there."""
+    """A JPEG mode the decoder refuses (12-bit) goes to OpenCV and names
+    itself when OpenCV is missing. CMYK and progressive files no longer go
+    there, nor does a PNG (the port's PNG decoder reads it, not counted
+    as a JPEG decode)."""
     png = tmp_path / "frame_32x24.png"
     img = jf.render(24, 32, 3)
     png.write_bytes(cv2.imencode(".png", img[..., ::-1])[1].tobytes())
@@ -489,8 +490,8 @@ def test_imread_sends_a_refused_mode_to_opencv(tmp_path, monkeypatch):
     with pytest.raises(ImportError, match="12-bit") as e:
         tzip.imread(str(twelve))
     assert str(twelve) in str(e.value) and "OpenCV" in str(e.value)
-    with pytest.raises(ImportError, match="not a JPEG"):
-        tzip.imread(str(png))
+    np.testing.assert_array_equal(tzip.imread(str(png), rgb=True), img)
+    assert jpeg.decode_count() == 2
 
 
 def test_mutated_files_fail_cleanly_under_sanitizers(tmp_path):
