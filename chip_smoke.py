@@ -242,18 +242,23 @@ card, then drives the port's paths through their entry points:
    ``valid`` (every frame through the loader, one soft-argmax launch a
    batch), and two SS steps fed from the arithmetic twin (both soft-argmax
    kernels and ``epk_triangulate_split`` a step);
-29. images that are not JPEG, on the card's host (no OpenCV): every file
-   of ``tests/data/images`` (PNG, PNM, BMP) through ``imread`` from a path
-   and a ``zip@`` member against its manifest's sha256 of OpenCV's image,
-   IOError where OpenCV gives none, ImageTooLarge where it raises; a
-   2048 x 2048 frame written here as PNG with filter types 0-4 row by row
-   (and all Paeth) decoded back to its bits, ms a decode split into the
-   inflate and the native pass, on 1 and 8 threads; ``demo --image`` on an
-   EXIF orientation-6 PNG portrait (upright, one soft-argmax launch); a
-   synthetic H36M tree of the 1000 x 1000 JPEG frame and its PNG twin
+29. images that are not JPEG, and lossless and 12-bit JPEGs, on the
+   card's host (no OpenCV): every file of ``tests/data/images`` (PNG,
+   PNM, BMP, TIFF, lossless and 12-bit JPEG) through ``imread`` from a
+   path and a ``zip@`` member against its manifest's sha256 of OpenCV's
+   image, IOError where OpenCV gives none, ImageTooLarge where it raises,
+   NeedsOpenCV where the manifest says the port leaves the file to
+   OpenCV; a 2048 x 2048 frame written here as PNG with filter types 0-4
+   row by row (and all Paeth) decoded back to its bits, ms a decode split
+   into the inflate and the native pass, on 1 and 8 threads; the same for
+   a 2048 x 2048 TIFF (strips of 64 rows, one 64-row band repeated, so
+   that writing it here costs one strip's LZW) as LZW with Predictor 2 and
+   as Deflate; ``demo --image`` on an EXIF orientation-6 PNG portrait
+   (upright, one soft-argmax launch); a synthetic H36M tree of the
+   1000 x 1000 JPEG frame and its PNG and TIFF (LZW, Predictor 2) twins
    through ``valid`` on the pool route, whose predictions must be equal
-   bit for bit, every frame through the port's JPEG or PNG decoder and
-   none through OpenCV.
+   bit for bit, one soft-argmax launch each, every frame through the
+   port's JPEG, PNG or TIFF decoder and none through OpenCV.
 
 Kernel launch counters are set to 0 just before each path and read just
 after it (phases 22's and 26's rank processes report their own). Each phase checks
@@ -5181,6 +5186,8 @@ def phase_native_loader(res: dict) -> None:
 # ---------------------------------- images that are not JPEG (phase 29)
 IMAGE_FIXTURES = ROOT / "tests" / "data" / "images"
 PNG_FRAME, PNG_REPS, PNG_THREADS = 2048, 5, (1, 8)
+# the TIFF frame's strips: this many rows, one band repeated
+TIFF_STRIP_ROWS = 64
 # the H36M trees: frames x 4 views = one eval batch of 64
 IMAGE_H36M_FRAMES = 16
 
@@ -5195,21 +5202,25 @@ def image_fixture_reads() -> dict:
     import tempfile
     import zipfile
 
-    from epipolarpose_tpu_torch.data import imgformats, png, zipreader
+    sys.path.insert(0, str(ROOT / "tests"))
+    import image_fixtures
+
+    from epipolarpose_tpu_torch.data import imgformats, zipreader
     manifest = json.loads((IMAGE_FIXTURES / "manifest.json").read_text())
     outcomes = {"image": 0, "none": 0, "too_large": 0, "needs_opencv": 0}
+    kinds: dict = {}
     with tempfile.TemporaryDirectory(prefix="epk_images_") as tmp:
         archive = pathlib.Path(tmp) / "images.zip"
         with zipfile.ZipFile(archive, "w") as z:
             for name in manifest:
                 z.write(IMAGE_FIXTURES / name, name)
         for name, e in manifest.items():
+            buf = (IMAGE_FIXTURES / name).read_bytes()
+            kind = imgformats.sniff(buf)
+            kinds[kind] = kinds.get(kind, 0) + 1
             if e["needs_opencv"]:
-                try:
-                    png.decode((IMAGE_FIXTURES / name).read_bytes())
-                    check(False, f"{name} decoded; OpenCV's alone")
-                except imgformats.NeedsOpenCV as x:
-                    check(x.what == e["needs_opencv"], f"{name}: {x.what}")
+                what = image_fixtures.needs_opencv(buf)
+                check(what == e["needs_opencv"], f"{name}: {what}")
                 outcomes["needs_opencv"] += 1
                 continue
             for path, key in ((str(IMAGE_FIXTURES / name), "imread_sha256"),
@@ -5224,7 +5235,9 @@ def image_fixture_reads() -> dict:
                       f"{e[key]}")
                 outcomes[{None: "none", "raises": "too_large"}.get(
                     got, "image")] += 1
-    return outcomes
+    check(kinds.keys() == {"png", "pnm", "bmp", "tiff", "jpeg"},
+          f"the fixtures' formats {kinds}")
+    return dict(outcomes, files_by_format=kinds)
 
 
 def png_frame_ms() -> dict:
@@ -5268,6 +5281,56 @@ def png_frame_ms() -> dict:
     return out
 
 
+def tiff_frame_ms() -> dict:
+    """A 2048 x 2048 TIFF in strips of TIFF_STRIP_ROWS rows, each the
+    same band of the smooth frame (so that the LZW writer here codes one
+    strip), as LZW with Predictor 2 and as Deflate (Adobe) with Predictor
+    2: its bits back, ms a decode (median and min of PNG_REPS, split into
+    the directory walk and the strips), and frames/s on PNG_THREADS
+    threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    sys.path.insert(0, str(ROOT / "tests"))
+    import image_fixtures
+    from epipolarpose_tpu_torch.data import tiff
+    band = image_fixtures.smooth_frame(TIFF_STRIP_ROWS, PNG_FRAME, seed=29)
+    img = np.tile(band, (PNG_FRAME // TIFF_STRIP_ROWS, 1, 1))
+    out = {}
+    for key, compression in (("lzw_predictor2", 5),
+                              ("deflate_predictor2", 32946)):
+        one = image_fixtures.tiff_bytes(band, 8, 2, compression=compression,
+                                        predictor=2)
+        strip = one[8:8 + image_fixtures._strip_counts(one)[0]]
+        buf = image_fixtures.tiff_bytes(
+            img, 8, 2, compression=compression, predictor=2,
+            rows_per_strip=TIFF_STRIP_ROWS,
+            chunks=[strip] * (PNG_FRAME // TIFF_STRIP_ROWS))
+        got, orientation = tiff.decode(buf)
+        check(orientation == 1 and np.array_equal(got, img),
+              f"the {key} TIFF frame does not decode to its pixels")
+        runs = []
+        for _ in range(PNG_REPS):
+            times = {}
+            t = time.perf_counter()
+            tiff.decode(buf, times=times)
+            runs.append(((time.perf_counter() - t) * 1e3,
+                         times["directory_ms"], times["decode_ms"]))
+        runs.sort()
+        r = out[key] = dict(bytes=len(buf), strips=PNG_FRAME
+                            // TIFF_STRIP_ROWS, ms=runs[len(runs) // 2][0],
+                            min_ms=runs[0][0],
+                            directory_ms=runs[len(runs) // 2][1],
+                            decode_ms=runs[len(runs) // 2][2])
+        work = [buf] * 8
+        for n in PNG_THREADS:
+            with ThreadPoolExecutor(n) as pool:
+                t = time.perf_counter()
+                list(pool.map(tiff.decode, work))
+                r[f"frames_per_s_{n}"] = len(work) / (time.perf_counter() - t)
+    return out
+
+
 def png_portrait(tmp: pathlib.Path) -> str:
     """Phase 18's orientation-6 photo (40 x 24 as stored) as a PNG with
     an eXIf chunk of orientation 6."""
@@ -5285,15 +5348,18 @@ def png_portrait(tmp: pathlib.Path) -> str:
 
 def h36m_png_valid(res: dict, tmp: pathlib.Path) -> dict:
     """A synthetic H36M tree whose frames are the 1000 x 1000 JPEG and
-    its twin whose frames are that JPEG's pixels as PNG (written by
-    ``utils/vis.py::write_png``), each through the ``valid`` CLI on the
+    its twins whose frames are that JPEG's pixels as PNG (written by
+    ``utils/vis.py::write_png``) and as TIFF (LZW, Predictor 2, strips of
+    16 rows; the fixtures' writer), each through the ``valid`` CLI on the
     pool route (``TPU.NATIVE_LOADER`` false) with phase 13's FS weights:
     the predictions equal bit for bit; every frame through the port's
-    JPEG or PNG decoder, none through OpenCV."""
+    JPEG, PNG or TIFF decoder, none through OpenCV."""
     import numpy as np
     import epipolarpose_tpu_torch.data.h36m as h36m_mod
+    sys.path.insert(0, str(ROOT / "tests"))
+    import image_fixtures
     from epipolarpose_tpu_torch.config import load_config
-    from epipolarpose_tpu_torch.data import jpeg, png, zipreader
+    from epipolarpose_tpu_torch.data import jpeg, png, tiff, zipreader
     from epipolarpose_tpu_torch.data.synthetic import write_synthetic_h36m
     from epipolarpose_tpu_torch.scripts import valid
     from epipolarpose_tpu_torch.utils.vis import write_png
@@ -5301,7 +5367,10 @@ def h36m_png_valid(res: dict, tmp: pathlib.Path) -> dict:
     cfg = load_config(ROOT / "experiments" / src)
     frame = (JPEG_FIXTURES / JPEG_FRAMES[2]).read_bytes()
     png_file = tmp / "frame.png"
-    write_png(str(png_file), jpeg.decode(frame, flavour="opencv"))
+    pixels = jpeg.decode(frame, flavour="opencv")
+    write_png(str(png_file), pixels)
+    tiff_bytes = image_fixtures.tiff_bytes(pixels, 8, 2, compression=5,
+                                           predictor=2, rows_per_strip=16)
     out, preds = {}, {}
     evaluate = h36m_mod.H36MDataset.evaluate
 
@@ -5311,19 +5380,23 @@ def h36m_png_valid(res: dict, tmp: pathlib.Path) -> dict:
     h36m_mod.H36MDataset.evaluate = keep
     try:
         for key, kind in (("image_formats_jpeg", "jpeg"),
-                          ("image_formats_png", "png")):
+                          ("image_formats_png", "png"),
+                          ("image_formats_tiff", "tiff")):
             data = tmp / key
             tree = data / cfg.DATASET.ROOT
             write_synthetic_h36m(str(tree), cfg,
                                  num_frames=IMAGE_H36M_FRAMES,
                                  camera_ids=h36m_mod.CAMERA_IDS, jpeg=frame)
             if kind == "png":
-                _as_png_tree(tree, png_file.read_bytes())
+                _replace_frames(tree, png_file.read_bytes())
+            if kind == "tiff":
+                _replace_frames(tree, tiff_bytes, ".tif")
             cfg_file = cli_yaml(data / "valid.yaml", src,
                                 DATASET={"SUBSAMPLE": 1},
                                 TPU={"NATIVE_LOADER": False})
             reset_decodes()
             png.reset_count()
+            tiff.reset_count()
             zipreader.reset_route_counts()
             c = res["paths"][key] = {}
             t0 = time.perf_counter()
@@ -5335,39 +5408,47 @@ def h36m_png_valid(res: dict, tmp: pathlib.Path) -> dict:
             out[key] = dict(perf=perf, records=n, wall_s=time.perf_counter()
                             - t0, routes=zipreader.route_counts(),
                             jpeg=jpeg.decode_count(), png=png.decode_count(),
+                            tiff=tiff.decode_count(),
                             launches=c["softargmax_fwd"])
-            want = {"jpeg": 0, "png": 0, "pnm": 0, "bmp": 0, "opencv": 0}
+            want = {"jpeg": 0, "png": 0, "pnm": 0, "bmp": 0, "tiff": 0,
+                    "opencv": 0}
             want[kind] = n
+            # a TIFF's strips are not JPEGs: no JPEG decode for them
+            decodes = {k: (n if k == kind else 0)
+                       for k in ("jpeg", "png", "tiff")}
             check(n == 4 * IMAGE_H36M_FRAMES and out[key]["routes"] == want
-                  and (jpeg.decode_count(), png.decode_count()) == (
-                      (n, 0) if kind == "jpeg" else (0, n)),
+                  and all(out[key][k] == v for k, v in decodes.items()),
                   f"{key}: {n} records, decodes {out[key]}")
             check(c["softargmax_fwd"] == n // EVAL_BATCH and
                   c["softargmax_bwd"] == c["triangulate"] == 0,
                   f"{key} launched {c}")
     finally:
         h36m_mod.H36MDataset.evaluate = evaluate
-    a, b = preds["image_formats_jpeg"], preds["image_formats_png"]
-    check(a.shape == b.shape and np.array_equal(a, b)
-          and np.isfinite(a).all(),
-          "the PNG tree's predictions differ from the JPEG tree's")
+    a = preds["image_formats_jpeg"]
+    check(np.isfinite(a).all(), "the JPEG tree's predictions")
+    for key in ("image_formats_png", "image_formats_tiff"):
+        b = preds[key]
+        check(a.shape == b.shape and np.array_equal(a, b),
+              f"the {key} tree's predictions differ from the JPEG tree's")
     return out
 
 
-def _as_png_tree(tree: pathlib.Path, png_bytes: bytes) -> None:
-    """Replace every frame of a synthetic H36M tree's zip with the PNG
-    bytes, named ``.png``, and point the annotations at them."""
+def _replace_frames(tree: pathlib.Path, frame_bytes: bytes,
+                 suffix: str = ".png") -> None:
+    """Replace every frame of a synthetic H36M tree's zip with the given
+    bytes (a PNG or a TIFF), named with ``suffix``, and point the
+    annotations at them."""
     import zipfile
     zpath = tree / "images" / "S1.zip"
     with zipfile.ZipFile(zpath) as z:
         names = z.namelist()
     with zipfile.ZipFile(zpath, "w") as z:
         for name in names:
-            z.writestr(name[:-4] + ".png", png_bytes)
+            z.writestr(name[:-4] + suffix, frame_bytes)
     for annot in (tree / "annot").glob("*.json"):
         text = annot.read_text()
         if ".jpg" in text:
-            annot.write_text(text.replace(".jpg\"", ".png\""))
+            annot.write_text(text.replace(".jpg\"", suffix + "\""))
 
 
 def phase_image_formats(res: dict) -> None:
@@ -5382,6 +5463,7 @@ def phase_image_formats(res: dict) -> None:
     load_s = time.perf_counter() - t0          # built at its first use
     reads = image_fixture_reads()
     ms = png_frame_ms()
+    tiff_ms = tiff_frame_ms()
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="epk_image_formats_"))
     try:
         portrait = portrait_demo(res, str(tmp), png_portrait(tmp),
@@ -5392,7 +5474,8 @@ def phase_image_formats(res: dict) -> None:
     loaded = [m for m in IMAGE_LIBS if m in sys.modules]
     check(not loaded, f"the image formats' paths imported {loaded}")
     res["image_formats"] = dict(load_s=load_s, reads=reads, ms=ms,
-                                portrait=portrait, trees=trees)
+                                tiff_ms=tiff_ms, portrait=portrait,
+                                trees=trees)
     log(f"[image_formats] tests/data/images through imread from a path "
         f"and a zip member: {reads} (OpenCV's image or refusal each time, "
         f"no OpenCV on this host); PNG decoder {png.LIBRARY.library_path()} "
@@ -5404,6 +5487,13 @@ def phase_image_formats(res: dict) -> None:
             f"{r['native_ms']:.2f})" + "".join(
                 f", {n} threads {r[f'frames_per_s_{n}']:.2f} frames/s"
                 for n in PNG_THREADS if f"frames_per_s_{n}" in r))
+    for key, r in tiff_ms.items():
+        log(f"[image_formats] {PNG_FRAME} x {PNG_FRAME} TIFF, {key} "
+            f"({r['bytes']} bytes, {r['strips']} strips): {r['ms']:.2f} ms "
+            f"a decode (min {r['min_ms']:.2f}; directory "
+            f"{r['directory_ms']:.2f}, strips {r['decode_ms']:.2f})"
+            + "".join(f", {n} threads {r[f'frames_per_s_{n}']:.2f} frames/s"
+                      for n in PNG_THREADS))
     log(f"[image_formats] demo --image on the orientation-6 PNG portrait "
         f"upright (dark share {portrait['dark_sides']:.2f} at the sides, "
         f"{portrait['dark_ends']:.2f} at the ends) in "
@@ -5412,8 +5502,8 @@ def phase_image_formats(res: dict) -> None:
         log(f"[image_formats] {key}: valid on {r['records']} records in "
             f"{r['wall_s']:.2f} s, perf {r['perf']:.4f}, routes "
             f"{r['routes']}, soft-argmax launches {r['launches']}")
-    log("[image_formats] the PNG tree's predictions equal the JPEG tree's "
-        "bit for bit")
+    log("[image_formats] the PNG and TIFF trees' predictions equal the JPEG "
+        "tree's bit for bit")
 
 
 def main() -> int:

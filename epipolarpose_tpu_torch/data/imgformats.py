@@ -4,7 +4,8 @@ BMP readers.
 
 :func:`sniff` names the decoder for a file's leading bytes: JPEG
 ``FF D8 FF``, PNG's eight-byte signature, PNM ``P1``-``P6`` followed by
-white space, BMP ``BM``. No two of these can match the same bytes, so the
+white space, BMP ``BM``, TIFF ``II*\\0``/``MM\\0*`` and BigTIFF's
+``II+\\0``/``MM\\0+``. No two of these can match the same bytes, so the
 order in which OpenCV tries its decoders does not matter among them;
 anything else is OpenCV's (:func:`format_name` names what it is for the
 error raised where OpenCV is missing).
@@ -57,9 +58,12 @@ def check_size(width: int, height: int) -> None:
                             "pixels)")
 
 
+TIFF_SIGNATURES = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
+
+
 def sniff(buf: bytes) -> str | None:
-    """'jpeg', 'png', 'pnm' or 'bmp' by the leading bytes; None for the
-    rest."""
+    """'jpeg', 'png', 'pnm', 'bmp' or 'tiff' by the leading bytes; None
+    for the rest."""
     if buf[:3] == b"\xff\xd8\xff":
         return "jpeg"
     if buf[:8] == PNG_SIGNATURE:
@@ -69,12 +73,14 @@ def sniff(buf: bytes) -> str | None:
         return "pnm"
     if buf[:2] == b"BM":
         return "bmp"
+    if buf[:4] in TIFF_SIGNATURES:
+        return "tiff"
     return None
 
 
 def format_name(buf: bytes) -> str:
     """What a file the port does not read is, by its leading bytes."""
-    if buf[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
+    if buf[:4] in TIFF_SIGNATURES:
         return "a TIFF file"
     if buf[:4] == b"RIFF" and buf[8:12] == b"WEBP":
         return "a WebP file"

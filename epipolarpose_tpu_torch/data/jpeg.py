@@ -9,12 +9,16 @@ at full size and at libjpeg's DCT-scaled sizes ``scale_num``/8 for
 ``scale_num`` 1-4 and 8. Progressive files whose coefficients stay
 unfinished are block-smoothed as libjpeg-turbo 2.1 (``flavour="libjpeg"``,
 the JAX package's native loader) or OpenCV's libjpeg-turbo 3.1
-(``"opencv"``, the JAX package's imread) smooths them. A file libjpeg decodes with a warning
-(a truncated file, a lost restart marker) raises :class:`JpegWarning`,
-which holds libjpeg's decode. It refuses lossless,
-hierarchical and 12-bit files, as libjpeg-turbo 2.1 does, with
-:class:`UnsupportedJpeg`, which names the mode; data it cannot decode
-raises ``IOError``.
+(``"opencv"``, the JAX package's imread) smooths them. OpenCV's flavour
+also decodes lossless files (SOF3, Huffman-coded) as OpenCV 5 reads them:
+2-8 bits, predictors 1-7, point transform, restarts, RGB and CMYK. A file
+libjpeg decodes with a warning (a truncated file, a lost restart marker)
+raises :class:`JpegWarning`, which holds libjpeg's decode. It refuses
+with :class:`UnsupportedJpeg`, which names the mode, lossless files in the
+libjpeg flavour and hierarchical and 12-bit files in both, as
+libjpeg-turbo 2.1 refuses them and OpenCV's imread gives no image of them
+(nor of lossless files of other precisions or colour spaces, which the
+OpenCV flavour refuses too); data it cannot decode raises ``IOError``.
 
 The library is built as the native loader's is (``data/cxx_library.py``):
 one ``g++`` call, no ``-march`` and no ``-ljpeg``, into
@@ -42,14 +46,18 @@ STATUS_WARNED, STATUS_ENDED = 4, 5
 # it, or OpenCV's imread (its bundled libjpeg-turbo 3.1): the block
 # smoothing of progressive files with unfinished coefficients differs, and
 # OpenCV keeps a one-scan image whose file goes wrong after that scan
-FLAVOURS = {"libjpeg": 0, "opencv": 1}
+# OpenCV keeps a one-scan image whose file goes wrong after that scan,
+# and decodes lossless files. The TIFF flavours decode as OpenCV's libtiff
+# has libjpeg decode a TIFF's JPEG strips: "tiff_ycbcr" converts YCbCr to
+# RGB whatever the markers say, "tiff_raw" gives the samples as coded.
+FLAVOURS = {"libjpeg": 0, "opencv": 1, "tiff_ycbcr": 2, "tiff_raw": 3}
 ERR_LEN = 256
 
 _i = ctypes.c_int
 _pi = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "epk_jpeg_info": (_i, (ctypes.c_char_p, ctypes.c_size_t, _i, _pi, _pi,
-                           _pi, ctypes.c_char_p, _i)),
+                           _pi, _i, ctypes.c_char_p, _i)),
     "epk_jpeg_decode_rgb": (_i, (ctypes.c_char_p, ctypes.c_size_t, _i,
                                  ctypes.c_void_p, _i, _i, _i,
                                  ctypes.c_char_p, _i)),
@@ -116,14 +124,16 @@ def _raise(status: int, err: ctypes.Array) -> None:
     raise IOError(f"JPEG decode failed: {msg}")
 
 
-def jpeg_info(buf: bytes, scale_num: int = 8) -> tuple[int, int, int]:
+def jpeg_info(buf: bytes, scale_num: int = 8,
+              flavour: str = "libjpeg") -> tuple[int, int, int]:
     """(width, height, components) from a JPEG's headers, the size being
     the output's at ``scale_num``/8; raises like :func:`decode`."""
     lib = _LIB.load()
     w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     err = ctypes.create_string_buffer(ERR_LEN)
     status = lib.epk_jpeg_info(buf, len(buf), scale_num, ctypes.byref(w),
-                               ctypes.byref(h), ctypes.byref(c), err, ERR_LEN)
+                               ctypes.byref(h), ctypes.byref(c),
+                               FLAVOURS[flavour], err, ERR_LEN)
     if status:
         _raise(status, err)
     return w.value, h.value, c.value
@@ -141,7 +151,7 @@ def decode(buf: bytes, scale_num: int = 8,
     :class:`UnsupportedJpeg` for a mode it refuses and ``IOError`` for
     data it cannot decode."""
     global _count
-    w, h, _ = jpeg_info(buf, scale_num)
+    w, h, _ = jpeg_info(buf, scale_num, flavour)
     out = np.empty((h, w, 3), np.uint8)
     err = ctypes.create_string_buffer(ERR_LEN)
     status = _LIB.load().epk_jpeg_decode_rgb(buf, len(buf), scale_num,

@@ -87,9 +87,16 @@ SIGNATURES = {
                               ctypes.c_void_p, _c, _i)),
     "epk_bmp_rle": (_i, (_c, ctypes.c_size_t, _i, _i, _i, ctypes.c_void_p,
                          _c, _i)),
+    "epk_tiff_lzw": (_i, (_c, ctypes.c_size_t, ctypes.c_void_p,
+                          ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t))),
+    "epk_tiff_packbits": (_i, (_c, ctypes.c_size_t, ctypes.c_void_p,
+                               ctypes.c_size_t,
+                               ctypes.POINTER(ctypes.c_size_t))),
+    "epk_tiff_unpredict": (_i, (ctypes.c_void_p, ctypes.c_size_t,
+                                ctypes.c_size_t, _i, _i, _i)),
 }
 # the native library of the non-JPEG readers (PNG here, BMP's RLE in
-# imgformats.py)
+# imgformats.py, TIFF's LZW, PackBits and predictor in tiff.py)
 LIBRARY = CxxLibrary("imgdec", SOURCE, CXX_FLAGS, (), SIGNATURES,
                      "image decoder")
 _count_lock = threading.Lock()

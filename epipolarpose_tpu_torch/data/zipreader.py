@@ -8,19 +8,23 @@ OpenCV nor libjpeg nor libpng; it picks the decoder by the file's first
 bytes, as OpenCV does (``imgformats.sniff``), not by its name:
 
 - JPEG with ``data/jpeg.py`` (the decoder the native loader includes):
-  baseline, progressive and arithmetic coding, every sampling, CMYK and
-  YCCK converted as OpenCV converts them, block smoothing as OpenCV's
-  libjpeg-turbo does it, and a truncated file read as OpenCV reads it
-  (decoded as libjpeg fills it from a plain path, refused from a zip
-  member);
-- PNG with ``data/png.py``; PNM (P1-P6) and BMP with ``data/imgformats.py``;
+  baseline, progressive, arithmetic coding and lossless, every sampling,
+  CMYK and YCCK converted as OpenCV converts them, block smoothing as
+  OpenCV's libjpeg-turbo does it, and a truncated file read as OpenCV
+  reads it (decoded as libjpeg fills it from a plain path, refused from a
+  zip member); the modes OpenCV 5 gives no image of (hierarchical,
+  12-bit, lossless of over 8 bits or in another colour space than RGB
+  and CMYK) raise IOError here too;
+- PNG with ``data/png.py``; PNM (P1-P6) and BMP with
+  ``data/imgformats.py``; TIFF with ``data/tiff.py``;
 
-each with the EXIF orientation applied where OpenCV applies it (JPEG's
-APP1, PNG's eXIf). OpenCV, imported only then, reads every other format
-and the few files of these the port leaves to it (lossless, hierarchical
-and 12-bit JPEGs; animated PNGs whose first frame is not their default
-image, or that are damaged); a file the port's decoders take never
-reaches OpenCV.
+each with the orientation applied where OpenCV applies it (JPEG's
+APP1, PNG's eXIf, TIFF's Orientation tag). OpenCV, imported only then,
+reads every other format and the few files of these the port leaves to
+it (animated PNGs whose first frame is not their default image, or that
+are damaged; TIFFs of CCITT or old-style JPEG compression, uncompressed
+YCbCr, CMYK and the like, or damaged inside a Deflate or JPEG stream);
+a file the port's decoders take never reaches OpenCV.
 """
 
 from __future__ import annotations
@@ -31,12 +35,12 @@ import zipfile
 
 import numpy as np
 
-from epipolarpose_tpu_torch.data import imgformats, jpeg, png
+from epipolarpose_tpu_torch.data import imgformats, jpeg, png, tiff
 from epipolarpose_tpu_torch.data.imgformats import tiff_orientation
 
 _cache: dict[str, zipfile.ZipFile] = {}
 _lock = threading.Lock()
-_routes = dict.fromkeys(("jpeg", "png", "pnm", "bmp", "opencv"), 0)
+_routes = dict.fromkeys(("jpeg", "png", "pnm", "bmp", "tiff", "opencv"), 0)
 # the names the native loader takes for JPEGs (joints_dataset.py), as the
 # JAX package's loader does
 JPEG_SUFFIXES = (".jpg", ".jpeg", ".JPG", ".JPEG")
@@ -125,7 +129,7 @@ def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
 def route_counts() -> dict:
     """The images :func:`imread` decoded since the last
     :func:`reset_route_counts`, by decoder: ``jpeg``, ``png``, ``pnm``,
-    ``bmp`` (the port's) and ``opencv``."""
+    ``bmp``, ``tiff`` (the port's) and ``opencv``."""
     with _lock:
         return dict(_routes)
 
@@ -155,9 +159,8 @@ def _decode_jpeg(buf: bytes, path: str) -> tuple[np.ndarray | None, str]:
         if e.ended and is_zip_path(path):
             raise IOError(f"failed to read image: {path}: {e}") from e
         img = e.image
-    except jpeg.UnsupportedJpeg as e:
-        return None, f"a {e.mode.split(' ')[0]} JPEG"
     except (ValueError, IOError) as e:
+        # UnsupportedJpeg among them: the modes OpenCV reads none of
         raise IOError(f"failed to read image: {path}: {e}") from e
     return apply_orientation(img, exif_orientation(buf)), ""
 
@@ -168,12 +171,15 @@ def _decode_port(kind: str, buf: bytes,
     "") or (None, why OpenCV must read it)."""
     if kind == "jpeg":
         return _decode_jpeg(buf, path)
-    if kind == "png" and not png.available():
-        return None, f"the port's PNG decoder is not built " \
+    if kind in ("png", "tiff") and not png.available():
+        return None, f"the port's {kind.upper()} decoder is not built " \
                      f"({png.build_error()})"
     try:
         if kind == "png":
             img, orientation = png.decode(buf, not is_zip_path(path))
+            return apply_orientation(img, orientation), ""
+        if kind == "tiff":
+            img, orientation = tiff.decode(buf, not is_zip_path(path))
             return apply_orientation(img, orientation), ""
         if kind == "pnm":
             return imgformats.decode_pnm(buf), ""
@@ -190,10 +196,10 @@ def imread(path: str, rgb: bool = False) -> np.ndarray:
     """(H, W, 3) uint8 image from a plain or ``zip@/inner`` path, BGR as
     OpenCV reads it unless ``rgb``, turned upright by its EXIF orientation.
     The decoder is chosen by the file's first bytes, as OpenCV chooses it
-    (:func:`imgformats.sniff`), not by its name: JPEG, PNG, PNM and BMP
-    are the port's own, and give OpenCV's pixels; anything else, and the
-    few files of those formats the port leaves to OpenCV (lossless,
-    hierarchical and 12-bit JPEGs, some animated PNGs), goes to OpenCV.
+    (:func:`imgformats.sniff`), not by its name: JPEG, PNG, PNM, BMP and
+    TIFF are the port's own, and give OpenCV's pixels; anything else, and
+    the few files of those formats the port leaves to OpenCV (some
+    animated PNGs, some TIFFs), goes to OpenCV.
     Raises IOError when the image cannot be read, where OpenCV gives no
     image (among them a zip member whose JPEG data ends before its EOI
     marker: OpenCV decodes such a file from a path, as libjpeg fills it,

@@ -23,6 +23,22 @@
 // the rest of the line, and delta fills dx pixels (dy is read and
 // ignored).
 //
+// TIFF: the strip and tile codecs of libtiff 4.7 that the port's TIFF
+// reader (data/tiff.py) does not leave to Python's zlib, each decoding
+// as libtiff decodes it, damaged data included: epk_tiff_lzw is
+// tif_lzw.c's LZWDecode (MSB-first codes of 9-12 bits, the code width
+// growing one code early, CLEAR and EOI; data that ends before EOI reads
+// as ending there; a code past the table, a string of no length or a
+// first code that follows no CLEAR fails the strip), epk_tiff_packbits
+// tif_packbits.c's PackBitsDecode. Each fills ``out`` (``occ`` bytes)
+// and stops there; a strip whose data fails or runs out first fails,
+// with the bytes decoded before that left in ``out`` and ``*written``
+// saying how many (libtiff's reader then shows the strip as it stands:
+// the caller's zeros past them, no predictor undone, no bytes swapped).
+// epk_tiff_unpredict undoes the horizontal predictor (Predictor 2) of
+// 8- and 16-bit samples row by row, as tif_predict.c's horAcc8 and
+// horAcc16 (after swabbing a file of the other byte order) do.
+//
 // C interface (status 0 ok, 1 corrupt data, 3 bad arguments; ``err``
 // receives the message):
 //   int epk_png_unfilter(data, n, width, height, depth, color_type,
@@ -33,6 +49,14 @@
 //     data: the RLE stream from the pixel offset on; bits 8 or 4; out:
 //     height x width palette indices, the file's first row (the bottom
 //     one of a bottom-up file) first.
+//   int epk_tiff_lzw(data, n, out, occ, written)
+//   int epk_tiff_packbits(data, n, out, occ, written)
+//     status 0: ``out`` full; 1: the strip fails (``*written`` bytes
+//     decoded); epk_tiff_lzw 2: old-style (LSB-first) LZW, not decoded.
+//   int epk_tiff_unpredict(buf, rows, row_samples, stride, bytes, swap)
+//     buf: rows of row_samples samples of ``bytes`` (1 or 2) bytes each;
+//     each sample adds the one ``stride`` samples before it in its row;
+//     ``swap``: 16-bit samples in the other byte order, swabbed first.
 // Thread-safe: no mutable global state. The calls run without the
 // interpreter lock (ctypes), so the loader's threads decode in parallel.
 
@@ -133,6 +157,108 @@ void convert(const Format& f, const uint8_t* row, int count, uint8_t* out,
       out[0] = row[0], out[1] = row[bytes], out[2] = row[2 * bytes];
     }
   }
+}
+
+// ------------------------------------------------------------ TIFF LZW
+constexpr int kLzwClear = 256, kLzwEoi = 257, kLzwFirst = 258;
+constexpr int kLzwBitsMax = 12;
+// tif_lzw.c's CSIZE: the table holds MAXCODE(BITS_MAX) + 1024 entries
+constexpr int kLzwTable = (1 << kLzwBitsMax) - 1 + 1024;
+
+// An entry's string is where the decoder wrote it first: the previous
+// code's string followed by one byte, in the output already (each entry
+// is its prefix's string plus the next code's first byte, and those lie
+// side by side in the output), so a code is copied from there rather
+// than walked back through its prefixes.
+struct LzwEntry {
+  uint32_t pos;         // the string's first byte in the output
+  uint16_t length;      // 0: not yet defined
+  uint8_t firstchar;
+};
+
+// tif_lzw.c LZWDecode (libtiff 4.7): 0 when ``occ`` bytes were decoded,
+// 1 when the strip fails first
+int lzw_decode(const uint8_t* in, size_t n, uint8_t* out, size_t occ,
+               size_t* written) {
+  if (occ > UINT32_MAX) return 1;
+  std::vector<LzwEntry> tab(kLzwTable, LzwEntry{0, 0, 0});
+  for (int c = 0; c < 256; ++c)
+    tab[c] = {0, 1, static_cast<uint8_t>(c)};
+  const size_t total = occ;
+  size_t w = 0;                // bytes written
+  uint64_t bitsleft = static_cast<uint64_t>(n) * 8;
+  uint64_t acc = 0;
+  int accbits = 0, nbits = 9;
+  int nbitsmask = (1 << 9) - 1, maxcode = nbitsmask - 1;
+  int free_ent = -1;    // before the first CLEAR no entry may be added
+  int oldcode = 0;
+  size_t last_pos = 0, last_len = 0;   // the previous code's string
+  size_t pos = 0;
+  auto next_code = [&]() -> int {
+    if (bitsleft < static_cast<uint64_t>(nbits)) return kLzwEoi;
+    while (accbits < nbits) {
+      acc = (acc << 8) | in[pos++];
+      accbits += 8;
+    }
+    const int code = static_cast<int>((acc >> (accbits - nbits)) & nbitsmask);
+    accbits -= nbits;
+    bitsleft -= nbits;
+    return code;
+  };
+  int status = 0;
+  while (w < total) {
+    int code = next_code();
+    if (code == kLzwEoi) break;
+    if (code == kLzwClear) {
+      do {
+        free_ent = kLzwFirst;
+        std::fill(tab.begin() + kLzwFirst, tab.end(), LzwEntry{0, 0, 0});
+        nbits = 9;
+        nbitsmask = (1 << 9) - 1;
+        maxcode = nbitsmask - 1;
+        code = next_code();
+      } while (code == kLzwClear);
+      if (code == kLzwEoi) break;
+      if (code > kLzwEoi) { status = 1; break; }       // corrupted table
+      last_pos = w;
+      last_len = 1;
+      out[w++] = static_cast<uint8_t>(code);
+      oldcode = code;
+      continue;
+    }
+    if (free_ent < 0 || free_ent >= kLzwTable) { status = 1; break; }
+    tab[free_ent] = {static_cast<uint32_t>(last_pos),
+                     static_cast<uint16_t>(last_len + 1),
+                     tab[oldcode].firstchar};
+    if (++free_ent > maxcode) {
+      nbits = std::min(nbits + 1, kLzwBitsMax);
+      nbitsmask = (1 << nbits) - 1;
+      maxcode = nbitsmask - 1;
+    }
+    oldcode = code;
+    if (code < 256) {
+      last_pos = w;
+      last_len = 1;
+      out[w++] = static_cast<uint8_t>(code);
+      continue;
+    }
+    const size_t len = tab[code].length;
+    if (len == 0) { status = 1; break; }      // wrong length of string
+    // a string longer than the room left fills it with its first bytes
+    const size_t k = std::min(len, total - w);
+    const uint8_t* src = out + tab[code].pos;
+    uint8_t* dst = out + w;
+    if (src + k <= dst)
+      std::memcpy(dst, src, k);
+    else
+      for (size_t i = 0; i < k; ++i) dst[i] = src[i];   // KwKwK overlap
+    last_pos = w;
+    last_len = len;
+    w += k;
+  }
+  *written = w;
+  if (status == 0 && w < total) status = 1;   // not enough data
+  return status;
 }
 
 }  // namespace
@@ -253,6 +379,71 @@ int epk_bmp_rle(const uint8_t* data, size_t n, int width, int height,
       }
       fill(skip, 0);
     }
+  }
+  return 0;
+}
+
+int epk_tiff_lzw(const uint8_t* data, size_t n, uint8_t* out, size_t occ,
+                 size_t* written) {
+  *written = 0;
+  // tif_lzw.c LZWPreDecode: the old, LSB-first coding
+  if (n >= 2 && data[0] == 0 && (data[1] & 1)) return 2;
+  return lzw_decode(data, n, out, occ, written);
+}
+
+// tif_packbits.c PackBitsDecode
+int epk_tiff_packbits(const uint8_t* data, size_t n, uint8_t* out,
+                      size_t occ, size_t* written) {
+  uint8_t* const out0 = out;
+  size_t cc = n;
+  const uint8_t* bp = data;
+  while (cc > 0 && occ > 0) {
+    long count = static_cast<int8_t>(*bp++);
+    --cc;
+    if (count < 0) {                 // the next byte, 1 - count times
+      if (count == -128) continue;
+      count = -count + 1;
+      if (occ < static_cast<size_t>(count)) count = static_cast<long>(occ);
+      if (cc == 0) break;
+      occ -= count;
+      const uint8_t b = *bp++;
+      --cc;
+      std::memset(out, b, count);
+      out += count;
+    } else {                         // count + 1 bytes as they stand
+      if (occ < static_cast<size_t>(count + 1))
+        count = static_cast<long>(occ) - 1;
+      if (cc < static_cast<size_t>(count + 1)) break;
+      ++count;
+      std::memcpy(out, bp, count);
+      out += count;
+      occ -= count;
+      bp += count;
+      cc -= count;
+    }
+  }
+  *written = static_cast<size_t>(out - out0);
+  return occ > 0 ? 1 : 0;
+}
+
+int epk_tiff_unpredict(uint8_t* buf, size_t rows, size_t row_samples,
+                       int stride, int bytes, int swap) {
+  if (stride < 1 || (bytes != 1 && bytes != 2)) return 3;
+  const size_t st = static_cast<size_t>(stride);
+  if (bytes == 1) {
+    for (size_t y = 0; y < rows; ++y) {
+      uint8_t* r = buf + y * row_samples;
+      for (size_t i = st; i < row_samples; ++i) r[i] += r[i - st];
+    }
+    return 0;
+  }
+  for (size_t y = 0; y < rows; ++y) {
+    uint8_t* r = buf + 2 * y * row_samples;
+    if (swap)
+      for (size_t i = 0; i < row_samples; ++i) std::swap(r[2 * i], r[2 * i + 1]);
+    uint16_t* w = reinterpret_cast<uint16_t*>(r);
+    for (size_t i = st; i < row_samples; ++i)
+      w[i] = static_cast<uint16_t>(w[i] + w[i - st]);
   }
   return 0;
 }

@@ -24,14 +24,23 @@
 // 3 or 4 components, interleaved and non-interleaved scans, any integral
 // sampling factors, DQT with 8- or 16-bit entries, DHT and DAC, DRI with
 // RST0-7, and the output scales 1-4 and 8 of 8 (the IDCT sizes 1, 2, 3,
-// 4, 6, 8 and 12; the others are bad arguments). Refused with a status
-// that names the mode, as libjpeg-turbo 2.1 refuses them too: lossless,
-// hierarchical, and samples of other than 8 bits. Data that runs short
-// decodes as libjpeg decodes it from memory (jpeg_mem_src): a scan that
-// meets a marker early gets zeros for the rest of its interval, a lost
-// restart marker is resynchronized (jpeg_resync_to_restart), data that
-// ends before EOI reads as followed by EOI markers; such a decode returns
-// a warning status. Corrupt data that libjpeg refuses is an error: every
+// 4, 6, 8 and 12; the others are bad arguments). In OpenCV's flavours
+// also lossless (SOF3, Huffman-coded; jddiffct.c, jdlhuff.c and
+// jdlossls.c of libjpeg-turbo 3.1) at 2-8 bits: predictors 1-7, the point
+// transform, restart intervals of whole MCU rows, any integral sampling
+// (upsampled by replication, as libjpeg-turbo upsamples lossless
+// images), RGB and CMYK (libjpeg-turbo converts no other lossless colour
+// space to OpenCV's BGR), at 8/8 only. Refused with a status that names
+// the mode (as libjpeg-turbo 2.1 refuses them, and OpenCV's imread gives
+// no image of them): hierarchical, lossless in the libjpeg flavour,
+// lossless arithmetic coding, lossless of other precisions or colour
+// spaces, and lossy samples of other than 8 bits (12-bit JPEG: OpenCV
+// reads through libjpeg-turbo's 8-bit interface, which refuses it). Data
+// that runs short decodes as libjpeg decodes it from memory
+// (jpeg_mem_src): a scan that meets a marker early gets zeros for the
+// rest of its interval, a lost restart marker is resynchronized
+// (jpeg_resync_to_restart), data that ends before EOI reads as followed
+// by EOI markers; such a decode returns a warning status. Corrupt data that libjpeg refuses is an error: every
 // read is bounds-checked, and images over 2^28 pixels (or whose padded
 // sample planes exceed 4 * 2^28 samples) are refused before any
 // allocation. EXIF orientation is not applied (libjpeg does not apply it
@@ -42,8 +51,11 @@
 // the data ended before EOI; ``err`` receives the message or the first
 // warning; ``scale_num`` selects the output scale scale_num/8, 8 the
 // full size; ``flavour`` 0 decodes as libjpeg-turbo 2.1 does for the
-// JAX package's native loader, 1 as OpenCV's imread does):
-//   int epk_jpeg_info(buf, n, scale_num, &w, &h, &comps, err, errlen)
+// JAX package's native loader, 1 as OpenCV's imread does, 2 and 3 as
+// OpenCV's libtiff has libjpeg decode a TIFF's JPEG strips: YCbCr
+// converted to RGB, and the samples as coded):
+//   int epk_jpeg_info(buf, n, scale_num, &w, &h, &comps, flavour, err,
+//                     errlen)
 //   int epk_jpeg_decode_rgb(buf, n, scale_num, out, w, h, flavour, err,
 //                           errlen)
 // where w, h are the output size, ceil(W * scale_num / 8) and likewise
@@ -1018,6 +1030,7 @@ class ArithReader {
 struct Huffman {
     bool defined = false;
     int nsym = 0;
+    int max_sym = 0;                // checked by the scans that use it
     uint8_t vals[256] = {};
     int32_t maxcode[18] = {};
     int32_t valoffset[18] = {};
@@ -1027,7 +1040,7 @@ struct Huffman {
     uint8_t look_sym[1 << kLook] = {};
 
     // jdhuff.c jpeg_make_d_derived_tbl
-    void build(const uint8_t counts[17], const uint8_t* symbols, bool dc) {
+    void build(const uint8_t counts[17], const uint8_t* symbols) {
         int sizes[257], codes[256];
         int p = 0;
         for (int l = 1; l <= 16; ++l) {
@@ -1069,10 +1082,9 @@ struct Huffman {
                 }
             }
         }
-        if (dc) {
-            for (int i = 0; i < nsym; ++i)
-                if (vals[i] > 15) corrupt("bad DC Huffman table");
-        }
+        max_sym = 0;
+        for (int i = 0; i < nsym; ++i)
+            max_sym = std::max<int>(max_sym, vals[i]);
         defined = true;
     }
 };
@@ -1223,6 +1235,114 @@ inline int extend(int v, int s) {
     return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
 }
 
+// jdhuff.c's bit reader as jdlhuff.c (lossless) uses it, read for read:
+// a fill tops the buffer up to 57 bits, and only when a decode needs more
+// bits than it holds (8 for a table lookup, the code's or the extra
+// bits' length after that). The values equal BitReader's; what this one
+// adds is ``hit_end``: whether a fill asked for a byte past ``real_end``,
+// where OpenCV's memory source has none to give (libjpeg then suspends,
+// and OpenCV's read of a zip member fails).
+class LjBits {
+  public:
+    LjBits(const uint8_t* p, const uint8_t* end, const uint8_t* real_end)
+        : p_(p), end_(end), real_end_(real_end) {}
+
+    int decode(const Huffman& h) {
+        if (bits_ < 8) fill(0);
+        if (bits_ >= 8) {
+            const uint32_t look = peek(8) << (Huffman::kLook - 8);
+            // codes of up to 8 bits decode from the lookahead
+            const int l = h.look_len[look];
+            if (l && l <= 8) {
+                bits_ -= l;
+                return h.look_sym[look];
+            }
+        }
+        // jpeg_huff_decode from the shortest possible code length up
+        int l = bits_ < 8 ? 1 : 9;
+        int32_t code = static_cast<int32_t>(get(l));
+        while (code > h.maxcode[l]) {
+            code = (code << 1) | static_cast<int32_t>(get(1));
+            if (++l > 16) {
+                bad_codes_++;
+                return 0;
+            }
+        }
+        const int idx = code + h.valoffset[l];
+        if (idx < 0 || idx > 255) {
+            bad_codes_++;
+            return 0;
+        }
+        return h.vals[idx];
+    }
+    int bits(int n) { return static_cast<int>(get(n)); }
+    // the data ran out (zero bits were stuffed) since the last restart
+    bool insufficient() const { return insufficient_; }
+    bool hit_end() const { return hit_end_; }
+    bool at_marker() const { return marker_; }
+    int bad_codes() const { return bad_codes_; }
+    int buffered_bytes() const { return bits_ / 8; }
+    const uint8_t* pos() const { return p_; }
+    void restart_at(const uint8_t* q) { reset(q, false); }
+    void stay_at_marker(const uint8_t* q) { reset(q, true); }
+
+  private:
+    void reset(const uint8_t* q, bool marker) {
+        p_ = q;
+        buf_ = 0;
+        bits_ = 0;
+        marker_ = marker;
+        if (!marker) insufficient_ = false;
+    }
+    uint32_t peek(int n) const {
+        return static_cast<uint32_t>((buf_ >> (bits_ - n)) & ((1u << n) - 1));
+    }
+    uint32_t get(int n) {
+        if (bits_ < n) fill(n);
+        const uint32_t v = peek(n);
+        bits_ -= n;
+        return v;
+    }
+    void fill(int nbits) {
+        while (!marker_ && bits_ < 57) {
+            if (p_ >= real_end_) hit_end_ = true;
+            if (p_ >= end_) {
+                marker_ = true;
+                break;
+            }
+            int c = *p_;
+            if (c == 0xFF) {
+                const uint8_t* q = p_ + 1;
+                while (q < end_ && *q == 0xFF) ++q;
+                if (q >= real_end_) hit_end_ = true;
+                if (q < end_ && *q == 0) {
+                    p_ = q + 1;
+                } else {
+                    marker_ = true;         // p_ stays on the marker
+                    break;
+                }
+            } else {
+                ++p_;
+            }
+            buf_ = (buf_ << 8) | static_cast<uint64_t>(c);
+            bits_ += 8;
+        }
+        if (marker_ && nbits > bits_) {
+            insufficient_ = true;           // zeros from here on
+            buf_ <<= 57 - bits_;
+            bits_ = 57;
+        }
+    }
+
+    const uint8_t* p_;
+    const uint8_t* end_;
+    const uint8_t* real_end_;
+    uint64_t buf_ = 0;
+    int bits_ = 0;
+    int bad_codes_ = 0;
+    bool marker_ = false, insufficient_ = false, hit_end_ = false;
+};
+
 // v << n on the two's-complement bits, kept to a coefficient's 16 bits
 inline int16_t coef_shift(int v, int n) {
     return static_cast<int16_t>(static_cast<uint32_t>(v) << n);
@@ -1234,7 +1354,10 @@ constexpr int kMaxComps = 4;
 // calls it, or OpenCV's reading through its bundled libjpeg-turbo 3.1 (the
 // JAX package's imread). They differ in the block smoothing, and OpenCV
 // keeps a one-scan image whose file goes wrong after that scan.
-enum Flavour { kLibjpeg = 0, kOpenCV = 1 };
+// The TIFF flavours decode as OpenCV's libjpeg-turbo does for libtiff's
+// JPEG strips: YCbCr converted to RGB whatever the markers say (libtiff's
+// JPEGCOLORMODE_RGB), or the samples as coded (JCS_UNKNOWN).
+enum Flavour { kLibjpeg = 0, kOpenCV = 1, kTiffYcc = 2, kTiffRaw = 3 };
 constexpr int kSavedCoefs = 10;     // jdcoefct.c: coef_bits[0..9] latched
 
 struct Component {
@@ -1293,6 +1416,8 @@ struct Decoder {
     int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
     int out_w = 0, out_h = 0;       // output size at the scale
     bool have_frame = false, progressive = false, arithmetic = false;
+    bool lossless = false;          // SOF3, OpenCV's flavours only
+    int precision = 8;
     int scans = 0;                  // libjpeg's input_scan_number
     bool single_scan = false;       // a first scan of every component done
     Component comp[kMaxComps];
@@ -1312,6 +1437,12 @@ struct Decoder {
     Status warned = kOk;            // kWarned or kEnded once libjpeg warns
     std::string warning;
     mutable std::vector<int> colsum;   // the h2v2 upsampler's row of sums
+    // lossless: each component's rows of differences and of samples
+    // (jddiffct.c diff_buf, undiff_buf), and whether its next row is the
+    // first of a restart interval (jdlossls.c's first-row undifferencer)
+    std::vector<int32_t> diff[kMaxComps], undiff[kMaxComps];
+    bool first_row[kMaxComps] = {};
+    bool scan_hit_end = false;      // a lossless scan read past the data
 
     Decoder(const uint8_t* b, size_t n, size_t real_n, int scale,
             Flavour fl = kLibjpeg)
@@ -1438,7 +1569,7 @@ struct Decoder {
             q += 16;
             if (total > 256 || e - q < total)
                 corrupt("bad Huffman table length");
-            (tc ? ac_tab : dc_tab)[th].build(counts, q, tc == 0);
+            (tc ? ac_tab : dc_tab)[th].build(counts, q);
             q += total;
         }
     }
@@ -1452,7 +1583,7 @@ struct Decoder {
             corrupt("scan uses an undefined Huffman table");
         uint8_t counts[17] = {};
         std::memcpy(counts + 1, dc ? kStdDcBits[t] : kStdAcBits[t], 16);
-        tabs[t].build(counts, dc ? kStdDcVals : kStdAcVals[t], dc);
+        tabs[t].build(counts, dc ? kStdDcVals : kStdAcVals[t]);
     }
 
     // jdmarker.c get_dac: conditioning of DC (L, U) and AC (Kx) tables
@@ -1489,10 +1620,13 @@ struct Decoder {
             "hierarchical progressive arithmetic coding (SOF14)",
             "hierarchical lossless arithmetic coding (SOF15)"};
         const int kind = marker - 0xC0;
-        if (kModes[kind])
+        // libjpeg-turbo 3.1 (OpenCV's) decodes Huffman-coded lossless
+        const bool is_lossless = kind == 3 && flavour != kLibjpeg;
+        if (kModes[kind] && !is_lossless)
             fail(kUnsupported, std::string("unsupported JPEG mode: ") +
                                    kModes[kind]);
         if (have_frame) corrupt("more than one frame header");
+        lossless = is_lossless;
         progressive = kind == 2 || kind == 10;
         arithmetic = kind >= 9;
         auto [s, e] = segment();
@@ -1501,10 +1635,19 @@ struct Decoder {
         height = (s[1] << 8) | s[2];
         width = (s[3] << 8) | s[4];
         ncomp = s[5];
-        if (precision != 8)
+        this->precision = precision;
+        // OpenCV reads through libjpeg-turbo's 8-bit interface, which
+        // refuses other precisions (lossless ones of 2-7 bits it takes)
+        if (lossless && (precision < 2 || precision > 8))
+            fail(kUnsupported, "unsupported JPEG mode: lossless, " +
+                                   std::to_string(precision) +
+                                   "-bit samples");
+        if (!lossless && precision != 8)
             fail(kUnsupported, "unsupported JPEG mode: " +
                                    std::to_string(precision) +
                                    "-bit samples");
+        if (lossless && scale_num != 8)
+            fail(kBadArgs, "a lossless JPEG decodes at 8/8 only");
         if (height == 0 || width == 0 || ncomp == 0)
             corrupt("empty JPEG image (a zero dimension)");
         if (ncomp != 1 && ncomp != 3 && ncomp != 4)
@@ -1524,7 +1667,8 @@ struct Decoder {
             k.tq = s[8 + 3 * c];
             if (k.h < 1 || k.h > 4 || k.v < 1 || k.v > 4)
                 corrupt("bad sampling factors");
-            if (k.tq > 3) corrupt("bad quantization table id");
+            // (a lossless file latches no quantization table)
+            if (k.tq > 3 && !lossless) corrupt("bad quantization table id");
             hmax = std::max(hmax, k.h);
             vmax = std::max(vmax, k.v);
         }
@@ -1532,9 +1676,14 @@ struct Decoder {
         mcuy = (height + 8 * vmax - 1) / (8 * vmax);
         // the padded sample planes (and a progressive file's coefficient
         // buffer, two bytes a sample) are bounded before any allocation
+        if (lossless) {         // an MCU of h x v samples, not blocks
+            mcux = (width + hmax - 1) / hmax;
+            mcuy = (height + vmax - 1) / vmax;
+        }
         int64_t padded = 0;
         for (int c = 0; c < ncomp; ++c)
-            padded += int64_t(mcux) * comp[c].h * mcuy * comp[c].v * 64;
+            padded += int64_t(mcux) * comp[c].h * mcuy * comp[c].v *
+                      (lossless ? 1 : 64);
         if (padded > 4 * kMaxPixels)
             corrupt("image of " + std::to_string(width) + "x" +
                     std::to_string(height) +
@@ -1575,6 +1724,10 @@ struct Decoder {
                                     (int64_t(vmax) * 8));
             k.stride = k.gbw * ss;
             k.rows = k.gbh * ss;
+            if (lossless) {
+                k.stride = k.gbw;
+                k.rows = k.gbh;
+            }
             std::fill(k.coef_bits, k.coef_bits + 64, -1);
             std::fill(k.prev_coef_bits, k.prev_coef_bits + 64, -1);
         }
@@ -1886,6 +2039,196 @@ struct Decoder {
                std::to_string(index) + " coefficient " + std::to_string(c);
     }
 
+    // -------------------------------------------------------- lossless
+    // jdlossls.c: the predictors' state starts over (the next row of each
+    // component is undifferenced as a first row)
+    void reset_predictors() {
+        std::fill(first_row, first_row + kMaxComps, true);
+    }
+
+    // jdlossls.c's undifferencers on one row of ``width`` samples:
+    // ``d`` the differences, ``prev`` the row above (undifferenced),
+    // ``out`` this row; sums modulo 2^16 as libjpeg-turbo keeps them
+    static void undifference(int psv, bool first, int initial,
+                             const int32_t* d, const int32_t* prev,
+                             int32_t* out, int width) {
+        if (first) {
+            int ra = (d[0] + initial) & 0xFFFF;
+            out[0] = ra;
+            for (int x = 1; x < width; ++x) {
+                ra = (d[x] + ra) & 0xFFFF;
+                out[x] = ra;
+            }
+            return;
+        }
+        int rb = prev[0];
+        int ra = (d[0] + rb) & 0xFFFF;
+        out[0] = ra;
+        for (int x = 1; x < width; ++x) {
+            const int rc = rb;
+            rb = prev[x];
+            int pred;
+            switch (psv) {
+                case 1: pred = ra; break;
+                case 2: pred = rb; break;
+                case 3: pred = rc; break;
+                case 4: pred = ra + rb - rc; break;
+                case 5: pred = ra + ((rb - rc) >> 1); break;
+                case 6: pred = rb + ((ra - rc) >> 1); break;
+                default: pred = (ra + rb) >> 1; break;
+            }
+            ra = (d[x] + pred) & 0xFFFF;
+            out[x] = ra;
+        }
+    }
+
+    // one lossless scan (jddiffct.c decompress_data, jdlhuff.c
+    // decode_mcus, jdlossls.c): each iMCU row's MCU rows are decoded into
+    // differences, each restart interval (whole MCU rows) starting the
+    // predictors over; an MCU row met after the data ran out gives zero
+    // differences and starts the predictors over too (so it is grey);
+    // then the iMCU row's rows are undifferenced and scaled (<< Al) into
+    // 8-bit samples
+    void lossless_scan(Component** in_scan, int ns, int psv, int se, int ah,
+                       int al) {
+        if (psv < 1 || psv > 7 || se != 0 || ah != 0 || al >= precision)
+            corrupt("bad lossless parameters Ss=" + std::to_string(psv) +
+                    " Se=" + std::to_string(se) + " Ah=" +
+                    std::to_string(ah) + " Al=" + std::to_string(al));
+        if (scans == 1) {
+            // the colour conversions libjpeg-turbo does in lossless mode:
+            // none but RGB and CMYK to OpenCV's BGR and CMYK
+            if (ncomp == 1)
+                fail(kUnsupported, "unsupported JPEG mode: lossless "
+                                   "greyscale (no conversion to BGR)");
+            if (ycc_guess(false))
+                fail(kUnsupported, std::string("unsupported JPEG mode: "
+                                               "lossless ") +
+                                       (ncomp == 3 ? "YCbCr" : "YCCK") +
+                                       " (no conversion to BGR)");
+        }
+        const bool inter = ns > 1;
+        const int per_row = inter ? mcux : in_scan[0]->sw;
+        if (restart_interval && restart_interval % per_row)
+            corrupt("Invalid restart interval " +
+                    std::to_string(restart_interval) +
+                    "; must be an integer multiple of the number of MCUs "
+                    "in an MCU row (" + std::to_string(per_row) + ")");
+        for (int i = 0; i < ns; ++i) {
+            Component& k = *in_scan[i];
+            const int c = static_cast<int>(&k - comp);
+            const size_t w = inter ? static_cast<size_t>(mcux) * k.h
+                                   : static_cast<size_t>(k.sw);
+            diff[c].assign(w * k.v, 0);
+            undiff[c].assign(static_cast<size_t>(k.sw) * k.v, 0);
+            if (k.plane.empty())
+                k.plane.assign(static_cast<size_t>(k.stride) * k.rows, 0);
+        }
+        reset_predictors();
+        const int initial = 1 << (precision - al - 1);
+        LjBits br(p, end, real_end);
+        bool insufficient = false;
+        int rows_to_go = restart_interval / per_row, next_rst = 0;
+        const auto row_stride = [&](const Component& k) {
+            return inter ? static_cast<size_t>(mcux) * k.h
+                         : static_cast<size_t>(k.sw);
+        };
+        for (int r = 0; r < mcuy; ++r) {
+            const bool last = r == mcuy - 1;
+            const auto height_of = [&](const Component& k) {
+                const int rest = k.sh % k.v;
+                return last && rest ? rest : k.v;
+            };
+            const int mcu_rows = inter ? 1 : height_of(*in_scan[0]);
+            for (int yo = 0; yo < mcu_rows; ++yo) {
+                if (restart_interval) {
+                    if (rows_to_go == 0) {
+                        const Resume res = restart_marker(
+                            br.at_marker(), br.pos(), br.buffered_bytes(),
+                            next_rst);
+                        next_rst = (next_rst + 1) & 7;
+                        // looking for it ran past the data
+                        if (res.at >= real_end) scan_hit_end = true;
+                        if (res.at_marker) {
+                            br.stay_at_marker(res.at);
+                        } else {
+                            br.restart_at(res.at);
+                            insufficient = false;
+                        }
+                        reset_predictors();
+                        rows_to_go = restart_interval / per_row;
+                    }
+                }
+                if (insufficient) {
+                    for (int i = 0; i < ns; ++i) {
+                        Component& k = *in_scan[i];
+                        int32_t* d = diff[&k - comp].data();
+                        const size_t n = row_stride(k);
+                        if (inter)
+                            std::fill(d, d + n * k.v, 0);
+                        else
+                            std::fill(d + yo * n, d + (yo + 1) * n, 0);
+                    }
+                    reset_predictors();
+                } else {
+                    for (int mx = 0; mx < per_row; ++mx) {
+                        for (int i = 0; i < ns; ++i) {
+                            Component& k = *in_scan[i];
+                            const Huffman& tab = dc_tab[k.td];
+                            int32_t* d = diff[&k - comp].data();
+                            const size_t n = row_stride(k);
+                            const int hh = inter ? k.h : 1;
+                            const int vv = inter ? k.v : 1;
+                            for (int y = 0; y < vv; ++y)
+                                for (int x = 0; x < hh; ++x) {
+                                    const int s = br.decode(tab);
+                                    int v = 0;
+                                    if (s == 16)
+                                        v = 32768;
+                                    else if (s)
+                                        v = extend(br.bits(s), s);
+                                    const size_t row = inter ? y : yo;
+                                    d[row * n + static_cast<size_t>(mx) * hh +
+                                      x] = v;
+                                }
+                        }
+                    }
+                    if (br.insufficient()) {
+                        insufficient = true;
+                        warn(kWarned, "Corrupt JPEG data: premature end of "
+                                      "data segment");
+                    }
+                }
+                if (restart_interval) --rows_to_go;
+            }
+            // undifference and scale the iMCU row
+            for (int i = 0; i < ns; ++i) {
+                Component& k = *in_scan[i];
+                const int c = static_cast<int>(&k - comp);
+                const size_t n = row_stride(k);
+                const int rows = height_of(k);
+                for (int row = 0; row < rows; ++row) {
+                    const int prev = row ? row - 1 : k.v - 1;
+                    int32_t* u = undiff[c].data();
+                    undifference(psv, first_row[c], initial,
+                                 diff[c].data() + row * n,
+                                 u + static_cast<size_t>(prev) * k.sw,
+                                 u + static_cast<size_t>(row) * k.sw, k.sw);
+                    first_row[c] = false;
+                    uint8_t* o = k.plane.data() +
+                                 static_cast<size_t>(r * k.v + row) * k.stride;
+                    const int32_t* ur = u + static_cast<size_t>(row) * k.sw;
+                    for (int x = 0; x < k.sw; ++x)
+                        o[x] = static_cast<uint8_t>(ur[x] << al);
+                }
+            }
+        }
+        if (br.bad_codes())
+            warn(kWarned, "Corrupt JPEG data: bad Huffman code");
+        scan_hit_end = scan_hit_end || br.hit_end();
+        p = br.pos();
+    }
+
     void read_scan() {
         if (!have_frame) corrupt("scan before the frame header");
         auto [s, e] = segment();
@@ -1898,7 +2241,7 @@ struct Decoder {
         const bool dc_band = ss == 0;
         // which tables the scan decodes with
         const bool need_dc = !progressive || (dc_band && ah == 0);
-        const bool need_ac = !progressive || !dc_band;
+        const bool need_ac = !lossless && (!progressive || !dc_band);
         Component* in_scan[kMaxComps];
         for (int i = 0; i < ns; ++i) {
             const int id = s[1 + 2 * i], t = s[2 + 2 * i];
@@ -1911,11 +2254,20 @@ struct Decoder {
             k->td = t >> 4;
             k->ta = t & 15;
             if (!arithmetic) {
-                if (k->td > 3 || k->ta > 3) corrupt("bad Huffman table id");
-                if (need_dc) standard_table(dc_tab, k->td, true);
+                if (k->td > 3 || (k->ta > 3 && !lossless))
+                    corrupt("bad Huffman table id");
+                if (need_dc) {
+                    // jdlhuff.c installs no standard tables
+                    if (lossless && !dc_tab[k->td].defined)
+                        corrupt("scan uses an undefined Huffman table");
+                    standard_table(dc_tab, k->td, true);
+                    // jdhuff.c jpeg_make_d_derived_tbl
+                    if (dc_tab[k->td].max_sym > (lossless ? 16 : 15))
+                        corrupt("bad DC Huffman table");
+                }
                 if (need_ac) standard_table(ac_tab, k->ta, false);
             }
-            if (!k->quant_latched) {
+            if (!k->quant_latched && !lossless) {
                 // libjpeg latches the table when the component's first
                 // scan starts
                 if (!qt_defined[k->tq])
@@ -1940,6 +2292,11 @@ struct Decoder {
         for (int i = 0; i < ns; ++i) blocks += in_scan[i]->h * in_scan[i]->v;
         if (ns > 1 && blocks > 10) corrupt("too many blocks in an MCU");
         ++scans;
+        if (lossless) {
+            lossless_scan(in_scan, ns, ss, se, ah, al);
+            single_scan = scans == 1 && ns == ncomp;
+            return;
+        }
         if (progressive)
             progression(in_scan, ns, ss, se, ah, al);
         else if (ss != 0 || se != 63 || ah != 0 || al != 0)
@@ -2177,7 +2534,7 @@ struct Decoder {
                         DC14 = dc(cur, bx + 1);
                         DC19 = dc(nxt, bx + 1);
                         DC24 = dc(nn, bx + 1);
-                        if (flavour == kOpenCV) {
+                        if (flavour != kLibjpeg) {
                             // 3.1 replicates column 1 where there is no 2
                             DC05 = DC04;
                             DC10 = DC09;
@@ -2329,13 +2686,27 @@ struct Decoder {
         } catch (const Failure& f) {
             // OpenCV has read a one-scan image's rows before libjpeg
             // meets what follows the scan, and keeps them
-            if (!(flavour == kOpenCV && single_scan && f.status == kCorrupt))
+            if (!(flavour != kLibjpeg && single_scan && f.status != kBadArgs))
                 throw;
             warn(kWarned, f.msg);
         }
         if (!have_frame) corrupt("no frame header");
         if (headers_only) return;
-        if (p > real_end) warn(kEnded, "Premature end of JPEG file");
+        if (lossless) {
+            // jddiffct.c's buffered image (a scan a component) is not
+            // zeroed: a component no scan reached cannot be read
+            for (int c = 0; c < ncomp; ++c)
+                if (comp[c].plane.empty())
+                    corrupt("Bogus virtual array access");
+        }
+        // OpenCV has the rows of a one-scan lossless image once its scan
+        // is decoded: only a scan that read past the data fails from
+        // memory
+        if (lossless && single_scan && !scan_hit_end) {
+            if (p > real_end) warn(kWarned, "Premature end of JPEG file");
+        } else if (p > real_end || scan_hit_end) {
+            warn(kEnded, "Premature end of JPEG file");
+        }
         if (!scans) corrupt("JPEG datastream contains no image");
         for (int c = 0; c < ncomp; ++c)
             if (comp[c].plane.empty() && !progressive)   // never scanned
@@ -2378,7 +2749,7 @@ struct Decoder {
         const int fh = hmax * scale_num / (k.h * k.ssize);
         const int fv = vmax * scale_num / (k.v * k.ssize);
         const int dw = k.sw;
-        const bool fancy = scale_num > 1;
+        const bool fancy = scale_num > 1 && !lossless;
         if (fh == 1 && fv == 1) return crow(k, y);
         if (fancy && fh == 2 && fv == 1 && dw > 2) {      // h2v1 fancy
             const uint8_t* in = crow(k, y);
@@ -2432,6 +2803,38 @@ struct Decoder {
         return out;
     }
 
+    // jdapimin.c default_decompress_parms: the colour-space guess of a
+    // three- or four-component image, YCbCr (or YCCK) or not; the TIFF
+    // flavours say it themselves. ``warn_unknown``: warn of an unknown
+    // Adobe transform, as libjpeg does.
+    bool ycc_guess(bool warn_unknown) {
+        if (flavour == kTiffYcc || flavour == kTiffRaw)
+            return flavour == kTiffYcc && ncomp == 3;
+        bool ycc = true;
+        if (ncomp == 4) {
+            ycc = saw_adobe && adobe_transform != 0;       // YCCK, else CMYK
+            if (warn_unknown && saw_adobe && adobe_transform != 0 &&
+                adobe_transform != 2)
+                warn(kWarned, "Unknown Adobe color transform code " +
+                                  std::to_string(adobe_transform));
+        } else if (!saw_jfif) {
+            if (saw_adobe) {
+                ycc = adobe_transform != 0;
+                if (warn_unknown && adobe_transform > 1)
+                    warn(kWarned, "Unknown Adobe color transform code " +
+                                      std::to_string(adobe_transform));
+            } else if (comp[0].id == 82 && comp[1].id == 71 &&
+                       comp[2].id == 66) {
+                ycc = false;                               // 'R', 'G', 'B'
+            } else {
+                // libjpeg-turbo 3.1 takes a lossless file without markers
+                // for RGB, whatever its component ids
+                ycc = !lossless;
+            }
+        }
+        return ycc;
+    }
+
     void to_rgb(uint8_t* rgb) {
         const size_t W = static_cast<size_t>(out_w);
         if (ncomp == 1) {
@@ -2443,24 +2846,7 @@ struct Decoder {
             }
             return;
         }
-        // jdapimin.c default_decompress_parms: the colour-space guess
-        bool ycc = true;
-        if (ncomp == 4) {
-            ycc = saw_adobe && adobe_transform != 0;       // YCCK, else CMYK
-            if (saw_adobe && adobe_transform != 0 && adobe_transform != 2)
-                warn(kWarned, "Unknown Adobe color transform code " +
-                                  std::to_string(adobe_transform));
-        } else if (!saw_jfif) {
-            if (saw_adobe) {
-                ycc = adobe_transform != 0;
-                if (adobe_transform > 1)
-                    warn(kWarned, "Unknown Adobe color transform code " +
-                                      std::to_string(adobe_transform));
-            } else if (comp[0].id == 82 && comp[1].id == 71 &&
-                       comp[2].id == 66) {
-                ycc = false;                               // 'R', 'G', 'B'
-            }
-        }
+        const bool ycc = ycc_guess(true);
         // rows padded for the upsamplers, which may write 2 * dw samples
         const size_t pad = W + 16 * static_cast<size_t>(hmax);
         std::vector<uint8_t> rows(kMaxComps * pad);
@@ -2539,6 +2925,13 @@ int guarded(char* err, int errlen, Body&& body) {
     }
 }
 
+void check_flavour(int flavour) {
+    if (flavour < kLibjpeg || flavour > kTiffRaw)
+        fail(kBadArgs, "flavour " + std::to_string(flavour) +
+                           " is not 0 (libjpeg), 1 (OpenCV), 2 (TIFF YCbCr) "
+                           "or 3 (TIFF as coded)");
+}
+
 void check_scale(int scale_num) {
     if (scale_num < 1 || scale_num > 8)
         fail(kBadArgs, "scale_num " + std::to_string(scale_num) +
@@ -2607,12 +3000,13 @@ inline int decode_rgb(const uint8_t* buf, size_t n, int scale_num,
 extern "C" {
 
 int epk_jpeg_info(const uint8_t* buf, size_t n, int scale_num, int* w,
-                  int* h, int* comps, char* err, int errlen) {
+                  int* h, int* comps, int flavour, char* err, int errlen) {
     return guarded(err, errlen, [&](std::string&) {
         if (!buf || !w || !h || !comps) fail(kBadArgs, "null argument");
         check_scale(scale_num);
+        check_flavour(flavour);
         const Input in(buf, n);
-        Decoder d(in.data, in.n, n, scale_num);
+        Decoder d(in.data, in.n, n, scale_num, static_cast<Flavour>(flavour));
         d.run(true);
         *w = d.out_w;
         *h = d.out_h;
@@ -2627,9 +3021,7 @@ int epk_jpeg_decode_rgb(const uint8_t* buf, size_t n, int scale_num,
     return guarded(err, errlen, [&](std::string& msg) {
         if (!buf || !out) fail(kBadArgs, "null argument");
         check_scale(scale_num);
-        if (flavour != kLibjpeg && flavour != kOpenCV)
-            fail(kBadArgs, "flavour " + std::to_string(flavour) +
-                               " is not 0 (libjpeg) or 1 (OpenCV)");
+        check_flavour(flavour);
         const Input in(buf, n);
         Decoder d(in.data, in.n, n, scale_num, static_cast<Flavour>(flavour));
         d.run(true);

@@ -1,5 +1,5 @@
-"""PNG, PNM and BMP test images: writers, the committed fixtures and
-their manifest.
+"""PNG, PNM, BMP and TIFF test images, and lossless and 12-bit JPEGs:
+writers, the committed fixtures and their manifest.
 
     python tests/image_fixtures.py     # rewrites tests/data/images/
 
@@ -10,7 +10,13 @@ palette indices past PLTE's end, several IDATs and an empty one,
 gAMA/iCCP/sRGB, eXIf orientations 1-8 in both byte orders and an APNG;
 PNM P1-P6 at several maxvals, with comments; BMP with core (OS/2), INFO,
 V4 and V5 headers at 1, 4, 8, 16 (555 and 565), 24 and 32 bits, bottom-up
-and top-down, RLE4 and RLE8 with their escapes.
+and top-down, RLE4 and RLE8 with their escapes; TIFF (``tiff_*``) of
+every layout, depth and compression OpenCV reads (strips and tiles,
+planar, both byte orders, BigTIFF, LZW, PackBits, Deflate, JPEG with
+JPEGTables, Predictor 2, grey, RGB, alpha, palette, the Orientation tag),
+by the writer here, OpenCV and Pillow, with the files OpenCV gives no
+image of and damaged ones; lossless and 12-bit JPEGs (``jpeg_*``, the
+encoders of ``jpeg_fixtures.py``).
 
 ``manifest.json`` gives, for each file, the sha256 of what OpenCV 5's
 ``cv2.imread(path, IMREAD_COLOR)`` returns (BGR, EXIF orientation
@@ -22,6 +28,7 @@ the smoke run holds the port's reads to these hashes there.
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import pathlib
 import struct
@@ -449,10 +456,508 @@ def _bmp_set(rng: np.random.Generator) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- TIFF
+# field type -> (struct code, size)
+TIFF_TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4),
+              7: ("B", 1), 16: ("Q", 8)}
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits: runs of three or more equal bytes replicated, the rest
+    literal, 128 bytes at most a packet."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i + 1
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([257 - (j - i), data[i]])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 128 and not (
+                j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out.append(j - i - 1)
+        out += data[i:j]
+        i = j
+    return bytes(out)
+
+
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF's LZW: MSB-first codes of 9-12 bits that widen one code early
+    (as libtiff reads them), CLEAR first and when the table fills, EOI
+    last. The table maps (prefix code, byte) to a code."""
+    out = bytearray()
+    acc = nacc = 0
+    width = 9
+
+    def put(code: int):
+        nonlocal acc, nacc
+        acc = (acc << width) | code
+        nacc += width
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+        acc &= (1 << nacc) - 1
+    put(256)
+    table: dict = {}
+    nxt, w = 258, -1
+    for b in data:
+        if w < 0:
+            w = b
+            continue
+        code = table.get((w << 8) | b)
+        if code is not None:
+            w = code
+            continue
+        put(w)
+        table[(w << 8) | b] = nxt
+        nxt += 1
+        # the reader adds the entry a code later, then widens past 2^n - 2
+        width = 9 if nxt <= 511 else 10 if nxt <= 1023 else \
+            11 if nxt <= 2047 else 12
+        w = b
+        if nxt >= 4093:
+            put(w)
+            width = 12
+            put(256)
+            table.clear()
+            nxt, w, width = 258, -1, 9
+    if w >= 0:
+        put(w)
+        nxt += 1
+        width = 9 if nxt <= 511 else 10 if nxt <= 1023 else \
+            11 if nxt <= 2047 else 12
+    put(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def _tiff_pack(a: np.ndarray, bits: int, order: str) -> bytes:
+    """(rows, n) samples -> bytes, each row padded to a byte; 16-bit
+    samples in the file's byte order."""
+    if bits == 8:
+        return a.astype(np.uint8).tobytes()
+    if bits == 16:
+        return a.astype(("<" if order == "II" else ">") + "u2").tobytes()
+    h, n = a.shape
+    shifts = np.arange(bits - 1, -1, -1)
+    bitrows = ((a[..., None] >> shifts) & 1).reshape(h, n * bits)
+    return np.packbits(bitrows.astype(np.uint8), axis=1).tobytes()
+
+
+def tiff_bytes(samples: np.ndarray, bits: int = 8,
+               photometric: int | None = None, *, order: str = "II",
+               big: bool = False, compression: int = 1, predictor: int = 1,
+               planar: int = 1, rows_per_strip: int | None = None,
+               tile: tuple | None = None, extra_samples=None,
+               colormap=None, orientation: int | None = None,
+               tags: dict | None = None, drop=(), chunks=None,
+               pages: int = 1) -> bytes:
+    """A TIFF of (h, w[, c]) integer ``samples``: strips of
+    ``rows_per_strip`` rows or ``tile`` (width, length) tiles, planar or
+    not, compression 1, 5 (LZW), 8/32946 (Deflate) or 32773 (PackBits)
+    with Predictor 2 where asked; ``colormap``: (2^bits, 3) entries;
+    ``tags``: fields to add or replace (tag -> (type, values));
+    ``drop``: tags to leave out; ``chunks``: the strips' or tiles' data
+    itself; ``pages``: directories, the first one's image repeated."""
+    s = np.asarray(samples).astype(np.int64)
+    if s.ndim == 2:
+        s = s[..., None]
+    h, w, c = s.shape
+    if photometric is None:
+        photometric = 1 if c <= 2 else 2
+    e = "<" if order == "II" else ">"
+    coders = {1: lambda b: b, 5: tiff_lzw, 8: zlib.compress,
+              32946: zlib.compress, 32773: packbits}
+
+    def rows_of(a: np.ndarray) -> bytes:
+        r, cols, cc = a.shape
+        if predictor == 2:
+            d = a.copy()
+            d[:, 1:] = a[:, 1:] - a[:, :-1]
+            a = d & ((1 << bits) - 1)
+        return _tiff_pack(a.reshape(r, cols * cc), bits, order)
+    planes = [s] if planar == 1 else [s[..., i:i + 1] for i in range(c)]
+    data = []
+    for pl in planes:
+        if tile:
+            tw, th = tile
+            for ty in range(0, h, th):
+                for tx in range(0, w, tw):
+                    t = np.zeros((th, tw, pl.shape[2]), np.int64)
+                    part = pl[ty:ty + th, tx:tx + tw]
+                    t[:part.shape[0], :part.shape[1]] = part
+                    data.append(rows_of(t))
+        else:
+            rps = rows_per_strip or h
+            data += [rows_of(pl[y:y + rps]) for y in range(0, h, rps)]
+    data = chunks if chunks is not None else \
+        [coders.get(compression, bytes)(d) for d in data]
+    wide = 4 if max(w, h) > 65535 else 3
+    fields = {256: (wide, [w]), 257: (wide, [h]), 258: (3, [bits] * c),
+              259: (3, [compression]), 262: (3, [photometric]),
+              277: (3, [c]), 284: (3, [planar])}
+    if predictor != 1:
+        fields[317] = (3, [predictor])
+    if extra_samples is not None:
+        fields[338] = (3, list(extra_samples))
+    if colormap is not None:
+        fields[320] = (3, np.asarray(colormap).T.reshape(-1).tolist())
+    if orientation is not None:
+        fields[274] = (3, [orientation])
+    if tile:
+        fields[322], fields[323] = (3, [tile[0]]), (3, [tile[1]])
+    else:
+        fields[278] = (3, [rows_per_strip or h])
+    head = 16 if big else 8
+    body, offsets = bytearray(), []
+    for d in data:
+        offsets.append(head + len(body))
+        body += d + b"\0" * (len(d) % 2)
+    off_type = 16 if big else 4
+    fields[324 if tile else 273] = (off_type, offsets)
+    fields[325 if tile else 279] = (off_type, [len(d) for d in data])
+    fields.update(tags or {})
+    for tag in drop:
+        fields.pop(tag, None)
+    entry, inline = (20, 8) if big else (12, 4)
+    ifd_len = (8 if big else 2) + len(fields) * entry + (8 if big else 4)
+    out_ifds, extra = bytearray(), bytearray()
+    starts = [head + len(body) + k * ifd_len for k in range(pages)]
+    extra_at = head + len(body) + pages * ifd_len
+    for k in range(pages):
+        ifd = bytearray(struct.pack(e + ("Q" if big else "H"), len(fields)))
+        for tag in sorted(fields):
+            typ, vals = fields[tag]
+            if isinstance(vals, bytes):
+                payload = vals
+            else:
+                code = TIFF_TYPES[typ][0]
+                payload = struct.pack(f"{e}{len(vals)}{code}", *vals)
+            count = len(payload) // TIFF_TYPES[typ][1]
+            if len(payload) <= inline:
+                value = payload.ljust(inline, b"\0")
+            else:
+                value = struct.pack(e + ("Q" if big else "I"),
+                                    extra_at + len(extra))
+                extra += payload + b"\0" * (len(payload) % 2)
+            ifd += struct.pack(e + "HH" + ("Q" if big else "I"), tag, typ,
+                               count) + value
+        nxt = starts[k + 1] if k + 1 < pages else 0
+        ifd += struct.pack(e + ("Q" if big else "I"), nxt)
+        out_ifds += ifd
+    magic = (b"II" if order == "II" else b"MM")
+    if big:
+        magic += struct.pack(e + "HHHQ", 43, 8, 0, starts[0])
+    else:
+        magic += struct.pack(e + "HI", 42, starts[0])
+    return bytes(magic + body + out_ifds + extra)
+
+
+def _jpeg_tables_and_stream(jpg: bytes) -> tuple[bytes, bytes]:
+    """A JPEG split as libtiff keeps it: the tables (SOI, DQT, DHT, EOI)
+    for JPEGTables, and the abbreviated stream without them (APPn
+    dropped)."""
+    pos, tables, rest = 2, bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8")
+    while True:
+        marker = jpg[pos + 1]
+        length = int.from_bytes(jpg[pos + 2:pos + 4], "big")
+        seg = jpg[pos:pos + 2 + length]
+        if marker == 0xDA:
+            rest += jpg[pos:]
+            break
+        if marker in (0xDB, 0xC4):
+            tables += seg
+        elif not 0xE0 <= marker <= 0xEF:
+            rest += seg
+        pos += 2 + length
+    return bytes(tables + b"\xff\xd9"), bytes(rest)
+
+
+def tiff_ycbcr_jpeg(rgb: np.ndarray, rows_per_strip: int | None = 16,
+                    tile: tuple | None = None, sub: str = "420",
+                    quality: int = 90, **kw) -> bytes:
+    """A JPEG-compressed YCbCr TIFF (Photometric 6) of the kind libtiff
+    writes: each strip or tile an abbreviated stream that OpenCV's
+    encoder made, the tables in JPEGTables, YCbCrSubsampling given."""
+    import cv2
+    h, w, _ = rgb.shape
+    flag = {"420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+            "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+            "444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444}[sub]
+    parts = []
+    if tile:
+        tw, th = tile
+        for ty in range(0, h, th):
+            for tx in range(0, w, tw):
+                t = np.zeros((th, tw, 3), np.uint8)
+                part = rgb[ty:ty + th, tx:tx + tw]
+                t[:part.shape[0], :part.shape[1]] = part
+                parts.append(t)
+    else:
+        parts = [rgb[y:y + rows_per_strip] for y in range(0, h,
+                                                          rows_per_strip)]
+    chunks, tables = [], b""
+    for part in parts:
+        ok, enc = cv2.imencode(".jpg", np.ascontiguousarray(part[..., ::-1]),
+                               [cv2.IMWRITE_JPEG_QUALITY, quality,
+                                cv2.IMWRITE_JPEG_SAMPLING_FACTOR, flag])
+        tables, stream = _jpeg_tables_and_stream(enc.tobytes())
+        chunks.append(stream)
+    factors = {"420": [2, 2], "422": [2, 1], "444": [1, 1]}[sub]
+    tags = {530: (3, factors), 347: (7, tables), **kw.pop("tags", {})}
+    return tiff_bytes(rgb, 8, 6, compression=7, rows_per_strip=rows_per_strip,
+                      tile=tile, chunks=chunks, tags=tags, **kw)
+
+
+def _pil_tiff(img: np.ndarray, **kwargs) -> bytes:
+    from PIL import Image
+    out = io.BytesIO()
+    Image.fromarray(img).save(out, format="TIFF", **kwargs)
+    return out.getvalue()
+
+
+def _cv2_tiff(img: np.ndarray, *params) -> bytes:
+    import cv2
+    return cv2.imencode(".tif", img, list(params))[1].tobytes()
+
+
+def _tiff_set(rng: np.random.Generator) -> dict:
+    """TIFFs of every layout, depth and compression OpenCV reads, by the
+    hand writer above, OpenCV and Pillow; those it gives no image of; and
+    those the port leaves to it."""
+    out = {}
+    h, w = 13, 10
+    frame = smooth_frame(24, 20, 7)
+    for bits in (1, 8, 16):
+        for ph, pname in ((0, "white"), (1, "black")):
+            g = rng.integers(0, 1 << bits, (h, w))
+            for comp, cname in ((1, "none"), (5, "lzw"), (32773, "packbits"),
+                                (8, "deflate"), (32946, "adobe")):
+                pred = 2 if comp in (5, 8) and bits > 1 else 1
+                out[f"tiff_grey{bits}_{pname}_{cname}.tif"] = tiff_bytes(
+                    g, bits, ph, compression=comp, predictor=pred,
+                    rows_per_strip=4)
+    for bits in (8, 16):
+        v = rng.integers(0, 1 << bits, (h, w, 3))
+        for comp, cname in ((1, "none"), (5, "lzw"), (8, "deflate"),
+                            (32773, "packbits")):
+            for order in ("II", "MM"):
+                for planar in (1, 2):
+                    pred = 2 if comp in (5, 8) else 1
+                    out[f"tiff_rgb{bits}_{cname}_{order}_planar{planar}.tif"] = \
+                        tiff_bytes(v, bits, 2, order=order, compression=comp,
+                                   predictor=pred, planar=planar,
+                                   rows_per_strip=5)
+        a = rng.integers(0, 1 << bits, (h, w, 1))
+        for es, ename in ((0, "unspecified"), (1, "associated"),
+                          (2, "unassociated")):
+            for planar in (1, 2):
+                out[f"tiff_rgba{bits}_{ename}_planar{planar}.tif"] = \
+                    tiff_bytes(np.concatenate([v, a], -1), bits, 2,
+                               extra_samples=[es], planar=planar,
+                               compression=5)
+        g = rng.integers(0, 1 << bits, (h, w, 1))
+        for ph in (0, 1):
+            for planar in (1, 2):
+                out[f"tiff_grey{bits}_alpha_ph{ph}_planar{planar}.tif"] = \
+                    tiff_bytes(np.concatenate([g, a], -1), bits, ph,
+                               extra_samples=[2], planar=planar)
+    for bits in (1, 4, 8):
+        idx = rng.integers(0, 1 << bits, (h, w))
+        big = rng.integers(0, 65536, (1 << bits, 3))
+        small = rng.integers(0, 256, (1 << bits, 3))
+        out[f"tiff_palette{bits}_16bit_map.tif"] = tiff_bytes(
+            idx, bits, 3, colormap=big, compression=5)
+        out[f"tiff_palette{bits}_8bit_map.tif"] = tiff_bytes(
+            idx, bits, 3, colormap=small, compression=32773)
+    v = rng.integers(0, 256, (40, 37, 3))
+    for tile, comp, cname in (((16, 16), 1, "none"), ((32, 32), 1, "none"),
+                              ((16, 16), 5, "lzw"), ((32, 16), 8, "deflate"),
+                              ((64, 64), 32773, "packbits")):
+        out[f"tiff_tiles{tile[0]}x{tile[1]}_{cname}.tif"] = tiff_bytes(
+            v, 8, 2, tile=tile, compression=comp,
+            predictor=2 if comp in (5, 8) else 1)
+    out["tiff_tiles16x16_lzw_planar.tif"] = tiff_bytes(
+        v, 8, 2, tile=(16, 16), compression=5, planar=2)
+    for o in range(1, 9):
+        out[f"tiff_orientation{o}_11x7.tif"] = tiff_bytes(
+            rng.integers(0, 256, (11, 7, 3)), 8, 2, orientation=o,
+            rows_per_strip=4, compression=5)
+        out[f"tiff_orientation{o}_square.tif"] = tiff_bytes(
+            rng.integers(0, 256, (9, 9, 3)), 8, 2, orientation=o,
+            tile=(16, 16), compression=5)
+    out["tiff_orientation0_reads_as_1.tif"] = tiff_bytes(
+        frame, 8, 2, orientation=0, compression=5)
+    for order in ("II", "MM"):
+        out[f"tiff_bigtiff_{order}.tif"] = tiff_bytes(
+            rng.integers(0, 65536, (20, 17, 3)), 16, 2, big=True,
+            order=order, compression=8, predictor=2, rows_per_strip=3)
+    out["tiff_two_pages.tif"] = tiff_bytes(frame, 8, 2, compression=5,
+                                           pages=2)
+    # JPEG compression: libtiff's abbreviated YCbCr streams, Pillow's RGB
+    # and grey ones
+    jframe = smooth_frame(48, 40, 11)
+    for sub in ("420", "422", "444"):
+        out[f"tiff_jpeg_ycbcr{sub}_strips.tif"] = tiff_ycbcr_jpeg(
+            jframe, 16, sub=sub)
+    out["tiff_jpeg_ycbcr420_tiles.tif"] = tiff_ycbcr_jpeg(
+        jframe, None, tile=(32, 32))
+    out["tiff_jpeg_ycbcr420_last_strip_short.tif"] = tiff_ycbcr_jpeg(
+        jframe[:44], 16)
+    out["tiff_jpeg_pillow_rgb.tif"] = _pil_tiff(jframe.astype(np.uint8),
+                                                compression="jpeg")
+    out["tiff_jpeg_pillow_grey.tif"] = _pil_tiff(
+        jframe[..., 0].astype(np.uint8), compression="jpeg")
+    # OpenCV's and Pillow's other writers
+    bgr = frame[..., ::-1].astype(np.uint8)
+    out["tiff_cv2_lzw.tif"] = _cv2_tiff(bgr)
+    out["tiff_cv2_grey.tif"] = _cv2_tiff(bgr[..., 0])
+    out["tiff_cv2_16bit.tif"] = _cv2_tiff(bgr.astype(np.uint16) * 257 + 3)
+    out["tiff_cv2_bgra.tif"] = _cv2_tiff(np.dstack([bgr, bgr[..., :1]]))
+    out["tiff_cv2_float32.tif"] = _cv2_tiff(bgr.astype(np.float32) / 255)
+    out["tiff_pillow_lzw.tif"] = _pil_tiff(frame.astype(np.uint8),
+                                           compression="tiff_lzw")
+    out["tiff_pillow_palette.tif"] = _pil_tiff(
+        (frame[..., 0] // 40).astype(np.uint8), compression="packbits")
+    out["tiff_pillow_bilevel.tif"] = _pil_tiff(frame[..., 0] > 100)
+    out["tiff_pillow_g4.tif"] = _pil_tiff(frame[..., 0] > 100,
+                                          compression="group4")
+    out["tiff_pillow_orientation6.tif"] = _pil_tiff(
+        frame.astype(np.uint8), compression="tiff_lzw", tiffinfo={274: 6})
+    # what OpenCV gives no image of
+    g = rng.integers(0, 4, (h, w))
+    out["tiff_grey2_refused.tif"] = tiff_bytes(g, 2, 1)
+    out["tiff_grey4_refused.tif"] = tiff_bytes(g, 4, 1)
+    out["tiff_rgb4_refused.tif"] = tiff_bytes(
+        rng.integers(0, 16, (h, w, 3)), 4, 2)
+    # a ColorMap of the wrong size is dropped, and a palette image of 8
+    # bits or more without one is grey
+    out["tiff_palette16_bad_map_is_grey.tif"] = tiff_bytes(
+        g, 16, 3, tags={320: (3, rng.integers(0, 65536, 48).tolist())})
+    out["tiff_grey12_refused.tif"] = tiff_bytes(g, 16, 1,
+                                                tags={258: (3, [12])})
+    for code, cname in ((50000, "zstd"), (34925, "lzma"), (50001, "webp")):
+        out[f"tiff_{cname}_refused.tif"] = tiff_bytes(
+            frame, 8, 2, compression=code, chunks=[b"\x28\xb5\x2f\xfd" * 8])
+    out["tiff_predictor3_refused.tif"] = tiff_bytes(
+        frame, 8, 2, compression=5, predictor=3)
+    out["tiff_predictor2_1bit_refused.tif"] = tiff_bytes(
+        frame[..., 0] > 100, 1, 1, compression=5, predictor=2)
+    out["tiff_no_photometric_refused.tif"] = tiff_bytes(frame, 8, 2,
+                                                        drop=(262,))
+    out["tiff_rows_per_strip0_refused.tif"] = tiff_bytes(
+        frame, 8, 2, tags={278: (3, [0])})
+    out["tiff_too_wide.tif"] = tiff_bytes(
+        frame[:1], 8, 2, tags={256: (4, [(1 << 20) + 1])})
+    # damage: libtiff shows a strip whose data runs out with zeros after
+    # what it decoded, fails a strip it cannot read at all, and computes
+    # the byte counts of uncompressed strips itself where they disagree
+    lzw = tiff_bytes(frame, 8, 2, compression=5, predictor=2,
+                     rows_per_strip=6)
+    counts = _strip_counts(lzw)
+    for k, name in ((1, "short"), (2, "empty_refused")):
+        bad = list(counts)
+        bad[k] = bad[k] // 2 if name == "short" else 0
+        out[f"tiff_lzw_strip_{name}.tif"] = tiff_bytes(
+            frame, 8, 2, compression=5, predictor=2, rows_per_strip=6,
+            tags={279: (4, bad)})
+    counts = _strip_counts(tiff_bytes(frame, 8, 2, compression=32773,
+                                      rows_per_strip=6))
+    out["tiff_packbits_strip_short.tif"] = tiff_bytes(
+        frame, 8, 2, compression=32773, rows_per_strip=6,
+        tags={279: (4, [c - 7 for c in counts])})
+    out["tiff_truncated.tif"] = lzw[:len(lzw) // 2]
+    out["tiff_none_counts_recomputed.tif"] = tiff_bytes(
+        frame, 8, 2, rows_per_strip=6, tags={279: (4, [360, 999, 360, 360])})
+    return out
+
+
+def _strip_counts(buf: bytes) -> list:
+    """StripByteCounts of a little-endian classic TIFF of the writer
+    above (LONG values after the directory)."""
+    ifd = int.from_bytes(buf[4:8], "little")
+    n = int.from_bytes(buf[ifd:ifd + 2], "little")
+    for k in range(n):
+        tag, typ, count, value = struct.unpack_from("<HHII", buf,
+                                                    ifd + 2 + 12 * k)
+        if tag == 279:
+            at = ifd + 2 + 12 * k + 8 if count == 1 else value
+            return list(struct.unpack_from(f"<{count}I", buf, at))
+    raise ValueError("no StripByteCounts")
+
+
+def _jpeg_mode_set(rng: np.random.Generator) -> dict:
+    """Lossless and 12-bit JPEGs (the encoders of ``jpeg_fixtures.py``):
+    the lossless files OpenCV reads (RGB and CMYK at 2-8 bits, every
+    predictor, point transforms, restarts, subsampling, a scan a
+    component, component ids 1-3 without markers, which libjpeg-turbo
+    takes for RGB in lossless files) and those it gives no image of
+    (greyscale, YCbCr, YCCK, over 8 bits, a restart interval of part of
+    a row), and 12-bit files."""
+    import jpeg_fixtures as jf
+    out = {}
+    img = jf.render(21, 26, 3)
+    rgb = [img[..., c] for c in range(3)]
+    for psv in range(1, 8):
+        out[f"jpeg_lossless_psv{psv}.jpg"] = jf.encode_lossless(rgb, psv=psv)
+    out["jpeg_lossless_pt3.jpg"] = jf.encode_lossless(rgb, psv=4, pt=3)
+    out["jpeg_lossless_restart2.jpg"] = jf.encode_lossless(
+        rgb, psv=6, restart_rows=2)
+    out["jpeg_lossless_separate_scans.jpg"] = jf.encode_lossless(
+        rgb, psv=5, separate=True)
+    out["jpeg_lossless_adobe_rgb.jpg"] = jf.encode_lossless(
+        rgb, ids=(1, 2, 3), app=jf.ADOBE_RGB)
+    for bits in (2, 5, 7):
+        out[f"jpeg_lossless_{bits}bit.jpg"] = jf.encode_lossless(
+            [c >> (8 - bits) for c in rgb], precision=bits, psv=7)
+    out["jpeg_lossless_sub420.jpg"] = jf.encode_lossless(
+        [rgb[0], rgb[1][::2, ::2], rgb[2][::2, ::2]],
+        sampling=[(2, 2), (1, 1), (1, 1)], size=(21, 26), psv=4)
+    out["jpeg_lossless_sub422_restart.jpg"] = jf.encode_lossless(
+        [rgb[0], rgb[1][:, ::2], rgb[2][:, ::2]],
+        sampling=[(2, 1), (1, 1), (1, 1)], size=(21, 26), psv=1,
+        restart_rows=3)
+    k = rng.integers(0, 256, (21, 26))
+    out["jpeg_lossless_cmyk.jpg"] = jf.encode_lossless(
+        rgb + [k], ids=(67, 77, 89, 75), app=jf.ADOBE_RGB)
+    out["jpeg_lossless_grey_refused.jpg"] = jf.encode_lossless(rgb[:1])
+    out["jpeg_lossless_ids123_is_rgb.jpg"] = jf.encode_lossless(
+        rgb, ids=(1, 2, 3), psv=2)
+    out["jpeg_lossless_adobe_ycbcr_refused.jpg"] = jf.encode_lossless(
+        rgb, ids=(1, 2, 3), app=jf.ADOBE_YCC)
+    out["jpeg_lossless_jfif_refused.jpg"] = jf.encode_lossless(
+        rgb, app=jf.JFIF)
+    out["jpeg_lossless_ycck_refused.jpg"] = jf.encode_lossless(
+        rgb + [k], ids=(1, 2, 3, 4), app=jf.ADOBE_YCCK)
+    wide = [c.astype(np.int64) * 16 for c in rgb]
+    out["jpeg_lossless_12bit_refused.jpg"] = jf.encode_lossless(
+        wide, precision=12, psv=1)
+    out["jpeg_lossless_16bit_refused.jpg"] = jf.encode_lossless(
+        [c * 257 for c in wide], precision=16, psv=7)
+    bad = bytearray(jf.encode_lossless(rgb, restart_rows=1))
+    dri = bad.index(b"\xff\xdd")
+    bad[dri + 4:dri + 6] = (27).to_bytes(2, "big")   # not a whole row
+    out["jpeg_lossless_restart_part_row_refused.jpg"] = bytes(bad)
+    whole = jf.encode_lossless(rgb, psv=6, restart_rows=3)
+    out["jpeg_lossless_truncated.jpg"] = whole[:len(whole) * 2 // 3]
+    twelve = img.astype(np.int64) * 16 + 7
+    out["jpeg_12bit_sof1_refused.jpg"] = jf.encode_dct(twelve, 12, 8)
+    out["jpeg_12bit_grey_refused.jpg"] = jf.encode_dct(twelve[..., 0], 12, 8)
+    out["jpeg_8bit_twin_of_12bit.jpg"] = jf.encode_dct(img, 8, 2,
+                                                       ids=jf.RGB_IDS)
+    return out
+
+
 def fixture_set() -> dict:
     """name -> bytes of every fixture, from fixed seeds."""
     rng = np.random.default_rng(20261018)
-    return {**_png_set(rng), **_pnm_set(rng), **_bmp_set(rng)}
+    return {**_png_set(rng), **_pnm_set(rng), **_bmp_set(rng),
+            **_tiff_set(np.random.default_rng(20)),
+            **_jpeg_mode_set(np.random.default_rng(21))}
 
 
 def opencv_entry(path: pathlib.Path) -> dict:
@@ -474,11 +979,27 @@ def opencv_entry(path: pathlib.Path) -> dict:
                 imdecode_sha256=imdecode, shape=shape)
 
 
+def needs_opencv(buf: bytes) -> str | None:
+    """What the port's decoder leaves to OpenCV in this file (its
+    NeedsOpenCV), or None."""
+    from epipolarpose_tpu_torch.data import imgformats, png, tiff
+    decoders = {"png": png.decode, "tiff": tiff.decode}
+    decode = decoders.get(imgformats.sniff(buf))
+    if decode is None:
+        return None
+    try:
+        decode(buf)
+    except imgformats.NeedsOpenCV as e:
+        return e.what
+    except IOError:
+        pass
+    return None
+
+
 def write_fixtures(root: pathlib.Path = FIXTURE_DIR) -> dict:
     """Write every fixture and ``manifest.json`` under ``root``. Each
     entry also names what the port's imread leaves to OpenCV
     (``needs_opencv``: the reason, or null)."""
-    from epipolarpose_tpu_torch.data import imgformats, png
     root.mkdir(parents=True, exist_ok=True)
     for old in root.iterdir():
         old.unlink()
@@ -486,15 +1007,7 @@ def write_fixtures(root: pathlib.Path = FIXTURE_DIR) -> dict:
     for name, buf in sorted(fixture_set().items()):
         (root / name).write_bytes(buf)
         entry = opencv_entry(root / name)
-        needs = None
-        if imgformats.sniff(buf) == "png":
-            try:
-                png.decode(buf)
-            except imgformats.NeedsOpenCV as e:
-                needs = e.what
-            except IOError:
-                pass
-        entry["needs_opencv"] = needs
+        entry["needs_opencv"] = needs_opencv(buf)
         manifest[name] = entry
     (root / "manifest.json").write_text(json.dumps(manifest, indent=1,
                                                    sort_keys=True) + "\n")

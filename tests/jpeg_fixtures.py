@@ -13,7 +13,11 @@ a progressive twin of the 2048 x 2048 frame for the card's timing).
 Neither library writes a sequential image whose components arrive in
 separate scans, so :func:`encode_separate_scans` does (a small baseline
 encoder: float DCT, optimal Huffman tables; Y alone, then Cb and Cr alone
-or interleaved together).
+or interleaved together). Nor do they write lossless or 12-bit JPEGs:
+:func:`encode_lossless` (SOF3: any precision, predictor, point
+transform, sampling and restart interval, one scan or a scan a
+component) and :func:`encode_dct` (SOF1 at 12 bits, 16-bit quantization
+tables) write those of ``tests/data/images`` (``image_fixtures.py``).
 
 ``manifest.json`` gives each file's size, its mode and the sha256 of
 libjpeg-turbo's RGB decode (``cv2.imdecode``, EXIF orientation ignored,
@@ -393,6 +397,173 @@ def encode_separate_scans(rgb: np.ndarray, quality: int = 85,
         out += bw.out
     out += b"\xff\xd9"
     return bytes(out)
+
+
+# ------------------------------------------- lossless and 12-bit JPEG
+# neither OpenCV nor Pillow writes these modes: the encoders below do,
+# with tables made for each file (optimal Huffman codes, Annex K.2)
+ADOBE_RGB = _segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00\x00")
+ADOBE_YCC = _segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00\x01")
+ADOBE_YCCK = _segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00\x02")
+JFIF = _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+RGB_IDS = (82, 71, 66)          # 'R', 'G', 'B': libjpeg's RGB guess
+
+
+def _predict(plane: np.ndarray, psv: int, initial: int,
+             restart_rows: int) -> np.ndarray:
+    """T.81 H.1.2.1's differences of one component (int64, already
+    shifted by the point transform): the first row of the scan and of each
+    restart interval predicts from the left (``initial`` for its first
+    sample), the first column from above, the rest by predictor ``psv``."""
+    x = plane.astype(np.int64)
+    h, w = x.shape
+    pred = np.empty_like(x)
+    ra = np.zeros_like(x)
+    ra[:, 1:] = x[:, :-1]
+    rb = np.zeros_like(x)
+    rb[1:] = x[:-1]
+    rc = np.zeros_like(x)
+    rc[1:, 1:] = x[:-1, :-1]
+    pred[:] = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc,
+               5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+               7: (ra + rb) >> 1}[psv]
+    pred[:, 0] = rb[:, 0]
+    for y in range(h):
+        if y == 0 or (restart_rows and y % restart_rows == 0):
+            pred[y, 1:] = x[y, :-1]
+            pred[y, 0] = initial
+    return ((x - pred + 32768) & 0xFFFF) - 32768
+
+
+def encode_lossless(planes, precision: int = 8, psv: int = 1, pt: int = 0,
+                    sampling=None, ids=RGB_IDS, restart_rows: int = 0,
+                    separate: bool = False, app: bytes = b"",
+                    size: tuple | None = None) -> bytes:
+    """A lossless JPEG (SOF3, Huffman) of ``planes`` (one 2-D array of
+    samples a component, each at its own sampling): precision 2-16,
+    predictor ``psv`` 1-7, point transform ``pt``, ``sampling`` (h, v)
+    per component, restarts every ``restart_rows`` MCU rows, one
+    interleaved scan or (``separate``) a scan a component; ``app``:
+    segments after SOI; ``size``: the image's (height, width) where the
+    planes are subsampled."""
+    n = len(planes)
+    sampling = sampling or [(1, 1)] * n
+    ids = list(ids)[:n] if n > 1 else [1]
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    height, width = size or planes[0].shape
+    diffs = []
+    for c, plane in enumerate(planes):
+        rows = restart_rows * (1 if separate else sampling[c][1])
+        diffs.append(_predict(np.asarray(plane).astype(np.int64) >> pt, psv,
+                              1 << (precision - pt - 1), rows))
+    groups = [[c] for c in range(n)] if separate else [list(range(n))]
+    scans, freq = [], {}
+    mcux, mcuy = -(-width // hmax), -(-height // vmax)
+    for group in groups:
+        if len(group) == 1:
+            shape = [(1, 1)]
+            ny, nx = diffs[group[0]].shape
+        else:
+            shape = [sampling[c] for c in group]
+            ny, nx = mcuy, mcux
+        syms = []
+        for my in range(ny):
+            if restart_rows and my and my % restart_rows == 0:
+                syms.append(("rst", (my // restart_rows - 1) & 7))
+            for mx in range(nx):
+                for c, (hh, vv) in zip(group, shape):
+                    d = diffs[c]
+                    for y in range(vv):
+                        for x in range(hh):
+                            yy, xx = my * vv + y, mx * hh + x
+                            v = int(d[yy, xx]) if yy < d.shape[0] \
+                                and xx < d.shape[1] else 0
+                            s = 16 if v == -32768 else _category(v)
+                            syms.append(("d", s, v))
+                            freq[s] = freq.get(s, 0) + 1
+        scans.append((group, mcux if len(group) > 1 else nx, syms))
+    counts, symbols = _huffman_table(freq)
+    codes = _codes(counts, symbols)
+    out = bytearray(b"\xff\xd8") + app
+    sof = bytes([precision]) + height.to_bytes(2, "big") \
+        + width.to_bytes(2, "big") + bytes([n])
+    for c in range(n):
+        sof += bytes([ids[c], (sampling[c][0] << 4) | sampling[c][1], 0])
+    out += _segment(0xC3, sof)
+    out += _segment(0xC4, bytes([0] + counts + symbols))
+    for group, per_row, syms in scans:
+        if restart_rows:
+            out += _segment(0xDD, (restart_rows * per_row).to_bytes(2, "big"))
+        sel = [x for c in group for x in (ids[c], 0)]
+        out += _segment(0xDA, bytes([len(group)] + sel + [psv, 0, pt]))
+        bw = _BitWriter()
+        for sym in syms:
+            if sym[0] == "rst":
+                bw.flush()
+                bw.out += bytes([0xFF, 0xD0 + sym[1]])
+                continue
+            _, s, v = sym
+            bw.put(*codes[s])
+            if 0 < s < 16:
+                bw.put(v if v >= 0 else v + (1 << s) - 1, s)
+        bw.flush()
+        out += bw.out
+    return bytes(out + b"\xff\xd9")
+
+
+def encode_dct(samples: np.ndarray, precision: int = 12, quant: int = 2,
+               sof: int = 0xC1, ids=(1, 2, 3)) -> bytes:
+    """A sequential Huffman JPEG (``sof`` 0xC0 or 0xC1) of ``samples``
+    ((h, w) or (h, w, c), 1x1 sampling, no colour transform) at
+    ``precision`` 8 or 12 bits, one 16-bit quantization table of
+    ``quant`` everywhere, optimal Huffman tables, one interleaved scan.
+    At 8 bits it is an ordinary file OpenCV reads (the check of the
+    encoder); at 12 bits OpenCV reads none."""
+    x = np.asarray(samples).astype(np.float64)
+    if x.ndim == 2:
+        x = x[..., None]
+    h, w, n = x.shape
+    cmat = _dct_matrix()
+    bh, bw_ = -(-h // 8), -(-w // 8)
+    comps = []
+    for c in range(n):
+        plane = np.pad(x[..., c], ((0, bh * 8 - h), (0, bw_ * 8 - w)),
+                       mode="edge") - (1 << (precision - 1))
+        blocks = plane.reshape(bh, 8, bw_, 8).transpose(0, 2, 1, 3)
+        coefs = cmat @ blocks @ cmat.T
+        q = np.rint(coefs / quant).astype(int).reshape(bh * bw_, 64)
+        comps.append(q[:, _ZIGZAG])
+    syms, prev = [], [0] * n
+    for b in range(bh * bw_):
+        for c in range(n):
+            s, prev[c] = _block_symbols(comps[c][b], prev[c])
+            syms += s
+    freqs = ({}, {})
+    for kind, sym, _, _ in syms:
+        d = freqs[0 if kind == "dc" else 1]
+        d[sym] = d.get(sym, 0) + 1
+    tables = [_huffman_table(d) for d in freqs]
+    out = bytearray(b"\xff\xd8")
+    out += _segment(0xDB, bytes([0x10]) + b"".join(
+        quant.to_bytes(2, "big") for _ in range(64)))
+    frame = bytes([precision]) + h.to_bytes(2, "big") + w.to_bytes(2, "big")
+    frame += bytes([n]) + b"".join(bytes([ids[c], 0x11, 0])
+                                   for c in range(n))
+    out += _segment(sof, frame)
+    for cls, (counts, symbols) in enumerate(tables):
+        out += _segment(0xC4, bytes([cls << 4] + counts + symbols))
+    out += _segment(0xDA, bytes([n] + [x for c in range(n)
+                                       for x in (ids[c], 0)] + [0, 63, 0]))
+    codes = [_codes(*t) for t in tables]
+    bw = _BitWriter()
+    for kind, sym, bits, nbits in syms:
+        code, length = codes[0 if kind == "dc" else 1][sym]
+        bw.put(code, length)
+        if nbits:
+            bw.put(bits, nbits)
+    bw.flush()
+    return bytes(out + bw.out + b"\xff\xd9")
 
 
 # ---------------------------------------------------------------- fixtures

@@ -5,8 +5,9 @@
 //
 // Each file is decoded as given and then with seeded mutations (bytes
 // overwritten in the headers or anywhere, or the file truncated), at full
-// size and again at a DCT scale of 1/8 to 4/8, the two flavours
-// (libjpeg's, OpenCV's) in turn. Every call must return a status without a
+// size and again at a DCT scale of 1/8 to 4/8, the flavours (libjpeg's,
+// OpenCV's and the two of TIFF strips) in turn; lossless files decode in
+// the OpenCV flavours, at full size only. Every call must return a status without a
 // memory or undefined-behaviour fault; prints "ok <decoded> refused
 // <errors> scaled <decoded at the scale>", a decode with a libjpeg warning
 // (status 4 or 5: a truncated file) counted as decoded.
@@ -45,8 +46,9 @@ int main(int argc, char** argv) {
             }
             int w = 0, h = 0, c = 0;
             char err[256];
-            const int flavour = it % 2;
-            if (epk_jpeg_info(m.data(), m.size(), 8, &w, &h, &c, err, 256)) {
+            const int flavour = it % 4;
+            if (epk_jpeg_info(m.data(), m.size(), 8, &w, &h, &c, flavour, err,
+                              256)) {
                 ++refused;
                 continue;
             }
@@ -61,7 +63,8 @@ int main(int argc, char** argv) {
             else
                 ++refused;
             const int s = 1 + it % 4;
-            if (epk_jpeg_info(m.data(), m.size(), s, &w, &h, &c, err, 256))
+            if (epk_jpeg_info(m.data(), m.size(), s, &w, &h, &c, flavour, err,
+                              256))
                 continue;
             std::vector<uint8_t> small(size_t(w) * h * 3);
             if (decoded(epk_jpeg_decode_rgb(m.data(), m.size(), s, small.data(),

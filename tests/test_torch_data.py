@@ -196,22 +196,25 @@ def test_zipreader_round_trip_matches_jax(tmp_path, rng):
 def test_imread_decodes_jpegs_without_native_loader_or_cv2(tmp_path,
                                                           monkeypatch):
     """A JPEG decodes with neither the native loader nor OpenCV (the
-    port's own decoder, libjpeg-turbo's bits), and so does a PNG (the
-    port's PNG decoder); a TIFF without OpenCV raises ImportError naming
-    it."""
+    port's own decoder, libjpeg-turbo's bits), and so do a PNG and a TIFF
+    as OpenCV writes them (the port's decoders); a TIFF the port leaves
+    to OpenCV (CCITT G4) raises ImportError without it, naming it."""
+    from PIL import Image
     img = np.random.default_rng(0).integers(0, 256, (8, 8, 3), np.uint8)
     jpg, png = tmp_path / "a.jpg", tmp_path / "a.png"
-    tif = tmp_path / "a.tif"
+    tif, g4 = tmp_path / "a.tif", tmp_path / "g4.tif"
     cv2.imwrite(str(jpg), img)
     cv2.imwrite(str(png), img)
     cv2.imwrite(str(tif), img)
+    Image.fromarray(img[..., 0] > 127).save(g4, compression="group4")
     want = cv2.imread(str(jpg), cv2.IMREAD_COLOR)
     monkeypatch.setattr(tfast, "available", lambda: False)
     monkeypatch.setitem(sys.modules, "cv2", None)    # import cv2 fails
     np.testing.assert_array_equal(tzip.imread(str(jpg)), want)
     np.testing.assert_array_equal(tzip.imread(str(png)), img)
-    with pytest.raises(ImportError, match="a TIFF file.*OpenCV"):
-        tzip.imread(str(tif))
+    np.testing.assert_array_equal(tzip.imread(str(tif)), img)
+    with pytest.raises(ImportError, match="a TIFF file with CCITT G4.*OpenCV"):
+        tzip.imread(str(g4))
     monkeypatch.undo()
     bad = tmp_path / "bad.jpg"
     bad.write_bytes(b"\xff\xd8not a jpeg")

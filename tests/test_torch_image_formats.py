@@ -1,14 +1,18 @@
-"""Images that are not JPEG give the same pixels in the port as in the JAX
-package, and imread picks its decoder by the file's first bytes.
+"""Images that are not JPEG, and lossless and 12-bit JPEGs, give the same
+pixels in the port as in the JAX package, and imread picks its decoder
+by the file's first bytes.
 
 The files are ``tests/data/images/`` (``tests/image_fixtures.py`` writes
 them and their manifest): PNG at every colour type and bit depth, Adam7,
 each filter type, several IDATs, tRNS, palette indices past PLTE,
 gAMA/iCCP/sRGB, eXIf orientations 1-8 in both byte orders, an APNG; PNM
 P1-P6 at maxvals 1, 100, 255, 1000 and 65535; BMP core/INFO/V4/V5 at 1,
-4, 8, 16, 24 and 32 bits, top-down, RLE8 and RLE4; and damaged files of
-each. Equal bits, BGR and ``rgb=True``, on plain and ``zip@`` paths,
-against
+4, 8, 16, 24 and 32 bits, top-down, RLE8 and RLE4; TIFF of every layout
+and compression OpenCV reads (``tests/test_torch_tiff.py`` holds the
+rest of TIFF); lossless JPEGs (every predictor, point transforms,
+restarts, subsampling, 2-8 bits, RGB and CMYK, and the modes OpenCV
+gives no image of) and 12-bit ones; and damaged files of each. Equal
+bits, BGR and ``rgb=True``, on plain and ``zip@`` paths, against
 
 - ``cv2.imread`` and ``cv2.imdecode`` (OpenCV 5.0.0, the JAX package's
   reader), live and through the manifest's hashes (what the card's run
@@ -44,7 +48,9 @@ MUTATED = ("png_filter4.png", "png_ct3_d4_adam7_11x13.png",
            "png_gama_iccp_srgb.png",
            "pnm_p5_comments.pgm", "pnm_p3_max1000.ppm", "pnm_p1_packed.pbm",
            "bmp_4bit_v5_topdown.bmp", "bmp_16bit_565_bitfields.bmp",
-           "bmp_32bit_v4_10bit_masks.bmp", "bmp_rle8.bmp", "bmp_rle4.bmp")
+           "bmp_32bit_v4_10bit_masks.bmp", "bmp_rle8.bmp", "bmp_rle4.bmp",
+           "jpeg_lossless_restart2.jpg", "jpeg_lossless_sub422_restart.jpg",
+           "jpeg_lossless_separate_scans.jpg", "jpeg_lossless_cmyk.jpg")
 MUTATIONS = 50
 
 
@@ -139,15 +145,7 @@ def test_imread_is_opencvs_and_the_jax_imread(name, archive):
         except cv2.error:
             jax_img = "raises"
         assert _same(got, jax_img), where
-    needs = None
-    if imgformats.sniff(buf.tobytes()) == "png":
-        try:
-            png.decode(buf.tobytes())
-        except imgformats.NeedsOpenCV as e:
-            needs = e.what
-        except IOError:
-            pass
-    assert needs == entry["needs_opencv"]
+    assert imf.needs_opencv(buf.tobytes()) == entry["needs_opencv"]
 
 
 def _chunk_at(buf: bytes, i: int):
@@ -234,7 +232,7 @@ def test_a_jpeg_under_any_name_takes_the_ports_decoder(suffix, tmp_path,
         np.testing.assert_array_equal(tzip.imread(where), want)
         assert jpeg.decode_count() == before + 1
     assert tzip.route_counts() == dict(jpeg=2, png=0, pnm=0, bmp=0,
-                                       opencv=0)
+                                       tiff=0, opencv=0)
 
 
 def test_a_png_named_jpg_gives_the_jax_pixels(tmp_path, monkeypatch):
@@ -268,9 +266,10 @@ def test_opencv_also_picks_its_decoder_by_signature(tmp_path):
             np.testing.assert_array_equal(cv2.imread(str(p)), want)
     kinds = [imgformats.sniff((imf.FIXTURE_DIR / n).read_bytes())
              for n in MANIFEST]
-    assert set(kinds) == {"png", "pnm", "bmp"}
+    assert set(kinds) == {"png", "pnm", "bmp", "tiff", "jpeg"}
     for near in (b"P7\n1 1\n", b"P5x", b"P0 1 1 1\n", b"B", b"\xff\xd8\x00",
-                 b"\x89PNG\r\n\x1a\x00"):
+                 b"\x89PNG\r\n\x1a\x00", b"II*\x01", b"MM*\x00",
+                 b"II\x00*", b"MM\x00,", b"II,\x00"):
         assert imgformats.sniff(near) is None
         assert cv2.imdecode(np.frombuffer(near + bytes(64), np.uint8),
                             cv2.IMREAD_COLOR) is None
@@ -282,23 +281,34 @@ def test_opencv_also_picks_its_decoder_by_signature(tmp_path):
 def test_without_opencv_the_error_names_the_format(what, buf, tmp_path,
                                                    monkeypatch):
     """Where OpenCV is still needed and missing, the ImportError names the
-    format found."""
+    format found (a TIFF the port leaves to OpenCV names its compression
+    too). A lossless JPEG needs OpenCV no longer: the port reads one that
+    OpenCV reads, and refuses one that OpenCV gives no image of (16-bit)
+    with IOError, naming it, not ImportError."""
     img = jf.render(16, 16, 3)
     if what == "a TIFF file":
-        ok, enc = cv2.imencode(".tif", img)
-        buf = enc.tobytes()
+        buf = (imf.FIXTURE_DIR / "tiff_pillow_g4.tif").read_bytes()
+        what = "a TIFF file with CCITT G4 compression"
     elif what == "a WebP file":
         ok, enc = cv2.imencode(".webp", img)
         buf = enc.tobytes()
     elif what == "a lossless JPEG":
-        base = (jf.FIXTURE_DIR / "s420_37x29.jpg").read_bytes()
-        sof = base.index(b"\xff\xc0")
-        buf = base[:sof + 1] + b"\xc3" + base[sof + 2:]
+        buf = (imf.FIXTURE_DIR / "jpeg_lossless_psv4.jpg").read_bytes()
+        want = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
+        refused = (imf.FIXTURE_DIR
+                   / "jpeg_lossless_16bit_refused.jpg").read_bytes()
     else:
         buf = (imf.FIXTURE_DIR / "png_apng_hidden_default.png").read_bytes()
     path = tmp_path / "x.jpg"
     path.write_bytes(buf)
     monkeypatch.setitem(sys.modules, "cv2", None)
+    if what == "a lossless JPEG":
+        np.testing.assert_array_equal(tzip.imread(str(path)), want)
+        path.write_bytes(refused)
+        with pytest.raises(IOError, match="lossless, 16-bit") as e:
+            tzip.imread(str(path))
+        assert not isinstance(e.value, ImportError)
+        return
     with pytest.raises(ImportError, match=what):
         tzip.imread(str(path))
 

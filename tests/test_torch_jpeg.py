@@ -16,11 +16,15 @@ restart interval) must decode to equal arrays, at full size and at the
 scales 1/8, 2/8 and 4/8; 3/8 on the cases whose sides are multiples of 8.
 Truncated or corrupt bytes raise IOError (a truncated file's, which
 libjpeg decodes with a warning, holds that decode); lossless,
-hierarchical and 12-bit files are refused by name; the modes once refused
-decode as OpenCV decodes them; neither the source nor the build names
-libjpeg. ``tests/test_torch_image_modes.py`` holds the files of those
-modes (``tests/data/jpeg/modes/``) to libjpeg and to the JAX package's
-readers.
+hierarchical and 12-bit files are refused by name in the libjpeg flavour
+(and by the native loader), as libjpeg-turbo 2.1 refuses them, and
+hierarchical and 12-bit ones in OpenCV's too, where lossless files
+(``tests/data/images/jpeg_lossless_*``, written by
+``jpeg_fixtures.encode_lossless``) decode as OpenCV 5 decodes them; the
+modes once refused decode as OpenCV decodes them; neither the source nor
+the build names libjpeg. ``tests/test_torch_image_modes.py`` holds the
+files of those modes (``tests/data/jpeg/modes/``) to libjpeg and to the
+JAX package's readers.
 """
 
 import json
@@ -31,11 +35,17 @@ import cv2
 import numpy as np
 import pytest
 
+import image_fixtures as imf
 import jpeg_fixtures as jf
 from epipolarpose_tpu_torch.data import cxx_library, fastloader, jpeg
 from epipolarpose_tpu_torch.data import zipreader as tzip
 
 MANIFEST = json.loads((jf.FIXTURE_DIR / "manifest.json").read_text())
+# the lossless JPEGs OpenCV reads, and the lossless and 12-bit ones it
+# gives no image of
+LOSSLESS = sorted(p.name for p in imf.FIXTURE_DIR.glob("jpeg_lossless_*")
+                  if "refused" not in p.name and "truncated" not in p.name)
+NO_IMAGE = sorted(p.name for p in imf.FIXTURE_DIR.glob("jpeg_*refused*"))
 
 
 def _native_decode(buf: bytes):
@@ -392,7 +402,7 @@ def test_refused_modes_are_named(mode):
     buf, named = _refused_cases()[mode]
     if named:
         with pytest.raises(jpeg.UnsupportedJpeg) as e:
-            jpeg.decode(buf)
+            jpeg.decode(buf, flavour="libjpeg")
         assert e.value.mode == named
         assert isinstance(e.value, IOError)
         return
@@ -465,8 +475,10 @@ def test_imread_takes_the_decoder_without_the_native_loader(tmp_path):
 
 
 def test_imread_sends_a_refused_mode_to_opencv(tmp_path, monkeypatch):
-    """A JPEG mode the decoder refuses (12-bit) goes to OpenCV and names
-    itself when OpenCV is missing. CMYK and progressive files no longer go
+    """A JPEG mode the decoder refuses (12-bit) went to OpenCV, which gives
+    no image of it either: the port raises IOError itself, naming the
+    mode, with OpenCV (as OpenCV's None) and without it (fault C8), and
+    never imports OpenCV for it. CMYK and progressive files no longer go
     there, nor does a PNG (the port's PNG decoder reads it, not counted
     as a JPEG decode)."""
     png = tmp_path / "frame_32x24.png"
@@ -476,6 +488,10 @@ def test_imread_sends_a_refused_mode_to_opencv(tmp_path, monkeypatch):
     twelve.write_bytes(_refused_cases()["12-bit"][0])
     cmyk = tmp_path / "cmyk_32x24.jpg"
     cmyk.write_bytes(_refused_cases()["cmyk"][0])
+    assert cv2.imread(str(twelve), cv2.IMREAD_COLOR) is None
+    with pytest.raises(IOError, match="12-bit") as e:
+        tzip.imread(str(twelve))
+    assert not isinstance(e.value, ImportError)
     jpeg.reset_count()
     np.testing.assert_array_equal(tzip.imread(str(png), rgb=True), img)
     want_cmyk = _opencv_rgb(cmyk.read_bytes(), 8)
@@ -483,30 +499,29 @@ def test_imread_sends_a_refused_mode_to_opencv(tmp_path, monkeypatch):
     prog.write_bytes((jf.FIXTURE_DIR / prog.name).read_bytes())
     want = jf.libjpeg_rgb(prog.read_bytes())
     monkeypatch.setitem(sys.modules, "cv2", None)
+    tzip.reset_route_counts()
     np.testing.assert_array_equal(tzip.imread(str(prog), rgb=True), want)
     np.testing.assert_array_equal(tzip.imread(str(cmyk), rgb=True),
                                   want_cmyk)
     assert jpeg.decode_count() == 2            # the PNG not counted
-    with pytest.raises(ImportError, match="12-bit") as e:
+    with pytest.raises(IOError, match="12-bit") as e:
         tzip.imread(str(twelve))
-    assert str(twelve) in str(e.value) and "OpenCV" in str(e.value)
+    assert str(twelve) in str(e.value)
+    assert tzip.route_counts()["opencv"] == 0
     np.testing.assert_array_equal(tzip.imread(str(png), rgb=True), img)
     assert jpeg.decode_count() == 2
 
 
-def test_mutated_files_fail_cleanly_under_sanitizers(tmp_path):
-    """Mutated and truncated fixtures, the progressive ones among them
-    (EOB runs, refinement scans) and those of ``modes/`` (arithmetic
-    coding, block smoothing, truncated data, 4x4 sampling, YCCK), through
-    the decoder built with AddressSanitizer and UndefinedBehaviorSanitizer
-    (``tests/jpeg_fuzz.cpp``), each at full size and at a DCT scale of 1/8
-    to 4/8, in both flavours: every call returns a status, none faults."""
+@pytest.fixture(scope="module")
+def sanitized_fuzz(tmp_path_factory):
+    """``tests/jpeg_fuzz.cpp`` built once with AddressSanitizer and
+    UndefinedBehaviorSanitizer."""
     import shutil
     import subprocess
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++")
-    exe = tmp_path / "jpeg_fuzz"
+    exe = tmp_path_factory.mktemp("fuzz") / "jpeg_fuzz"
     build = subprocess.run(
         [cxx, "-O1", "-g", "-std=c++17", "-fsanitize=address,undefined",
          "-fno-sanitize-recover=undefined", "-I", str(jpeg.SOURCE.parent),
@@ -514,6 +529,18 @@ def test_mutated_files_fail_cleanly_under_sanitizers(tmp_path):
         capture_output=True, text=True)
     if build.returncode:
         pytest.skip(f"g++ cannot build with sanitizers: {build.stderr[-300:]}")
+    return exe
+
+
+def test_mutated_files_fail_cleanly_under_sanitizers(sanitized_fuzz):
+    """Mutated and truncated fixtures, the progressive ones among them
+    (EOB runs, refinement scans) and those of ``modes/`` (arithmetic
+    coding, block smoothing, truncated data, 4x4 sampling, YCCK), through
+    the decoder built with AddressSanitizer and UndefinedBehaviorSanitizer
+    (``tests/jpeg_fuzz.cpp``), each at full size and at a DCT scale of 1/8
+    to 4/8, in every flavour: every call returns a status, none faults."""
+    import subprocess
+    exe = sanitized_fuzz
     files = [str(jf.FIXTURE_DIR / n) for n, e in MANIFEST.items()
              if e["bytes"] < 5000]
     progressive = [f for f in files if "progressive" in f]
@@ -544,3 +571,105 @@ def test_parallel_decodes_match_the_manifest():
         outs = list(pool.map(jpeg.decode, bufs))
     for name, rgb in zip(names, outs):
         assert jf.rgb_sha256(rgb) == MANIFEST[name]["rgb_sha256"], name
+
+
+@pytest.mark.parametrize("name", LOSSLESS)
+def test_lossless_files_decode_as_opencv_reads_them(name):
+    """Each lossless fixture OpenCV reads: OpenCV's flavour gives its
+    bits (libjpeg-turbo 3.1's predictors, point transform, restarts and
+    replicated chroma; RGB as coded, CMYK converted as OpenCV converts
+    it), the size ``jpeg_info`` gives is its size, and the libjpeg flavour
+    refuses the file by name, as libjpeg-turbo 2.1 does."""
+    buf = (imf.FIXTURE_DIR / name).read_bytes()
+    want = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
+    got = jpeg.decode(buf, flavour="opencv")
+    np.testing.assert_array_equal(got, want[..., ::-1])
+    assert jpeg.jpeg_info(buf, 8, "opencv")[:2] == (got.shape[1],
+                                                     got.shape[0])
+    with pytest.raises(jpeg.UnsupportedJpeg) as e:
+        jpeg.decode(buf, flavour="libjpeg")
+    assert e.value.mode == "lossless (SOF3)"
+
+
+@pytest.mark.parametrize("name", NO_IMAGE)
+def test_modes_opencv_reads_none_of_are_refused_by_name(name):
+    """Lossless files of other colour spaces or precisions and 12-bit
+    files (SOF1 at 12 bits, 16-bit quantization tables), which OpenCV 5
+    gives no image of: refused in both flavours, naming the mode, before
+    any pixel is decoded; hierarchical files too. A restart interval of
+    part of an MCU row is an error (libjpeg-turbo 3.1 refuses it)."""
+    buf = (imf.FIXTURE_DIR / name).read_bytes()
+    assert cv2.imdecode(np.frombuffer(buf, np.uint8),
+                        cv2.IMREAD_COLOR) is None
+    for flavour in ("libjpeg", "opencv"):
+        with pytest.raises(IOError) as e:
+            jpeg.decode(buf, flavour=flavour)
+        if "restart" in name:
+            assert flavour == "libjpeg" or "restart interval" in str(e.value)
+            continue
+        assert isinstance(e.value, jpeg.UnsupportedJpeg)
+        words = ("lossless", "12-bit", "16-bit")
+        assert any(w in e.value.mode for w in words), e.value.mode
+    base = jf.encode_lossless([np.zeros((8, 8), np.uint8)] * 3)
+    sof = base.index(b"\xff\xc3")
+    for kind in (5, 6, 7):
+        hier = base[:sof + 1] + bytes([0xC0 + kind]) + base[sof + 2:]
+        for flavour in ("libjpeg", "opencv"):
+            with pytest.raises(jpeg.UnsupportedJpeg, match="hierarchical"):
+                jpeg.decode(hier, flavour=flavour)
+
+
+def test_the_native_loader_refuses_lossless_and_12bit_frames():
+    """The native loader decodes with the libjpeg flavour: a lossless or
+    12-bit frame gives a zero crop and counts as unsupported, as the JAX
+    loader's libjpeg-turbo 2.1 refuses it; an ordinary frame beside it
+    is decoded."""
+    frames = [(imf.FIXTURE_DIR / n).read_bytes()
+              for n in ("jpeg_lossless_psv1.jpg",
+                        "jpeg_12bit_sof1_refused.jpg",
+                        "jpeg_8bit_twin_of_12bit.jpg")]
+    M = np.tile(np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], np.float32),
+                (3, 1, 1))
+    fastloader.reset_counts()
+    out = fastloader.decode_warp_batch(frames, M, (16, 16))
+    assert not out[0].any() and not out[1].any() and out[2].any()
+    assert fastloader.decode_counts() == {"scale": {8: 1}, "failed": 2,
+                                         "unsupported": 2, "warned": 0}
+    from epipolarpose_tpu.data import fastloader as jfast
+    if jfast.available():
+        np.testing.assert_array_equal(
+            out, jfast.decode_warp_batch(frames, M, (16, 16),
+                                         dtype=np.uint8))
+
+
+def test_the_fixture_encoders_write_valid_files():
+    """``encode_dct`` writes what OpenCV reads at 8 bits (within the
+    quantization's error), so its 12-bit files differ from valid ones in
+    the precision and the tables only; ``encode_lossless`` round-trips
+    through OpenCV exactly."""
+    img = jf.render(21, 26, 3)
+    buf = jf.encode_dct(img, 8, 2, ids=jf.RGB_IDS)
+    got = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
+    assert np.abs(got[..., ::-1].astype(int) - img).max() <= 3
+    twelve = (imf.FIXTURE_DIR / "jpeg_12bit_sof1_refused.jpg").read_bytes()
+    sof = twelve.index(b"\xff\xc1")
+    assert twelve[sof + 4] == 12
+    buf = jf.encode_lossless([img[..., c] for c in range(3)], psv=4)
+    got = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
+    np.testing.assert_array_equal(got[..., ::-1], img)
+
+
+def test_lossless_files_fail_cleanly_under_sanitizers(sanitized_fuzz):
+    """Mutated and truncated lossless fixtures (restarts, subsampling, a
+    scan a component, CMYK, 2-7 bits) through the decoder built with
+    AddressSanitizer and UndefinedBehaviorSanitizer
+    (``tests/jpeg_fuzz.cpp``), in every flavour: every call returns a
+    status, none faults."""
+    import subprocess
+    files = [str(imf.FIXTURE_DIR / n) for n in LOSSLESS]
+    run = subprocess.run([str(sanitized_fuzz), "150", *files],
+                         capture_output=True,
+                         text=True, timeout=120)
+    assert run.returncode == 0, run.stderr[-2000:]
+    ok, refused, _ = map(int, run.stdout.split()[1::2])
+    assert ok > len(files) and refused > len(files)
