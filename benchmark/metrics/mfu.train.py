@@ -1,0 +1,11 @@
+"""Share (%) of the card's bf16 dense peak (989 TFLOP/s) that the
+window's rate reaches on the model's analytic operations: the forward
+three times a crop (forward and backward), plus the teacher's forward
+where there is one; recomputation not counted."""
+from benchmark import rooflines
+from benchmark.readers import rate
+
+
+def read(record):
+    return (100.0 * record["flops_per_sample"] * rate(record)
+            / rooflines.BF16_TENSOR_FLOPS)
