@@ -441,26 +441,15 @@ def launch_counts() -> dict:
 
 
 def reset_counts() -> None:
-    """Set every launch counter to 0."""
-    from epipolarpose_tpu_torch.core.self_supervised import teacher_detect
-    from epipolarpose_tpu_torch.kernels import softargmax as ksa
-    from epipolarpose_tpu_torch.kernels.triangulate import triangulate_fast
-    ksa.softmax_integral.launches = ksa.softmax_integral_bwd.launches = 0
-    triangulate_fast.launches = teacher_detect.calls = 0
-    triangulate_fast.launches_thread = triangulate_fast.launches_split = 0
-    reset_matmul_routes()
+    """Set every launch counter to 0 (``telemetry.reset``)."""
+    from epipolarpose_tpu_torch import telemetry
+    telemetry.reset()
 
 
 def matmul_routes():
     from epipolarpose_tpu_torch.kernels.matmul_stats import matmul_stats
     return (matmul_stats.launches, matmul_stats.launches_wgmma,
             matmul_stats.launches_simt)
-
-
-def reset_matmul_routes() -> None:
-    from epipolarpose_tpu_torch.kernels.matmul_stats import matmul_stats
-    matmul_stats.launches = 0
-    matmul_stats.launches_wgmma = matmul_stats.launches_simt = 0
 
 
 def phase_matmul_stats(res: dict) -> None:
@@ -4413,10 +4402,12 @@ print(json.dumps({"modules": sorted(m for m in sys.modules
                   "device": str(artifact.device)}))
 """
 # the modules a process that serves an artifact may import: the op's
-# module (and its packages and build helper) and the loader's
+# module (and its packages, build helper and counters' registry) and the
+# loader's
 SERVE_MODULES = ["epipolarpose_tpu_torch", "epipolarpose_tpu_torch.kernels",
                  "epipolarpose_tpu_torch.kernels._build",
                  "epipolarpose_tpu_torch.kernels.softargmax",
+                 "epipolarpose_tpu_torch.telemetry",
                  "epipolarpose_tpu_torch.tools",
                  "epipolarpose_tpu_torch.tools.export_model"]
 

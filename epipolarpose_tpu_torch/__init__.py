@@ -46,9 +46,8 @@ keeps as its own copy. Layout mirrors the reference package:
              ``profile_step --step`` (the train step and its parts),
              ``--conv1x1`` (the 1x1-conv matmul+stats bench),
              ``bench_triangulate``, ``ss_convergence`` (the SS loop's MPJPE
-             curve), ``trace_summary`` (a profiler trace's top kernels
-             and idle share) and ``time_eager_step`` (ms a step of the
-             unfused train step, for A/B runs of two checkouts).
+             curve) and ``trace_summary`` (a profiler trace's top kernels
+             and idle share).
 
 Entry points take a ``device`` argument that defaults to ``"cuda"``; the
 CPU runs only when the caller asks for it.

@@ -10,6 +10,11 @@ model group hold the same predictions) and hands them to
 ``dataset.evaluate``. A ``writer`` is anything with tensorboard's
 ``add_scalar(tag, value, step)``. Under data parallelism every process
 runs the loops and only the first writes files and scalars.
+
+Spans (``telemetry``): ``loop.data_wait`` around each ``next`` of the
+loader, ``loop.log`` around ``train``'s read of the loss and
+``loop.to_host`` around ``validate``'s copy of the predictions, the two
+points where a loop waits for the card.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import time
 import numpy as np
 import torch
 
+from epipolarpose_tpu_torch import telemetry
 from epipolarpose_tpu_torch.parallel.mesh import (data_count, data_group,
                                                   process_allgather,
                                                   process_index)
@@ -56,6 +62,19 @@ def _mean(a) -> float:
     return float(np.mean(_host(a)))
 
 
+def _waited(loader):
+    """``loader``'s batches, each ``next`` inside a ``loop.data_wait``
+    span."""
+    batches = iter(loader)
+    end = object()
+    while True:
+        with telemetry.span("loop.data_wait"):
+            batch = next(batches, end)
+        if batch is end:
+            return
+        yield batch
+
+
 def train(cfg, loader, state, train_step, epoch: int, writer=None,
           output_dir=None):
     """One training epoch of ``train_step`` over ``loader`` (any iterable
@@ -64,7 +83,8 @@ def train(cfg, loader, state, train_step, epoch: int, writer=None,
     (``add_scalar`` at the optimizer step), and with ``DEBUG.DEBUG`` dumps
     the batch's images for a single-view batch into ``output_dir``: the
     only points where it waits for the card. The loss is the step's, a
-    mean over the processes; samples/s counts the global batch.
+    mean over the processes; samples/s counts the global batches since
+    the previous log over the wall time since it.
 
     A fused step is told by the rank of its metrics, not their size: a
     tail super-batch of one stacked batch has (1,) metrics and still
@@ -76,15 +96,17 @@ def train(cfg, loader, state, train_step, epoch: int, writer=None,
         writer = output_dir = None
     batch_time, data_time = AverageMeter(), AverageMeter()
     losses, accs = AverageMeter(), AverageMeter()
-    end = time.time()
+    end = last_log = time.time()
+    since_log = 0
     metrics = None
-    for i, batch in enumerate(loader):
+    for i, batch in enumerate(_waited(loader)):
         data_time.update(time.time() - end)
         state, metrics = train_step(state, batch)
         fused = np.ndim(metrics["loss"]) >= 1
         n = int(batch["input"].shape[0]) * data_count()
         if fused:
             n *= int(batch["input"].shape[1])
+        since_log += n
         if i % int(cfg.PRINT_FREQ) == 0:
             first = {k: batch[k][0] if fused else batch[k]
                      for k in ("input", "joints", "joints_vis")
@@ -95,14 +117,16 @@ def train(cfg, loader, state, train_step, epoch: int, writer=None,
                 dbg = {k: _host(v) for k, v in first.items()}
                 save_debug_images(cfg, dbg, None, None, None,
                                   f"{output_dir}/train_{epoch}_{i}")
-            loss_v = _mean(metrics["loss"])          # waits for the card
+            with telemetry.span("loop.log"):
+                loss_v = _mean(metrics["loss"])      # waits for the card
+                acc_v = _mean(metrics["acc"]) if "acc" in metrics else None
             losses.update(loss_v, n)
-            acc_v = None
-            if "acc" in metrics:
-                acc_v = _mean(metrics["acc"])
+            if acc_v is not None:
                 accs.update(acc_v, n)
-            batch_time.update(time.time() - end)
-            speed = n / max(batch_time.val, 1e-9)
+            now = time.time()
+            batch_time.update(now - end)
+            speed = since_log / max(now - last_log, 1e-9)
+            since_log, last_log = 0, now
             msg = (f"Epoch: [{epoch}][{i}]\t"
                    f"Time {batch_time.val:.3f}s ({speed:.1f} samples/s)\t"
                    f"Data {data_time.val:.3f}s\t"
@@ -139,8 +163,10 @@ def validate(cfg, loader, dataset, eval_step, output_dir=None, writer=None,
     all_preds, all_boxes = [], []
     n_seen = n_batches = 0
     t0 = time.perf_counter()
-    for batch in loader:
-        preds = eval_step(batch)["preds"].cpu().numpy()  # waits for the card
+    for batch in _waited(loader):
+        out = eval_step(batch)
+        with telemetry.span("loop.to_host"):
+            preds = out["preds"].cpu().numpy()       # waits for the card
         c, s = _host(batch["center"]), _host(batch["scale"])
         if preds.ndim == 4:      # a fused super-batch: (K, B, J, C)
             n_batches += preds.shape[0]

@@ -31,6 +31,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from epipolarpose_tpu_torch import telemetry
 from epipolarpose_tpu_torch.core.checkpoint import (load_model_variables,
                                                     read_state_dict)
 from epipolarpose_tpu_torch.core.refine import make_refiner_apply
@@ -46,7 +47,6 @@ from epipolarpose_tpu_torch.geometry.camera import (Camera,
                                                     world_to_camera_frame)
 from epipolarpose_tpu_torch.geometry.rig import pseudo_gt_uncalibrated
 from epipolarpose_tpu_torch.geometry.triangulation import triangulate
-from epipolarpose_tpu_torch.kernels import _build
 from epipolarpose_tpu_torch.kernels.triangulate import triangulate_fast
 from epipolarpose_tpu_torch.models.pose_resnet import PoseResNet
 from epipolarpose_tpu_torch.models.refiner import PoseRefiner
@@ -149,13 +149,13 @@ def teacher_detect(cfg, teacher: Teacher, imgs: torch.Tensor,
     preds, maxvals = get_max_preds(hm)
     preds = post_process_preds(hm, preds)
     joints_src = transform_preds(preds, centers, scales, (hm_w, hm_h))
-    _build.count(teacher_detect, "calls")
+    telemetry.count(teacher_detect, "calls")
     return joints_src.float(), maxvals.float()
 
 
 # calls of the teacher's forward and decode (no hand-written kernel; a
-# graph's at each replay, ``_build.count``)
-teacher_detect.calls = 0
+# graph's at each replay, ``telemetry.count``)
+telemetry.counter(teacher_detect, "calls")
 
 
 def triangulate_for(method: str) -> Callable:
@@ -256,7 +256,11 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
     CUDA-graph replay. With ``estimated`` cameras that graph is split
     around each cuSOLVER call of the rig (five a step), which reads its
     status on the host and so runs eagerly between two segments
-    (``graphs.host_op``).
+    (``graphs.host_op``). Spans (``telemetry``): ``ss.step`` around
+    ``ss.inputs``, ``ss.teacher``, ``ss.pseudo_gt`` (the triangulation or
+    the estimated rig, and the refiner), ``ss.targets`` (reprojection to
+    the integral targets) and the student's
+    (``core/steps.py::integral_update``).
     """
     cameras = str(cfg.TPU.SS_CAMERAS)
     if cameras not in ("given", "estimated"):
@@ -296,96 +300,118 @@ def make_ss_train_step(cfg, model: nn.Module, teacher: Teacher | None,
         def crops(key) -> torch.Tensor:
             return local_crops(flat(batch[key]))
 
-        imgs = crops("input")
-        centers = flat(batch["center"]).float()
-        scales = flat(batch["scale"]).float()
-        cam = batch["camera"].to(device)
+        with telemetry.span("ss.step"):
+            with telemetry.span("ss.inputs"):
+                imgs = crops("input")
+                centers = flat(batch["center"]).float()
+                scales = flat(batch["scale"]).float()
+                cam = batch["camera"].to(device)
 
-        with torch.no_grad():
-            # 1) 2D detections in source pixels
-            if "det_src" in batch:
-                joints_src = flat(batch["det_src"]).float()
-                conf = (flat(batch["det_conf"]).float()
-                        if "det_conf" in batch
-                        else torch.ones(joints_src.shape[:-1],
-                                        device=device))
-            elif detect_fn is not None:
-                joints_src, conf = detect_fn(imgs, centers, scales)
-            else:
-                joints_src, conf = teacher_detect(cfg, teacher, imgs,
-                                                  centers, scales)
-            # 2) triangulate; 3) project into each view
-            det = joints_src.reshape(G, V, num_joints, 2)
-            conf_gv = conf.reshape(G, V, -1)
-            if cameras == "estimated":
-                # the rig from the detections of the global batch (over
-                # the data group); every group shares it, the intrinsics
-                # are global group 0's; X in camera 0's frame; this
-                # process keeps its own groups
-                group = data_group()
-                intr = cam.map(lambda t: process_allgather(t[:1], group)[0])
-                x0, p_est, res = pseudo_gt_uncalibrated(
-                    process_allgather(det, group), intr,
-                    conf=process_allgather(conf_gv, group).contiguous(),
-                    bone_pairs=bones,
-                    bone_length_mm=bone_mm if bone_mm > 0 else None,
-                    solve=solve)
-                mine = slice(data_index() * G, (data_index() + 1) * G)
-                x0, res = x0[mine], res[mine]
-                if refiner is not None:
-                    root = x0[:, root_idx:root_idx + 1]
-                    x0 = root + refiner(x0 - root)
-                # each view's frame through the estimated [R | t], then
-                # pinhole pixels (no distortion)
-                xh = torch.cat([x0, torch.ones_like(x0[..., :1])], dim=-1)
-                x_cam = (p_est[None, :, None] * xh[:, None, :, None]).sum(-1)
-                z = x_cam[..., 2:3]
-                z = torch.where(z.abs() < 1e-6, torch.full_like(z, 1e-6), z)
-                px = (x_cam[..., :2] / z * intr.f[None, :, None]
-                      + intr.c[None, :, None])
-            else:
-                x_w, res = generate_pseudo_gt(cfg, det, conf_gv, cam, solve)
-                if refiner is not None:
-                    root = x_w[:, root_idx:root_idx + 1]
-                    x_w = root + refiner(x_w - root)
-                x_cam = world_to_camera_frame(x_w[:, None], cam)
-                px, _ = project_point_radial(x_w[:, None], cam)
-            px = px.reshape(G * V, num_joints, 2)
-            m = get_affine_transform(centers, scales, 0.0, image_size)
-            xy_crop = affine_transform(px, m[:, None])
-            z_rel = x_cam[..., 2].reshape(G * V, num_joints)
-            z_rel = z_rel - z_rel[..., root_idx:root_idx + 1]
-            vis = (flat(batch["joints_vis"]).float()
-                   if "joints_vis" in batch else torch.ones_like(z_rel))
-            # a joint supervises only where every view was confident;
-            # flat index g*V + v, so the gate repeats group by group
-            conf_ok = conf_gv.amin(dim=1) > conf_min
-            vis = vis * conf_ok.to(vis.dtype).repeat_interleave(V, dim=0)
-            # dual crop: the student trains on the augmented crop, targets
-            # remapped through its affine; a flip swaps left and right
-            if "input_aug" in batch:
-                imgs = crops("input_aug")
-                m_aug = flat(batch["aug_M"]).float()
-                xy_crop = affine_transform(px, m_aug[:, None])
-                flip = flat(batch["aug_flip"])[:, None] > 0.5
-                xy_crop = torch.where(flip[..., None],
-                                      xy_crop.index_select(1, perm), xy_crop)
-                z_rel = torch.where(flip, z_rel.index_select(1, perm), z_rel)
-                vis = torch.where(flip, vis.index_select(1, perm), vis)
-            target, tw = generate_integral_target(
-                xy_crop, vis, image_size, depth_bound=depth_bound,
-                joints_depth=z_rel)
-            # a degenerate triangulation can give nan/inf targets: zero
-            # their weight and sanitize them
-            tw = tw * torch.isfinite(target).all(dim=-1).to(tw.dtype)
-            target = torch.nan_to_num(target)
+            with torch.no_grad():
+                # 1) 2D detections in source pixels
+                with telemetry.span("ss.teacher"):
+                    if "det_src" in batch:
+                        joints_src = flat(batch["det_src"]).float()
+                        conf = (flat(batch["det_conf"]).float()
+                                if "det_conf" in batch
+                                else torch.ones(joints_src.shape[:-1],
+                                                device=device))
+                    elif detect_fn is not None:
+                        joints_src, conf = detect_fn(imgs, centers, scales)
+                    else:
+                        joints_src, conf = teacher_detect(
+                            cfg, teacher, imgs, centers, scales)
+                # 2) triangulate
+                det = joints_src.reshape(G, V, num_joints, 2)
+                conf_gv = conf.reshape(G, V, -1)
+                with telemetry.span("ss.pseudo_gt"):
+                    if cameras == "estimated":
+                        # the rig from the detections of the global batch
+                        # (over the data group); every group shares it,
+                        # the intrinsics are global group 0's; X in camera
+                        # 0's frame; this process keeps its own groups
+                        group = data_group()
+                        intr = cam.map(
+                            lambda t: process_allgather(t[:1], group)[0])
+                        x_w, p_est, res = pseudo_gt_uncalibrated(
+                            process_allgather(det, group), intr,
+                            conf=process_allgather(conf_gv,
+                                                   group).contiguous(),
+                            bone_pairs=bones,
+                            bone_length_mm=bone_mm if bone_mm > 0 else None,
+                            solve=solve)
+                        mine = slice(data_index() * G,
+                                     (data_index() + 1) * G)
+                        x_w, res = x_w[mine], res[mine]
+                    else:
+                        x_w, res = generate_pseudo_gt(cfg, det, conf_gv, cam,
+                                                      solve)
+                    if refiner is not None:
+                        root = x_w[:, root_idx:root_idx + 1]
+                        x_w = root + refiner(x_w - root)
+                # 3) project into each view; the targets
+                with telemetry.span("ss.targets"):
+                    if cameras == "estimated":
+                        # each view's frame through the estimated [R | t],
+                        # then pinhole pixels (no distortion)
+                        xh = torch.cat([x_w, torch.ones_like(x_w[..., :1])],
+                                       dim=-1)
+                        x_cam = (p_est[None, :, None]
+                                 * xh[:, None, :, None]).sum(-1)
+                        z = x_cam[..., 2:3]
+                        z = torch.where(z.abs() < 1e-6,
+                                        torch.full_like(z, 1e-6), z)
+                        px = (x_cam[..., :2] / z * intr.f[None, :, None]
+                              + intr.c[None, :, None])
+                    else:
+                        x_cam = world_to_camera_frame(x_w[:, None], cam)
+                        px, _ = project_point_radial(x_w[:, None], cam)
+                    px = px.reshape(G * V, num_joints, 2)
+                    m = get_affine_transform(centers, scales, 0.0,
+                                             image_size)
+                    xy_crop = affine_transform(px, m[:, None])
+                    z_rel = x_cam[..., 2].reshape(G * V, num_joints)
+                    z_rel = z_rel - z_rel[..., root_idx:root_idx + 1]
+                    vis = (flat(batch["joints_vis"]).float()
+                           if "joints_vis" in batch
+                           else torch.ones_like(z_rel))
+                    # a joint supervises only where every view was
+                    # confident; flat index g*V + v, so the gate repeats
+                    # group by group
+                    conf_ok = conf_gv.amin(dim=1) > conf_min
+                    vis = vis * conf_ok.to(vis.dtype).repeat_interleave(
+                        V, dim=0)
+                    # dual crop: the student trains on the augmented crop,
+                    # targets remapped through its affine; a flip swaps
+                    # left and right
+                    if "input_aug" in batch:
+                        imgs = crops("input_aug")
+                        m_aug = flat(batch["aug_M"]).float()
+                        xy_crop = affine_transform(px, m_aug[:, None])
+                        flip = flat(batch["aug_flip"])[:, None] > 0.5
+                        xy_crop = torch.where(flip[..., None],
+                                              xy_crop.index_select(1, perm),
+                                              xy_crop)
+                        z_rel = torch.where(flip,
+                                            z_rel.index_select(1, perm),
+                                            z_rel)
+                        vis = torch.where(flip, vis.index_select(1, perm),
+                                          vis)
+                    target, tw = generate_integral_target(
+                        xy_crop, vis, image_size, depth_bound=depth_bound,
+                        joints_depth=z_rel)
+                    # a degenerate triangulation can give nan/inf targets:
+                    # zero their weight and sanitize them
+                    tw = tw * torch.isfinite(target).all(dim=-1).to(
+                        tw.dtype)
+                    target = torch.nan_to_num(target)
 
-        # 4) the student's update
-        loss = integral_update(state, model, imgs, target, tw, num_joints,
-                               depth_dim, decode)
-        return state, mean_over_processes(
-            {"loss": loss, "tri_residual": res.mean(),
-             "teacher_conf": conf.mean()})
+            # 4) the student's update
+            loss = integral_update(state, model, imgs, target, tw,
+                                   num_joints, depth_dim, decode)
+            return state, mean_over_processes(
+                {"loss": loss, "tri_residual": res.mean(),
+                 "teacher_conf": conf.mean()})
 
     return fuse_steps(step, fused_steps, device,
                       warmup_for(model, fused_steps))

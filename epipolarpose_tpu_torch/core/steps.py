@@ -33,6 +33,7 @@ import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
+from epipolarpose_tpu_torch import telemetry
 from epipolarpose_tpu_torch.geometry.affine import (flip_back,
                                                     flip_back_volume,
                                                     shift_right,
@@ -140,7 +141,8 @@ class FusedSteps:
       on must be the one passed to every later call.
 
     ``gloo`` ranks on a card raise: their collectives go through the host
-    and no graph can hold them.
+    and no graph can hold them. Spans: ``fused.capture``, and
+    ``fused.replay`` (the copy into the static inputs, the replay).
     """
 
     def __init__(self, step: Callable, fused_steps: int,
@@ -227,19 +229,21 @@ class FusedSteps:
         entry = self.graphs.get(key)
         if entry is None:
             t0 = time.perf_counter()
-            static = map_batch(lambda a: torch.as_tensor(a).to(
-                self.device).clone(), superbatch)
-            graph = StepGraph(self._pool)
-            out = graph.capture(lambda: self._run(state, static)[1],
-                                self._stream)
+            with telemetry.span("fused.capture"):
+                static = map_batch(lambda a: torch.as_tensor(a).to(
+                    self.device).clone(), superbatch)
+                graph = StepGraph(self._pool)
+                out = graph.capture(lambda: self._run(state, static)[1],
+                                    self._stream)
             self.graphs[key] = (graph, static, out)
             self.capture_s += time.perf_counter() - t0
         else:
             graph, static, out = entry
-            for dst, src in zip(batch_leaves(static),
-                                batch_leaves(superbatch)):
-                dst.copy_(torch.as_tensor(src), non_blocking=True)
-            graph.replay()
+            with telemetry.span("fused.replay"):
+                for dst, src in zip(batch_leaves(static),
+                                    batch_leaves(superbatch)):
+                    dst.copy_(torch.as_tensor(src), non_blocking=True)
+                graph.replay()
             if self.stateful:
                 state.step += k
                 if state.scheduler is not None:
@@ -276,12 +280,17 @@ def optimizer_step(state, loss: torch.Tensor) -> None:
     (``models.pose_resnet._GlobalBatchNormFn``). Graph-safe: the gradients are dropped, not zeroed, so the
     backward allocates them in the graph's pool; the schedule sets the
     rate on the card (``core/train_state.py``); ``state.step`` is the
-    Python count, which a replay's caller advances."""
-    state.optimizer.zero_grad(set_to_none=True)
-    (loss * model_count()).backward()
-    state.optimizer.step()
-    state.scheduler.step()
-    state.step += 1
+    Python count, which a replay's caller advances. Spans:
+    ``train.backward``, and ``train.optimizer`` twice (the gradients
+    dropped before the backward; the step and the schedule after it)."""
+    with telemetry.span("train.optimizer"):
+        state.optimizer.zero_grad(set_to_none=True)
+    with telemetry.span("train.backward"):
+        (loss * model_count()).backward()
+    with telemetry.span("train.optimizer"):
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
 
 
 def integral_update(state, model: torch.nn.Module, x: torch.Tensor,
@@ -293,10 +302,13 @@ def integral_update(state, model: torch.nn.Module, x: torch.Tensor,
     update. ``model`` runs the forward: under data parallelism the DDP
     wrapper of ``state.model``, whose hooks average the gradients; under a
     model axis ``x`` is this process's rows and the decode sees the
-    gathered volume. Returns the loss, detached."""
-    model.train()
-    coords = decode(gather_rows(model(x)), num_joints, depth_dim)
-    loss = integral_l1_loss(coords, target, tw)
+    gathered volume. Returns the loss, detached. Spans:
+    ``train.forward`` (the mode switch to the loss), then those of
+    :func:`optimizer_step`."""
+    with telemetry.span("train.forward"):
+        model.train()
+        coords = decode(gather_rows(model(x)), num_joints, depth_dim)
+        loss = integral_l1_loss(coords, target, tw)
     optimizer_step(state, loss)
     return loss.detach()
 
@@ -329,7 +341,9 @@ def make_train_step(cfg, model: torch.nn.Module,
     ``fused_steps=K > 1``: the step takes K-stacked super-batches and
     returns (K,) metrics (:class:`FusedSteps`; on the card one CUDA-graph
     replay, after one super-batch of warm-up, or
-    :data:`DDP_WARMUP_STEPS` steps under DDP).
+    :data:`DDP_WARMUP_STEPS` steps under DDP). Spans (``telemetry``):
+    ``train.step`` around ``train.inputs``, ``train.targets`` and
+    :func:`integral_update`'s.
     """
     target_type = _check_target_type(cfg)
     device = torch.device(device)
@@ -351,31 +365,38 @@ def make_train_step(cfg, model: torch.nn.Module,
         if state.model is not net:
             raise ValueError("the train state holds another model than the "
                              "one this step was built for")
-        x = local_crops(to_device(batch["input"]))
-        joints = to_device(batch["joints"]).float()
-        vis = to_device(batch["joints_vis"])
-        if target_type == "gaussian":
-            target, tw = generate_target(joints, vis, heatmap_size, sigma,
-                                         image_size)
-            model.train()
-            out = gather_rows(model(x))
-            loss = joints_mse_loss(out, target, tw if use_tw else None)
-            optimizer_step(state, loss)
-            with torch.no_grad():
-                acc = heatmap_accuracy(out.detach(), target)[1]
-            return state, mean_over_processes({"loss": loss.detach(),
-                                               "acc": acc})
-        depth = None
-        if "joints_3d" in batch:
-            depth = _root_relative_depth(
-                to_device(batch["joints_3d"]).float(), root_idx)
-        target, tw = generate_integral_target(
-            joints, vis, image_size, depth_bound=depth_bound,
-            joints_depth=depth)
-        loss = integral_update(state, model, x, target,
-                               tw if use_tw else None, num_joints, depth_dim,
-                               decode)
-        return state, mean_over_processes({"loss": loss})
+        with telemetry.span("train.step"):
+            with telemetry.span("train.inputs"):
+                x = local_crops(to_device(batch["input"]))
+            with telemetry.span("train.targets"):
+                joints = to_device(batch["joints"]).float()
+                vis = to_device(batch["joints_vis"])
+                if target_type == "gaussian":
+                    target, tw = generate_target(joints, vis, heatmap_size,
+                                                 sigma, image_size)
+                else:
+                    depth = None
+                    if "joints_3d" in batch:
+                        depth = _root_relative_depth(
+                            to_device(batch["joints_3d"]).float(), root_idx)
+                    target, tw = generate_integral_target(
+                        joints, vis, image_size, depth_bound=depth_bound,
+                        joints_depth=depth)
+            if target_type == "gaussian":
+                with telemetry.span("train.forward"):
+                    model.train()
+                    out = gather_rows(model(x))
+                    loss = joints_mse_loss(out, target,
+                                           tw if use_tw else None)
+                optimizer_step(state, loss)
+                with torch.no_grad():
+                    acc = heatmap_accuracy(out.detach(), target)[1]
+                return state, mean_over_processes({"loss": loss.detach(),
+                                                   "acc": acc})
+            loss = integral_update(state, model, x, target,
+                                   tw if use_tw else None, num_joints,
+                                   depth_dim, decode)
+            return state, mean_over_processes({"loss": loss})
 
     return fuse_steps(step, fused_steps, device,
                       warmup_for(model, fused_steps))
@@ -405,7 +426,9 @@ def make_eval_step(cfg, model: torch.nn.Module, flip_pairs=(),
     running statistics and writes no buffer, so a train step built on the
     same model may run before and after it. ``fused_steps=K > 1``: the
     step takes K-stacked super-batches and returns (K, N, ...) outputs
-    under ``inference_mode`` (:class:`FusedSteps`).
+    under ``inference_mode`` (:class:`FusedSteps`). Spans: ``eval.step``
+    around ``eval.inputs`` (the mode switch, the crops), ``eval.forward``,
+    ``eval.flip`` and ``eval.decode``.
     """
     target_type = _check_target_type(cfg)
     device = torch.device(device)
@@ -422,32 +445,38 @@ def make_eval_step(cfg, model: torch.nn.Module, flip_pairs=(),
 
     @torch.inference_mode()
     def step(batch) -> dict[str, torch.Tensor]:
-        model.eval()
-        x = local_crops(torch.as_tensor(batch["input"]).to(
-            device, non_blocking=True))
-        out = model(x)
-        if flip_test:
-            out_f = model(x.flip(-1))
-            if target_type == "gaussian":
-                out_f = flip_back(out_f, flip_pairs)
-            else:
-                out_f = flip_back_volume(out_f, flip_pairs, num_joints,
-                                         depth_dim)
-            if shift_heatmap:
-                out_f = shift_right(out_f)
-            out = (out + out_f) * 0.5
-        out = gather_rows(out)
-        center = torch.as_tensor(batch["center"]).to(device)
-        scale = torch.as_tensor(batch["scale"]).to(device)
-        if target_type == "gaussian":
-            preds, maxvals = get_final_preds(out, center, scale,
-                                             post_process)
-            return {"preds": preds, "maxvals": maxvals}
-        coords = decode(out, num_joints, depth_dim)
-        # normalized -> crop pixels -> source pixels; z -> mm
-        xy_crop = (coords[..., :2] + 0.5) * size
-        xy_src = transform_preds(xy_crop, center, scale, image_size)
-        z_mm = integral_to_camera_depth(coords, depth_bound)
-        return {"preds": torch.cat([xy_src, z_mm[..., None]], dim=-1)}
+        with telemetry.span("eval.step"):
+            with telemetry.span("eval.inputs"):
+                model.eval()
+                x = local_crops(torch.as_tensor(batch["input"]).to(
+                    device, non_blocking=True))
+            with telemetry.span("eval.forward"):
+                out = model(x)
+            if flip_test:
+                with telemetry.span("eval.flip"):
+                    out_f = model(x.flip(-1))
+                    if target_type == "gaussian":
+                        out_f = flip_back(out_f, flip_pairs)
+                    else:
+                        out_f = flip_back_volume(out_f, flip_pairs,
+                                                 num_joints, depth_dim)
+                    if shift_heatmap:
+                        out_f = shift_right(out_f)
+                    out = (out + out_f) * 0.5
+            with telemetry.span("eval.decode"):
+                out = gather_rows(out)
+                center = torch.as_tensor(batch["center"]).to(device)
+                scale = torch.as_tensor(batch["scale"]).to(device)
+                if target_type == "gaussian":
+                    preds, maxvals = get_final_preds(out, center, scale,
+                                                     post_process)
+                    return {"preds": preds, "maxvals": maxvals}
+                coords = decode(out, num_joints, depth_dim)
+                # normalized -> crop pixels -> source pixels; z -> mm
+                xy_crop = (coords[..., :2] + 0.5) * size
+                xy_src = transform_preds(xy_crop, center, scale, image_size)
+                z_mm = integral_to_camera_depth(coords, depth_bound)
+                return {"preds": torch.cat([xy_src, z_mm[..., None]],
+                                           dim=-1)}
 
     return fuse_steps(step, fused_steps, device, stateful=False)

@@ -18,8 +18,9 @@ other op runs eagerly: anything else that synchronises, or copies from
 pageable host memory, fails the capture, and :class:`CaptureError` names
 the line of the step that did it.
 
-Kernel launch counters (``kernels/_build.py::count``) add a segment's
-launches at each of its replays.
+Kernel launch counters (``telemetry.count``) add a segment's launches at
+each of its replays. Each run of a host op, eager, at a capture or at a
+replay, is a ``graphs.host_op`` span: the op waits for the card.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 from torch._guards import detect_fake_mode
 
-from epipolarpose_tpu_torch.kernels import _build
+from epipolarpose_tpu_torch import telemetry
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _active = threading.local()
@@ -49,7 +50,8 @@ def host_op(fn, *args):
     segments (module docstring), and at every replay again."""
     graph = getattr(_active, "graph", None)
     if graph is None:
-        return fn(*args)
+        with telemetry.span("graphs.host_op"):
+            return fn(*args)
     return graph._split(fn, args)
 
 
@@ -122,7 +124,7 @@ class StepGraph:
         return sum(1 for s in self.segments if s[0] == "host")
 
     def _begin(self) -> None:
-        self._tally_ctx = _build.capture_tally()
+        self._tally_ctx = telemetry.capture_tally()
         self._tally = self._tally_ctx.__enter__()
         self._graph = torch.cuda.CUDAGraph()
         self._graph.capture_begin(pool=self.pool,
@@ -137,11 +139,12 @@ class StepGraph:
             self._tally_ctx.__exit__(None, None, None)
         self.segments.append(("graph", graph, dict(tally)))
         graph.replay()
-        _build.add_tally(tally)
+        telemetry.add_tally(tally)
 
     def _split(self, fn, args):
         self._end()
-        out = fn(*args)
+        with telemetry.span("graphs.host_op"):
+            out = fn(*args)
         self.segments.append(("host", fn, args, out))
         self._begin()
         return out
@@ -189,10 +192,11 @@ class StepGraph:
             try:
                 if seg[0] == "graph":
                     seg[1].replay()
-                    _build.add_tally(seg[2])
+                    telemetry.add_tally(seg[2])
                 else:
                     _, fn, args, out = seg
-                    _copy_into(out, fn(*args))
+                    with telemetry.span("graphs.host_op"):
+                        _copy_into(out, fn(*args))
             except Exception as exc:
                 what = ("a graph segment" if seg[0] == "graph"
                         else f"host op {getattr(seg[1], '__name__', seg[1])}")

@@ -16,16 +16,12 @@ the library; :func:`kernel_resources` reads it.
 Launches go to PyTorch's current stream (:func:`launch_args`), so a
 CUDA-graph capture on that stream records them. ``cudaSetDevice`` and
 ``cudaGetLastError`` are legal during a capture: neither synchronises nor
-touches the stream. A wrapper counts its launches with :func:`count`:
-outside a capture it adds one at once; inside one it adds to the
-capture's tally (:func:`capture_tally`), which the graph adds to the
-counters at each replay, when the kernels really run.
+touches the stream. A wrapper counts its launches through
+``telemetry.count``, which a graph's replay adds again.
 """
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import ctypes
 import functools
 import hashlib
@@ -183,39 +179,3 @@ def launch_args(device: torch.device) -> tuple[int, int]:
              else torch.cuda.current_device())
     return index, current_stream(index)
 
-
-# launches recorded by the capture under way (graphs.StepGraph), or None
-_tally: collections.Counter | None = None
-
-
-def count(fn, *names: str) -> None:
-    """Add one launch to each counter ``fn.<name>``, or, while a
-    :func:`capture_tally` is open and the current stream captures, to the
-    tally that each replay of the graph adds."""
-    if (_tally is not None and torch.cuda.is_initialized()
-            and torch.cuda.is_current_stream_capturing()):
-        for name in names:
-            _tally[(fn, name)] += 1
-        return
-    for name in names:
-        setattr(fn, name, getattr(fn, name) + 1)
-
-
-@contextlib.contextmanager
-def capture_tally():
-    """Collect the :func:`count` calls of a capture into a Counter of
-    ``(fn, name) -> launches``; :func:`add_tally` adds it at a replay."""
-    global _tally
-    if _tally is not None:
-        raise RuntimeError("a capture's launch tally is already open")
-    _tally = tally = collections.Counter()
-    try:
-        yield tally
-    finally:
-        _tally = None
-
-
-def add_tally(tally: collections.Counter) -> None:
-    """Add a captured graph's launches to the counters (one replay)."""
-    for (fn, name), n in tally.items():
-        setattr(fn, name, getattr(fn, name) + n)

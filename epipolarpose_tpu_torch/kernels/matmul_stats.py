@@ -20,6 +20,7 @@ import functools
 
 import torch
 
+from epipolarpose_tpu_torch import telemetry
 from epipolarpose_tpu_torch.kernels import _build
 
 _BM = 128                 # rows of y per block tile, both routes
@@ -109,8 +110,7 @@ def matmul_stats(x: torch.Tensor, w: torch.Tensor
                                      stats.data_ptr(), m, k, n,
                                      *_build.launch_args(x.device))
     _build.check(lib, code, "epk_matmul_stats_simt")
-    matmul_stats.launches_simt += 1
-    matmul_stats.launches += 1
+    telemetry.count(matmul_stats, "launches", "launches_simt")
     return y, stats
 
 
@@ -130,13 +130,11 @@ def _wgmma(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor
                                 buf.data_ptr(), buf.data_ptr() + 8 * n, m, k,
                                 n, bn, grid, index, stream)
     _build.check(lib, code, "epk_matmul_stats")
-    matmul_stats.launches_wgmma += 1
-    matmul_stats.launches += 1
+    telemetry.count(matmul_stats, "launches", "launches_wgmma")
     return buf[:2 * n].view(2, n)
 
 
 # launches of the CUDA kernels, all and per route; the CPU path does not
 # count
-matmul_stats.launches = 0
-matmul_stats.launches_wgmma = 0
-matmul_stats.launches_simt = 0
+telemetry.counter(matmul_stats, "launches", "launches_wgmma",
+                  "launches_simt")

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from epipolarpose_tpu_torch import telemetry
 from epipolarpose_tpu_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -167,7 +168,7 @@ def softmax_integral_fwd(logits: torch.Tensor, num_joints: int,
         stats.data_ptr() if with_stats else None, _DTYPE_CODE[logits.dtype],
         n * num_joints, depth_dim, h, w, *_build.launch_args(logits.device))
     _build.check(lib, code, "epk_softargmax_fwd")
-    _build.count(softmax_integral, "launches")
+    telemetry.count(softmax_integral, "launches")
     return out, stats
 
 
@@ -200,7 +201,7 @@ def softmax_integral_bwd(logits: torch.Tensor, stats: torch.Tensor,
         dlogits.data_ptr(), _DTYPE_CODE[logits.dtype], n * j, d, h, w,
         *_build.launch_args(logits.device))
     _build.check(lib, code, "epk_softargmax_bwd")
-    _build.count(softmax_integral_bwd, "launches")
+    telemetry.count(softmax_integral_bwd, "launches")
     return dlogits
 
 
@@ -263,6 +264,6 @@ def _softmax_integral_op_fake(logits: torch.Tensor, num_joints: int,
 
 
 # launches of the CUDA kernels (a graph's at each replay,
-# ``_build.count``); the CPU path does not count
-softmax_integral.launches = 0
-softmax_integral_bwd.launches = 0
+# ``telemetry.count``); the CPU path does not count
+telemetry.counter(softmax_integral, "launches")
+telemetry.counter(softmax_integral_bwd, "launches")

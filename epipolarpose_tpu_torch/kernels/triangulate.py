@@ -28,6 +28,7 @@ import functools
 
 import torch
 
+from epipolarpose_tpu_torch import telemetry
 from epipolarpose_tpu_torch.geometry.triangulation import triangulate
 from epipolarpose_tpu_torch.kernels import _build
 
@@ -133,12 +134,11 @@ def triangulate_fast(points2d: torch.Tensor, P: torch.Tensor,
         None if weights is None else weights.data_ptr(), x.data_ptr(),
         res.data_ptr(), n, v, j, index, _build.current_stream(index))
     _build.check(lib, code, "epk_triangulate")
-    _build.count(triangulate_fast, "launches", f"launches_{layout}")
+    telemetry.count(triangulate_fast, "launches", f"launches_{layout}")
     return x, res
 
 
 # launches of the CUDA kernel, all and per layout (a graph's at each
-# replay, ``_build.count``); the CPU path does not count
-triangulate_fast.launches = 0
-triangulate_fast.launches_thread = 0
-triangulate_fast.launches_split = 0
+# replay, ``telemetry.count``); the CPU path does not count
+telemetry.counter(triangulate_fast, "launches", "launches_thread",
+                  "launches_split")

@@ -204,7 +204,9 @@ def _profiled(cfg, loader, state, tstep, epoch, writer, output_dir, tb_dir,
     """``train`` for one epoch under ``torch.profiler``, recording from its
     third step on (the first carries cuDNN's autotuning, the second warms
     the profiler); writes the Chrome trace into ``tb_dir`` and logs its
-    summary."""
+    summary and the program's spans over the recorded steps
+    (``telemetry.snapshot``)."""
+    from epipolarpose_tpu_torch import telemetry
     from epipolarpose_tpu_torch.core import train
     from epipolarpose_tpu_torch.tools.trace_summary import summarize
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -231,6 +233,8 @@ def _profiled(cfg, loader, state, tstep, epoch, writer, output_dir, tb_dir,
     prof.export_chrome_trace(path)
     logger.info(f"profiler trace of steps 3-{len(steps)} written to {path}: "
                 f"{summarize(path, 10)}")
+    logger.info("spans of the recorded steps, ms a call:\n"
+                + telemetry.table(telemetry.snapshot()))
     return out
 
 

@@ -310,6 +310,8 @@ def test_profile_writes_a_trace_from_the_third_step(tmp_path):
     assert len(traces) == 1
     log = next((tmp_path / "out").rglob("prof_*_train.log")).read_text()
     assert "profiler trace of steps 3-4 written to" in log
+    assert "spans of the recorded steps" in log
+    assert "\ntrain.step  2  " in log
 
 
 RUNNER = """

@@ -175,8 +175,9 @@ def test_cli_reports_symbolic_batch_specs(cli_export):
 def test_load_in_a_process_with_only_torch_and_the_op(cli_export,
                                                       tmp_path):
     """The artifact serves in a fresh process that imports ``torch`` and
-    ``load_exported`` (which imports the op's module and nothing else of
-    the port: no model, config or step code), as it serves here."""
+    ``load_exported`` (which imports the op's module, and the counters'
+    registry it declares its launches in, and nothing else of the port: no
+    model, config or step code), as it serves here."""
     path = cli_export[0]
     x = torch.from_numpy(_images()[:3])
     torch.save(x, tmp_path / "x.pt")
@@ -196,7 +197,7 @@ def test_load_in_a_process_with_only_torch_and_the_op(cli_export,
         "epipolarpose_tpu_torch", "epipolarpose_tpu_torch.kernels",
         "epipolarpose_tpu_torch.kernels._build",
         "epipolarpose_tpu_torch.kernels.softargmax",
-        "epipolarpose_tpu_torch.tools",
+        "epipolarpose_tpu_torch.telemetry", "epipolarpose_tpu_torch.tools",
         "epipolarpose_tpu_torch.tools.export_model"]
     # the same program in two processes: oneDNN may split a sum another
     # way on another thread count

@@ -4,9 +4,9 @@ what makes a step capturable, without JAX (the card's machine has none).
 On the CPU: the helpers a capture relies on, each with its plain
 behaviour outside a capture: ``constant`` (small tensors copied from the
 host once), ``host_op`` (the call itself), the launch counters'
-``count``/``capture_tally``/``add_tally``, the constant-index forms of
-the flip-back and pair swaps against list indexing, and the cached
-copies of ``make_gt_teacher``.
+``telemetry.count``/``capture_tally``/``add_tally``, the constant-index
+forms of the flip-back and pair swaps against list indexing, and the
+cached copies of ``make_gt_teacher``.
 
 On the card (marker ``cuda``; they skip here), run as
 ``python -m pytest --noconftest -p no:cacheprovider -q -m cuda
@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from epipolarpose_tpu_torch import telemetry
 from epipolarpose_tpu_torch.config import load_config
 from epipolarpose_tpu_torch.core import create_train_state, make_train_step
 from epipolarpose_tpu_torch.core import self_supervised as tss
@@ -34,7 +35,6 @@ from epipolarpose_tpu_torch.geometry.affine import (flip_back,
                                                     flip_back_volume,
                                                     get_affine_transform)
 from epipolarpose_tpu_torch.graphs import constant, host_op
-from epipolarpose_tpu_torch.kernels import _build
 from epipolarpose_tpu_torch.models import get_pose_net
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -90,16 +90,16 @@ def test_launch_counts_outside_a_capture_add_at_once():
     def fn():
         pass
     fn.launches = fn.launches_split = 0
-    _build.count(fn, "launches", "launches_split")
-    with _build.capture_tally() as tally:
-        _build.count(fn, "launches")   # not capturing: counted at once
+    telemetry.count(fn, "launches", "launches_split")
+    with telemetry.capture_tally() as tally:
+        telemetry.count(fn, "launches")   # not capturing: counted at once
         with pytest.raises(RuntimeError, match="already open"):
-            with _build.capture_tally():
+            with telemetry.capture_tally():
                 pass
     assert (fn.launches, fn.launches_split) == (2, 1) and not tally
     tally[(fn, "launches")] += 3
-    _build.add_tally(tally)
-    _build.add_tally(tally)
+    telemetry.add_tally(tally)
+    telemetry.add_tally(tally)
     assert fn.launches == 8
 
 
